@@ -1,0 +1,109 @@
+"""Rules the port keeps: it imports neither ``jax`` nor ``repro``, its entry
+points run on the card unless told otherwise, it passes the repo's lint,
+and its configuration matches the reference's field for field."""
+import ast
+import dataclasses
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.analysis.lint import lint_root  # noqa: E402
+from repro.configs import get_config as jax_get_config  # noqa: E402
+from repro_torch import cuda_build, resolve_device  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models.transformer import period_spec  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imported_roots(path):
+    roots = []
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            roots += [a.name.split(".")[0] for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.append(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_port_imports_neither_jax_nor_reference(path):
+    bad = [r for r in _imported_roots(path) if r in FORBIDDEN]
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_scan_finds_forbidden_imports(tmp_path):
+    f = tmp_path / "m.py"
+    f.write_text("import jax.numpy as jnp\nfrom repro.models import x\n"
+                 "from repro_torch import y\nfrom . import z\n")
+    assert [r for r in _imported_roots(f) if r in FORBIDDEN] == [
+        "jax", "repro"]
+
+
+def test_entry_points_default_to_cuda():
+    cfg = get_config("transformer-100m").smoke_config()
+    if torch.cuda.is_available():
+        assert build_model(cfg).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build_model(cfg)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            resolve_device()
+    api = build_model(cfg, device="cpu")
+    assert api.device == torch.device("cpu")
+    params = api.init(0)
+    assert all(p.device.type == "cpu" for p in params.parameters())
+
+
+def test_lint_finds_nothing_in_the_port():
+    port = [f for f in lint_root(ROOT)
+            if "repro_torch" in f.where or "chip_smoke" in f.where]
+    assert port == [], port
+
+
+@pytest.mark.parametrize("smoke", [False, True])
+def test_config_matches_reference_field_for_field(smoke):
+    port, ref = get_config("transformer-100m"), jax_get_config(
+        "transformer-100m")
+    if smoke:
+        port, ref = port.smoke_config(), ref.smoke_config()
+    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+    assert (port.head_dim_, port.padded_vocab, port.q_per_kv) == (
+        ref.head_dim_, ref.padded_vocab, ref.q_per_kv)
+
+
+def test_unported_architectures_raise_naming_their_slice():
+    with pytest.raises(NotImplementedError, match="slice 5"):
+        get_config("gemma2-27b")
+    moe = dataclasses.replace(get_config("transformer-100m"), family="moe",
+                              n_experts=4, experts_per_tok=2)
+    with pytest.raises(NotImplementedError, match="slice 5"):
+        period_spec(moe)
+    assert period_spec(get_config("transformer-100m")) == (("attn", "dense"),)
+
+
+def test_build_helper_keys_libraries_by_source(tmp_path):
+    src = tmp_path / "k.cu"
+    src.write_text("extern \"C\" int f() { return 0; }\n")
+    a = cuda_build.library_path(src)
+    assert a.parent == cuda_build.BUILD_DIR and a.name.startswith("k-")
+    assert cuda_build.library_path(src) == a
+    src.write_text("extern \"C\" int f() { return 1; }\n")
+    assert cuda_build.library_path(src) != a
+
+
+def test_build_helper_raises_without_nvcc(monkeypatch):
+    import shutil
+
+    import torch.utils.cpp_extension as ext
+    monkeypatch.setattr(shutil, "which", lambda name: None)
+    monkeypatch.setattr(ext, "CUDA_HOME", None)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        cuda_build.nvcc_path()
