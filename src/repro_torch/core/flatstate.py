@@ -1,0 +1,101 @@
+"""Flat-state parameter store: the (T, 128) float32 layout as a persistent
+buffer — the port of ``repro/core/flatstate.py``.
+
+``FlatMeta`` records a parameter tree's structure once: the leaves in the
+reference's order (``jax.tree_util.tree_flatten`` order, dict keys sorted
+at every level), their shapes, dtypes, sizes and offsets, and the padded
+row count T (rounded up to ``ROW_ALIGN``).  So the port's ``(n, T, 128)``
+store equals the reference's element for element.
+
+  * ``flatten`` builds the buffer; the trainer calls it once, at init.
+  * ``unflatten`` returns per-leaf VIEWS into a buffer (no copy) for
+    float32 leaves; a leaf of another dtype comes back as a cast copy, as
+    the reference's ``astype`` does.
+
+Gradients reach one flat grad buffer without a parameter-sized ``cat``
+through the trainer's binding (``core/trainer.py``): every leaf view is
+made its own autograd leaf and its ``.grad`` is preset to the matching view
+of the grad buffer, so autograd's accumulation adds into that buffer in
+place.  (Differentiating through slices of one big leaf instead would make
+PyTorch's slice backward allocate a buffer-sized zero tensor per leaf — the
+torch form of the pad-and-add transpose the reference's custom VJP avoids.)
+
+The pad region is written as zeros by ``flatten`` and never escapes:
+``unflatten`` drops it, and no gradient lands there.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Tuple
+
+import torch
+
+from ..tree import tree_flatten, tree_unflatten
+
+__all__ = ["LANE", "ROW_ALIGN", "FlatMeta", "flat_meta"]
+
+LANE = 128
+ROW_ALIGN = 8           # row count a multiple of 8, as the reference's
+
+
+@dataclasses.dataclass(frozen=True)
+class FlatMeta:
+    """Static description of a tree's flat (T, 128) layout."""
+    treedef: Any
+    shapes: Tuple[Tuple[int, ...], ...]
+    dtypes: Tuple[torch.dtype, ...]    # per-leaf dtypes, restored on unflatten
+    sizes: Tuple[int, ...]
+    offsets: Tuple[int, ...]
+    n_elem: int                        # real (unpadded) element count
+    rows: int                          # T: padded row count, multiple of 8
+
+    @property
+    def padded(self) -> int:
+        return self.rows * LANE
+
+    def leading(self, tree) -> Tuple[int, ...]:
+        """Leading axes (e.g. the learner axis) a tree carries over the
+        recorded leaf shapes."""
+        for leaf, shape in zip(tree_flatten(tree)[0], self.shapes):
+            return tuple(leaf.shape[:leaf.dim() - len(shape)])
+        return ()
+
+    def flatten(self, tree, *, device=None) -> torch.Tensor:
+        """Tree (leaves ``lead + shape``) -> ``lead + (T, 128)`` float32
+        buffer on ``device`` (default: the leaves' device).  Writes each
+        leaf into its slot of one zeroed buffer — no concatenate."""
+        leaves = tree_flatten(tree)[0]
+        lead = self.leading(tree)
+        dev = leaves[0].device if device is None else device
+        out = torch.zeros(lead + (self.padded,), dtype=torch.float32,
+                          device=dev)
+        for leaf, off, sz in zip(leaves, self.offsets, self.sizes):
+            out[..., off:off + sz] = leaf.reshape(lead + (sz,))
+        return out.view(lead + (self.rows, LANE))
+
+    def unflatten(self, flat: torch.Tensor):
+        """``lead + (T, 128)`` buffer -> tree of per-leaf views (float32
+        leaves) or cast copies (other dtypes)."""
+        lead = tuple(flat.shape[:-2])
+        v = flat.reshape(lead + (self.padded,))
+        leaves = []
+        for off, sz, shape, dt in zip(self.offsets, self.sizes, self.shapes,
+                                      self.dtypes):
+            leaf = v[..., off:off + sz].view(lead + shape)
+            leaves.append(leaf if dt == flat.dtype else leaf.to(dt))
+        return tree_unflatten(self.treedef, leaves)
+
+
+def flat_meta(tree) -> FlatMeta:
+    """FlatMeta for ``tree``'s structure (leaves as given: no learner axis)."""
+    leaves, treedef = tree_flatten(tree)
+    shapes = tuple(tuple(x.shape) for x in leaves)
+    sizes = tuple(int(x.numel()) for x in leaves)
+    offsets, off = [], 0
+    for sz in sizes:
+        offsets.append(off)
+        off += sz
+    rows = -(-off // LANE)
+    rows += (-rows) % ROW_ALIGN
+    return FlatMeta(treedef, shapes, tuple(x.dtype for x in leaves), sizes,
+                    tuple(offsets), off, rows)

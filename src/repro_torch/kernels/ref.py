@@ -11,6 +11,50 @@ import torch
 NEG_INF = -1e30
 
 
+def gossip_mix_update_flat_ref(w, remote, grads, momentum, partners, coefs,
+                               *, lr: float, beta: float = 0.0,
+                               weight_decay: float = 0.0,
+                               has_momentum: bool = True, buffer=None):
+    """Same contract as ``kernels.gossip_mix.gossip_mix_update_flat``, with
+    fresh outputs: returns (w_new, mu_new[, buffer_new]).
+
+    w, remote, grads, momentum, buffer: (n, T, 128); partners (K, n) int;
+    coefs (n, K + 3) ``[self, nbr..., lr scale, active]``, plus
+    ``[nbr_fresh, publish]`` in publish mode.  The arithmetic order of
+    ``repro.kernels.ref.gossip_mix_update_flat_ref`` (self term first,
+    neighbours in schedule order, fused lr scale, ``where`` selects), one
+    rounded operation at a time — the CUDA kernel repeats it bitwise.
+    With ``lr=0.0`` this is the mixing-only round."""
+    K = partners.shape[0]
+    publish = buffer is not None
+    p = partners.long()
+
+    def col(j):
+        return coefs[:, j][:, None, None]
+
+    mixed = col(0) * w
+    for k in range(K):
+        nbr = remote[p[k]]
+        if publish:
+            nbr = torch.where(col(3 + K) > 0.5, nbr, buffer[p[k]])
+        mixed = mixed + col(1 + k) * nbr
+    g = grads
+    if weight_decay:
+        g = g + weight_decay * w
+    lr_eff = lr * col(1 + K)
+    active = col(2 + K) > 0.5
+    if has_momentum:
+        mu_new = beta * momentum + g
+        new_w = torch.where(active, mixed - lr_eff * mu_new, w)
+        mu_out = torch.where(active, mu_new, momentum)
+    else:
+        new_w = torch.where(active, mixed - lr_eff * g, w)
+        mu_out = momentum
+    if publish:
+        return new_w, mu_out, torch.where(col(4 + K) > 0.5, new_w, buffer)
+    return new_w, mu_out
+
+
 def paged_decode_attention_ref(q, k_pages, v_pages, page_table, lengths, *,
                                window: int = 0, attn_softcap: float = 0.0):
     """Same contract as ``kernels.ops.paged_decode_attention``.

@@ -1,9 +1,13 @@
-"""Attention for the serving path: GQA projections and paged decode.
+"""Attention: GQA projections, chunked attention for training/prefill,
+and paged decode for serving.
 
-Port of the paged half of ``repro/models/attention.py``
-(``init_attn_params``, ``init_paged_attn_cache``, ``attn_decode_paged``).
-Weights keep the reference's (d_in, d_out) orientation and the layer
-computes ``x @ w``, so the arithmetic matches the reference's.
+Port of ``repro/models/attention.py`` (``init_attn_params``,
+``chunked_attention``, ``attn_forward``, ``init_paged_attn_cache``,
+``attn_decode_paged``).  Weights keep the reference's (d_in, d_out)
+orientation and the layer computes ``x @ w``, so the arithmetic matches
+the reference's.  The rotating-buffer ``attn_decode`` and the
+``use_pallas`` flash-attention route arrive with the model zoo (ROADMAP
+slice 5).
 """
 from __future__ import annotations
 
@@ -13,7 +17,9 @@ import torch
 from torch import nn
 
 from ..kernels.ops import paged_decode_attention
-from .layers import dense_init
+from .layers import dense_init, softcap
+
+NEG_INF = -1e30
 
 
 class AttnParams(nn.Module):
@@ -34,6 +40,86 @@ def init_attn_params(gen: torch.Generator, d_model: int, n_heads: int,
         dense_init(gen, d_model, n_kv * head_dim, dtype),
         dense_init(gen, d_model, n_kv * head_dim, dtype),
         dense_init(gen, n_heads * head_dim, d_model, dtype))
+
+
+# ---------------------------------------------------------------------------
+# chunked attention core (training / prefill)
+# ---------------------------------------------------------------------------
+
+def chunked_attention(q, k, v, *, q_positions, k_positions,
+                      causal: bool = True, window: int = 0,
+                      attn_softcap: float = 0.0, chunk: int = 1024):
+    """q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd); positions: (Sq,), (Sk,).
+
+    Returns (B, Sq, H, hd).  Blocked over both q and k with an online
+    softmax in float32, the reference's loop written out.  The reference
+    rematerializes each q block in the backward pass (``jax.checkpoint``);
+    here autograd keeps the blocks' activations, which at the training
+    shapes of this slice (S = 512, chunk 256) is a few MB per layer.
+    """
+    B, Sq, H, hd = q.shape
+    _, Sk, KV, _ = k.shape
+    G = H // KV
+    cq, ck = min(chunk, Sq), min(chunk, Sk)
+    if Sq % cq or Sk % ck:
+        raise ValueError(f"sequence lengths {Sq}, {Sk} are not multiples of "
+                         f"the attention chunk {chunk}")
+    nq, nk = Sq // cq, Sk // ck
+    scale = hd ** -0.5
+    qs = q.reshape(B, nq, cq, KV, G, hd)
+    ks = k.reshape(B, nk, ck, KV, hd)
+    vs = v.reshape(B, nk, ck, KV, hd)
+    outs = []
+    for iq in range(nq):
+        qb = qs[:, iq].float()
+        qpb = q_positions[iq * cq:(iq + 1) * cq]
+        m = torch.full((B, KV, G, cq), NEG_INF, device=q.device)
+        lsum = torch.zeros((B, KV, G, cq), device=q.device)
+        acc = torch.zeros((B, cq, KV, G, hd), device=q.device)
+        for ik in range(nk):
+            kpb = k_positions[ik * ck:(ik + 1) * ck]
+            s = torch.einsum("bqkgd,bckd->bkgqc", qb,
+                             ks[:, ik].float()) * scale
+            if attn_softcap:
+                s = softcap(s, attn_softcap)
+            mask = torch.ones((cq, ck), dtype=torch.bool, device=q.device)
+            if causal:
+                mask &= qpb[:, None] >= kpb[None, :]
+            if window:
+                mask &= qpb[:, None] - kpb[None, :] < window
+            s = torch.where(mask, s, NEG_INF)
+            m_new = torch.maximum(m, torch.amax(s, dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            lsum = lsum * corr + torch.sum(p, dim=-1)
+            pv = torch.einsum("bkgqc,bckd->bqkgd", p, vs[:, ik].float())
+            acc = acc * corr.permute(0, 3, 1, 2)[..., None] + pv
+            m = m_new
+        outs.append(acc / torch.clamp(lsum, min=1e-30).permute(0, 3, 1, 2)
+                    [..., None])
+    out = torch.cat(outs, dim=1).reshape(B, Sq, H, hd)
+    return out.to(q.dtype)
+
+
+def attn_forward(params: AttnParams, x, *, n_heads: int, n_kv: int,
+                 head_dim: int, rope_fn: Optional[Callable], q_positions,
+                 window: int = 0, attn_softcap: float = 0.0,
+                 chunk: int = 1024, causal: bool = True):
+    """Self-attention layer forward.  x: (B, S, d); q_positions (S,) feed
+    the rope_fn and the causal/window mask.  Cross-attention (``kv_input``)
+    and M-RoPE positions arrive with the model zoo (ROADMAP slice 5)."""
+    B, S, _ = x.shape
+    q = (x @ params.wq).reshape(B, S, n_heads, head_dim)
+    k = (x @ params.wk).reshape(B, S, n_kv, head_dim)
+    v = (x @ params.wv).reshape(B, S, n_kv, head_dim)
+    if rope_fn is not None:
+        q = rope_fn(q, q_positions)
+        k = rope_fn(k, q_positions)
+    out = chunked_attention(q, k, v, q_positions=q_positions,
+                            k_positions=q_positions, causal=causal,
+                            window=window, attn_softcap=attn_softcap,
+                            chunk=chunk)
+    return out.reshape(B, S, n_heads * head_dim) @ params.wo
 
 
 def init_paged_attn_cache(n_pages: int, page_size: int, n_kv: int,

@@ -1,40 +1,87 @@
-"""Carry the reference's parameters into the port.
+"""Carry parameters between the reference's tree layout and the port's
+parameter objects.
 
-``params_from_jax`` takes the ``repro`` transformer's parameter pytree as
-nested dicts of numpy arrays (``np.asarray`` of each leaf) and builds the
-port's ``TransformerParams`` from it, so both packages can run the same
-weights.  Weights keep the reference's (d_in, d_out) orientation.
+The reference keeps a model's parameters as a tree of arrays: the FC net as
+a flat dict, the transformer as nested dicts whose period leaves are
+stacked on axis 0 (``periods/l0/mixer/wq`` is (n_periods, d, d)).  That
+tree is also the layout of the flat training store (``core/flatstate.py``).
+
+  * ``tree_from_jax`` turns such a tree of numpy arrays (``np.asarray`` of
+    each reference leaf) into the same tree of torch tensors — the FC net's
+    parameters as they are, the transformer's ready for
+    ``transformer_from_tree``.
+  * ``transformer_tree`` stacks a ``TransformerParams`` into the tree.
+  * ``transformer_from_tree`` builds a ``TransformerParams`` AROUND a tree's
+    tensors, with no copy: layer p's ``wq`` is row p of the stacked leaf.
+    Built around the flat store's views, its parameters are the store.
+  * ``params_from_jax`` does both steps for a reference transformer tree.
+
+Weights keep the reference's (d_in, d_out) orientation.
 """
 from __future__ import annotations
 
 import torch
 
 from ..configs.base import ModelConfig
+from ..core.util import tree_map
 from .attention import AttnParams
 from .transformer import (LayerParams, MLPParams, TransformerParams,
                           n_periods, period_spec)
 
 
-def params_from_jax(tree, cfg: ModelConfig, device) -> TransformerParams:
+def tree_from_jax(tree, device=None):
+    """A tree of numpy arrays -> the same tree of torch tensors."""
+    return tree_map(lambda a: torch.tensor(a, device=device), tree)
+
+
+def transformer_tree(params: TransformerParams):
+    """``TransformerParams`` -> the reference's tree, period leaves stacked
+    on axis 0 (a copy)."""
+    def stack(get):
+        return torch.stack([get(period) for period in params.periods])
+
+    def layer(i):
+        k = f"l{i}"
+        return {
+            "norm1": stack(lambda pp: pp[k].norm1.detach()),
+            "mixer": {w: stack(lambda pp, w=w: getattr(pp[k].mixer,
+                                                       w).detach())
+                      for w in ("wq", "wk", "wv", "wo")},
+            "norm2": stack(lambda pp: pp[k].norm2.detach()),
+            "mlp": {w: stack(lambda pp, w=w: getattr(pp[k].mlp, w).detach())
+                    for w in ("w1", "w3", "w2")},
+        }
+
+    tree = {"embed": params.embed.detach(),
+            "periods": {k: layer(int(k[1:])) for k in params.periods[0]},
+            "final_norm": params.final_norm.detach()}
+    if params.lm_head is not None:
+        tree["lm_head"] = params.lm_head.detach()
+    return tree
+
+
+def transformer_from_tree(tree, cfg: ModelConfig) -> TransformerParams:
     """tree: {"embed", "periods": {"l0": {"norm1", "mixer": {"wq", "wk",
     "wv", "wo"}, "norm2", "mlp": {"w1", "w3", "w2"}}}, "final_norm",
-    "lm_head"}, period leaves stacked on axis 0."""
-    def t(a):
-        return torch.tensor(a, device=device)
-
+    "lm_head"}, period leaves stacked on axis 0.  The parameters alias the
+    tree's tensors (``nn.Parameter`` of row p of each stacked leaf)."""
     def layer(lp, p):
         m, f = lp["mixer"], lp["mlp"]
         return LayerParams(
-            t(lp["norm1"][p]),
-            AttnParams(t(m["wq"][p]), t(m["wk"][p]), t(m["wv"][p]),
-                       t(m["wo"][p])),
-            t(lp["norm2"][p]),
-            MLPParams(t(f["w1"][p]), t(f["w3"][p]), t(f["w2"][p])))
+            lp["norm1"][p],
+            AttnParams(m["wq"][p], m["wk"][p], m["wv"][p], m["wo"][p]),
+            lp["norm2"][p],
+            MLPParams(f["w1"][p], f["w3"][p], f["w2"][p]))
 
     spec = period_spec(cfg)
     periods = [{f"l{i}": layer(tree["periods"][f"l{i}"], p)
                 for i in range(len(spec))}
                for p in range(n_periods(cfg))]
-    head = None if cfg.tie_embeddings else t(tree["lm_head"])
-    return TransformerParams(t(tree["embed"]), periods, t(tree["final_norm"]),
-                             head)
+    head = None if cfg.tie_embeddings else tree["lm_head"]
+    return TransformerParams(tree["embed"], periods, tree["final_norm"], head)
+
+
+def params_from_jax(tree, cfg: ModelConfig, device) -> TransformerParams:
+    """The reference transformer's parameter tree (numpy leaves) -> the
+    port's ``TransformerParams`` on ``device``."""
+    return transformer_from_tree(tree_from_jax(tree, device), cfg)

@@ -1,5 +1,6 @@
 """Shared neural building blocks — the port of ``repro/models/layers.py``
-for the serving slice (init helpers, RMSNorm, softcap, RoPE)."""
+(init helpers, RMSNorm, softcap, SwiGLU, RoPE, cross-entropy).  M-RoPE
+arrives with the model zoo (ROADMAP slice 5)."""
 from __future__ import annotations
 
 import math
@@ -48,6 +49,10 @@ def softcap(x, cap: float):
     return cap * torch.tanh(x / cap)
 
 
+def swiglu(x, w1, w3, w2):
+    return (torch.nn.functional.silu(x @ w1) * (x @ w3)) @ w2
+
+
 # ---------------------------------------------------------------------------
 # RoPE
 # ---------------------------------------------------------------------------
@@ -69,3 +74,25 @@ def apply_rope(x, positions, theta: float):
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+
+def cross_entropy(logits, labels, mask=None, logical_vocab: int | None = None):
+    """Masked mean token cross-entropy in float32; the padded vocab tail
+    (columns from ``logical_vocab`` on) is set to the dtype's lowest value
+    first, so it takes no probability."""
+    if logical_vocab is not None and logical_vocab < logits.shape[-1]:
+        pad = torch.arange(logits.shape[-1],
+                           device=logits.device) >= logical_vocab
+        logits = logits.masked_fill(pad, torch.finfo(logits.dtype).min)
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is None:
+        return torch.mean(nll)
+    mask = mask.float()
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)

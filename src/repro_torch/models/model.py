@@ -1,16 +1,25 @@
-"""build_model(cfg) — the port's uniform model API (serving slice).
+"""build_model(cfg) — the port's uniform model API.
 
 API:
   init(seed)                                            -> params
+  loss_fn(params, batch)                                -> scalar
+  apply(params, batch)                                  -> logits (B, S, V)
+  param_tree(params)                                    -> reference tree
+  params_from_tree(tree)                                -> params (aliasing)
   init_paged_cache(params, n_slots, n_pages, page_size) -> paged cache
   paged_decode_step(params, cache, tokens, positions, page_table,
                     advance=None)                       -> (logits, cache)
   reset_slot(cache, slot)                               -> cache
 
-Only the dense text family is ported; training (``loss_fn``, ``apply``)
-and the rotating-buffer ``decode_step`` of ``repro.models.model`` come
-with later slices.  Everything runs on ``api.device``, which is ``cuda``
-unless the caller passed ``device="cpu"``.
+A batch is ``{"tokens", "labels", "mask"}`` for one learner, as in the
+reference.  ``param_tree`` / ``params_from_tree`` carry parameters to and
+from the reference's tree layout, which is the layout of the trainer's
+flat store: ``MultiLearnerTrainer(api.loss_fn, ...,
+params_from_tree=api.params_from_tree)`` trains the model on views of that
+store.  Only the dense text family is ported; the rotating-buffer
+``decode_step`` and the other families come with the model zoo (ROADMAP
+slice 5).  Everything runs on ``api.device``, which is ``cuda`` unless the
+caller passed ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -20,7 +29,8 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
-from . import transformer
+from . import convert, transformer
+from .layers import cross_entropy
 
 
 class ModelAPI(NamedTuple):
@@ -30,6 +40,10 @@ class ModelAPI(NamedTuple):
     init_paged_cache: Callable
     paged_decode_step: Callable
     reset_slot: Callable
+    loss_fn: Callable
+    apply: Callable
+    param_tree: Callable
+    params_from_tree: Callable
 
 
 def build_model(cfg: ModelConfig, device=None) -> ModelAPI:
@@ -40,6 +54,13 @@ def build_model(cfg: ModelConfig, device=None) -> ModelAPI:
         gen = torch.Generator(device=dev).manual_seed(seed)
         return transformer.init_params(cfg, gen)
 
+    def apply(params, batch):
+        return transformer.apply(params, cfg, batch["tokens"])
+
+    def loss_fn(params, batch):
+        return cross_entropy(apply(params, batch), batch["labels"],
+                             batch.get("mask"), logical_vocab=cfg.vocab)
+
     def init_paged_cache(params, n_slots, n_pages, page_size):
         return transformer.init_paged_cache(cfg, n_slots, n_pages, page_size,
                                             dev)
@@ -49,7 +70,13 @@ def build_model(cfg: ModelConfig, device=None) -> ModelAPI:
         return transformer.paged_decode_step(params, cfg, cache, tokens,
                                              positions, page_table, advance)
 
+    def params_from_tree(tree):
+        return convert.transformer_from_tree(tree, cfg)
+
     return ModelAPI(cfg=cfg, device=dev, init=init,
                     init_paged_cache=init_paged_cache,
                     paged_decode_step=paged_decode_step,
-                    reset_slot=transformer.reset_slot)
+                    reset_slot=transformer.reset_slot,
+                    loss_fn=loss_fn, apply=apply,
+                    param_tree=convert.transformer_tree,
+                    params_from_tree=params_from_tree)

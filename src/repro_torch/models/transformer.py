@@ -1,5 +1,6 @@
-"""Decoder-only LM, dense family — the serving half of
-``repro/models/transformer.py``.
+"""Decoder-only LM, dense family — the port of
+``repro/models/transformer.py``: training/prefill forward (``apply``) and
+paged decode for serving.
 
 Depth is n_periods x period as in the reference; a dense model's period is
 one (attn, dense) layer.  Parameters are ``nn.Module``s holding
@@ -19,10 +20,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs.base import ModelConfig
-from .attention import (AttnParams, attn_decode_paged, init_attn_params,
-                        init_paged_attn_cache)
+from .attention import (AttnParams, attn_decode_paged, attn_forward,
+                        init_attn_params, init_paged_attn_cache)
 from .layers import apply_rope, dense_init, dtype_of, embed_init, rms_norm, \
-    softcap
+    softcap, swiglu
 
 
 # ---------------------------------------------------------------------------
@@ -137,6 +138,48 @@ def logits_from_hidden(params: TransformerParams, cfg: ModelConfig, x):
     h = rms_norm(x, params.final_norm, cfg.norm_eps)
     head = params.embed.T if cfg.tie_embeddings else params.lm_head
     return softcap(h @ head, cfg.final_softcap)
+
+
+# ---------------------------------------------------------------------------
+# forward (training / prefill)
+# ---------------------------------------------------------------------------
+
+def _layer_forward(lp: LayerParams, x, cfg: ModelConfig, mixer: str,
+                   rope_fn, positions):
+    if cfg.use_pallas:
+        raise NotImplementedError(
+            f"{cfg.name}: use_pallas routes attention to the flash-attention "
+            "kernel, which arrives with ROADMAP slice 5")
+    h = rms_norm(x, lp.norm1, cfg.norm_eps)
+    x = x + attn_forward(lp.mixer, h, n_heads=cfg.n_heads,
+                         n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim_,
+                         rope_fn=rope_fn, q_positions=positions,
+                         window=_window(cfg, mixer),
+                         attn_softcap=cfg.attn_softcap, chunk=cfg.attn_chunk)
+    h = rms_norm(x, lp.norm2, cfg.norm_eps)
+    mlp = lp.mlp
+    return x + swiglu(h, mlp.w1, mlp.w3, mlp.w2)
+
+
+def forward(params: TransformerParams, cfg: ModelConfig, x, positions):
+    """x: (B, S, d) input embeddings; positions: (S,).  Returns the final
+    hidden states (B, S, d).  The reference scans over stacked period
+    parameters with a remat per period; here a loop over
+    ``params.periods``, with autograd keeping each layer's activations."""
+    spec = period_spec(cfg)
+    rope_fn = make_rope_fn(cfg)
+    for period in params.periods:
+        for i, (mixer, _) in enumerate(spec):
+            x = _layer_forward(period[f"l{i}"], x, cfg, mixer, rope_fn,
+                               positions)
+    return x
+
+
+def apply(params: TransformerParams, cfg: ModelConfig, tokens):
+    """tokens: (B, S) -> logits (B, S, V)."""
+    x = embed_tokens(params, cfg, tokens)
+    positions = torch.arange(x.shape[1], device=x.device)
+    return logits_from_hidden(params, cfg, forward(params, cfg, x, positions))
 
 
 # ---------------------------------------------------------------------------

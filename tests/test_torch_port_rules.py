@@ -107,3 +107,60 @@ def test_build_helper_raises_without_nvcc(monkeypatch):
     monkeypatch.setattr(ext, "CUDA_HOME", None)
     with pytest.raises(RuntimeError, match="nvcc"):
         cuda_build.nvcc_path()
+
+
+# ---------------------------------------------------------------------------
+# slice 2: the trainer
+# ---------------------------------------------------------------------------
+
+def _fc_trainer(**kw):
+    from repro_torch.core import AlgoConfig, MultiLearnerTrainer
+    from repro_torch.models import fcnet
+    from repro_torch.optim import sgd
+    algo = kw.pop("algo", "dpsgd")
+    return MultiLearnerTrainer(fcnet.loss_fn, sgd(0.1),
+                               AlgoConfig(algo=algo, n_learners=4), **kw)
+
+
+def test_trainer_entry_points_default_to_cuda():
+    from repro_torch import quickstart
+    from repro_torch.data import ShardedLoader, TemplateImages
+    if torch.cuda.is_available():
+        assert _fc_trainer().device.type == "cuda"
+        assert ShardedLoader(TemplateImages(), 2, 4).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        _fc_trainer()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ShardedLoader(TemplateImages(), n_learners=2, local_batch=4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        quickstart.train("dpsgd", steps=1)
+    assert _fc_trainer(device="cpu").device == torch.device("cpu")
+
+
+@pytest.mark.parametrize("kw,slice_", [
+    (dict(engine="pytree"), "slice 2"),
+    (dict(algo="ssgd_star"), "slice 2"),
+], ids=["pytree", "ssgd_star"])
+def test_unported_trainer_paths_raise_naming_their_slice(kw, slice_):
+    with pytest.raises(NotImplementedError, match=slice_):
+        _fc_trainer(device="cpu", **kw)
+
+
+def test_unported_trainer_methods_raise_naming_their_slice():
+    from repro_torch.models import fcnet
+    tr = _fc_trainer(device="cpu")
+    state = tr.init(0, fcnet.init_params(torch.Generator().manual_seed(0)))
+    with pytest.raises(NotImplementedError, match="slice 4"):
+        tr.train_step(state._replace(members=object()), {})
+    with pytest.raises(NotImplementedError, match="slice 3"):
+        tr.add_probe("p", None, None)
+    with pytest.raises(NotImplementedError, match="slice 2"):
+        tr.diagnostics(state, {})
+
+
+def test_trainer_rejects_unknown_backends():
+    with pytest.raises(ValueError, match="kernel_backend"):
+        _fc_trainer(device="cpu", kernel_backend="pallas")
+    with pytest.raises(ValueError, match="engine"):
+        _fc_trainer(device="cpu", engine="fast")
