@@ -11,10 +11,15 @@ Phases (any failure raises and the script exits non-zero):
      serve shape and at GQA shapes with softcap and window; the gossip
      update at the training shape (n=4, T=1,056,920, K=1, momentum), on a
      ring with weight decay and an inactive NaN row, in AD-PSGD publish
-     mode, and as a mixing-only round (K=3) — then each kernel's time
-     beside the plain version's, one PyTorch library call's where one
-     computes the same function, and the least time the card could take
-     (``bound_ms``);
+     mode, and as a mixing-only round (K=3); the reorthogonalization
+     kernels (Lanczos CGS2) at the transformer-100m probe shape (M = 9,
+     T = 1,056,920), on a ragged T, M = 1, a partial mask and an
+     orthonormal (QR) basis, on vectors drawn on the card from a seeded
+     torch.Generator: dots within 1e-5 of ||v_k|| ||w||, the axpy bitwise
+     given the same dots, the CGS2 residual below 1e-4 ||w|| — then each
+     kernel's time beside the plain version's, one PyTorch library call's
+     where one computes the same function, and the least time the card
+     could take (``bound_ms``);
   3. full-width serving: transformer-100m (12 layers, d=768, vocab 32768,
      random weights from a seeded torch.Generator) behind ``ServeEngine``
      (8 slots, page 16, max_len 256) runs 16 requests to completion; every
@@ -30,15 +35,27 @@ Phases (any failure raises and the script exits non-zero):
      the gossip kernel must have launched once per gossip round, and the
      first 2 steps with ``kernel_backend="ref"`` must give the same
      parameters;
+  4b. the full-width landscape probe: after the training steps, a
+     ``make_trainer_probe`` hook (Lanczos 8, Hutchinson 4) runs once
+     through ``trainer.run_probes`` on a 4 x 2 x 512-token superbatch, then
+     ``trainer.diagnostics``; every field finite, the sharpness equal to a
+     ``reorth="ref"`` run of the same probe within 1e-4, the reorth
+     kernels launched 16 / 16 times (0 / 0 in the ``ref`` run);
   5. the paper's experiment and the other modes on the FC net: the
      quickstart twin (SSGD vs DPSGD at lr 0.5, 5 x 400, 120 steps; DPSGD
      must end below SSGD), ``full`` gossip on 4 learners (two rounds, so
      the mixing-only pass runs) with momentum and weight decay, and
-     AD-PSGD with a straggler, both against ``kernel_backend="ref"``.
+     AD-PSGD with a straggler, both against ``kernel_backend="ref"``;
+  6. Table 1 at nB = 2000, lr = 0.5 (``repro_torch.bench``): SSGD must
+     fail, DPSGD converge and SSGD+AutoLR converge below 1e-2 with the
+     controller clamping below 1, through the reorth kernels; a
+     ``reorth="ref"`` AutoLR run must agree on the first probe's
+     sharpness within 1e-4 and end below 1e-2 too.
 Each path runs with every kernel's launch count set to 0 just before it
-and read just after.  The last lines are the serve, train and FC numbers,
-the card, the kernels record and ``{"ok": true, "device": {...}}``.
-Without CUDA the script exits 1 before printing any result.
+and read just after.  The last lines are the serve, train, probe, FC and
+Table-1 numbers, the card, the kernels record and ``{"ok": true,
+"device": {...}}``.  Without CUDA the script exits 1 before printing any
+result.
 """
 from __future__ import annotations
 
@@ -73,6 +90,17 @@ WARM_STEPS, TIMED_STEPS, PROF_STEPS, REF_STEPS = 2, 6, 2, 2
 # cuBLAS or the embedding backward may sum in another order run to run
 GOSSIP_ATOL = 0.0
 TRAIN_REF_ATOL = 1e-5
+# reorthogonalization: the dots sum T * 128 float32 products in another
+# order than torch.sum (1.35e8 terms at the probe shape), so they are held
+# relative to ||v_k|| ||w||; the axpy rounds as its plain version does
+REORTH_M = 9                # Lanczos 8 steps -> a 9-vector basis
+REORTH_DOTS_RTOL = 1e-5
+REORTH_AXPY_ATOL = 0.0
+REORTH_RESIDUAL = 1e-4      # of ||w||: tests/test_landscape.py's bound
+# the full-width probe and Table 1
+PROBE_ITERS, PROBE_SAMPLES = 8, 4
+PROBE_RTOL = 1e-4
+TABLE1_SCALE, TABLE1_STEPS = 4, 120     # nB = 2000, lr = 0.5
 
 
 def check(cond, msg):
@@ -570,6 +598,147 @@ def gossip_phase():
 
 
 # ---------------------------------------------------------------------------
+# phase 2c: the reorthogonalization kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def reorth_operands(M, T, live, seed, orthonormal=False):
+    """(basis, w, mask) on the card: unit basis rows (a QR's orthonormal
+    rows when asked; random rows are orthogonal to ~1/sqrt(T * 128)), and a
+    candidate w with large components along the live rows, as a Lanczos
+    candidate has."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    if orthonormal:
+        q, _ = torch.linalg.qr(torch.randn((T * 128, M), device="cuda",
+                                           generator=gen))
+        basis = q.t().contiguous().view(M, T, 128)
+    else:
+        basis = torch.randn((M, T, 128), device="cuda", generator=gen)
+        basis /= torch.linalg.norm(basis.view(M, -1), dim=1)[:, None, None]
+    w = torch.randn((T, 128), device="cuda", generator=gen)
+    coef = torch.linalg.norm(w) * torch.linspace(1.0, 3.0, M, device="cuda")
+    w += torch.einsum("m,mtl->tl", coef, basis)
+    mask = (torch.arange(M, device="cuda") < live).float()
+    return basis, w, mask
+
+
+def reorth_phase():
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.reorth import reorth_axpy, reorth_dots
+
+    cases = [("probe_100m", REORTH_M, TRAIN_ROWS, REORTH_M, False),
+             ("ragged_T", 5, 100_003, 5, False),
+             ("m1", 1, CASE_ROWS, 1, False),
+             ("partial_mask", 6, CASE_ROWS, 3, False),
+             ("orthonormal_qr", 8, 8_191, 8, True)]
+    errs = {}
+    for i, (name, M, T, live, ortho) in enumerate(cases):
+        basis, w, mask = reorth_operands(M, T, live, SEED + i, ortho)
+        before = (reorth_dots.launches, reorth_axpy.launches)
+        d_k = reorth_dots(basis, w, mask)
+        d_p = ref.reorth_dots_ref(basis, w, mask)
+        w_k = reorth_axpy(w, basis, d_p)
+        w_p = ref.reorth_axpy_ref(w, basis, d_p)
+        w2 = ops.reorthogonalize(basis, w, mask)
+        torch.cuda.synchronize()
+        check((reorth_dots.launches, reorth_axpy.launches)
+              == (before[0] + 3, before[1] + 3),
+              f"{name}: the reorth kernels did not launch")
+        scale = torch.linalg.norm(basis.view(M, -1), dim=1) * \
+            torch.linalg.norm(w)
+        dots_err = float(((d_k - d_p).abs() / scale).max())
+        axpy_err = _max_err(w_k, w_p)
+        resid = float((torch.einsum("mtl,tl->m", basis, w2) * mask)
+                      .abs().max() / torch.linalg.norm(w2))
+        errs[name] = {"M": M, "T": T, "live": live,
+                      "dots_err_rel_to_norms": dots_err,
+                      "axpy_max_abs_diff": axpy_err,
+                      "cgs2_residual_rel": resid}
+        check(bool(torch.isfinite(w2).all()), f"{name}: non-finite CGS2")
+        check(dots_err <= REORTH_DOTS_RTOL,
+              f"{name}: dots differ by {dots_err} of ||v|| ||w|| > "
+              f"{REORTH_DOTS_RTOL}")
+        check(_bits_equal(w_k, w_p) and axpy_err <= REORTH_AXPY_ATOL,
+              f"{name}: axpy differs from its plain version by {axpy_err}")
+        check(resid < REORTH_RESIDUAL,
+              f"{name}: CGS2 residual {resid} of ||w|| >= {REORTH_RESIDUAL}")
+        if name != "probe_100m":
+            del basis, w, mask, d_k, d_p, w_k, w_p, w2
+    print(f"reorth per case {json.dumps(errs)}", flush=True)
+
+    # timing at the probe shape: each vector (541 MB) is 10x the L2
+    basis, w, mask = reorth_operands(REORTH_M, TRAIN_ROWS, REORTH_M, SEED)
+    M, T, _ = basis.shape
+    dots = ref.reorth_dots_ref(basis, w, mask)
+    out = torch.empty_like(w)
+    flat_b, flat_w = basis.view(M, -1), w.view(-1)
+    timed = {
+        "reorth_dots": (lambda: reorth_dots(basis, w, mask),
+                        lambda: ref.reorth_dots_ref(basis, w, mask),
+                        lambda: torch.mv(flat_b, flat_w)),
+        "reorth_axpy": (lambda: reorth_axpy(w, basis, dots, out=out),
+                        lambda: ref.reorth_axpy_ref(w, basis, dots),
+                        lambda: torch.addmv(flat_w, flat_b.t(), dots,
+                                            alpha=-1)),
+    }
+    times, _, _, _ = device_times(lambda: [
+        (reorth_dots(basis, w, mask), reorth_axpy(w, basis, dots, out=out))
+        for _ in range(20)])
+    # per launch: both stages of the dots over the launches the profiler
+    # recorded (counted by the first stage's events)
+    dev_ms, dev_events = {}, {}
+    for name, first in (("reorth_dots", "reorth_dots_partial"),
+                        ("reorth_axpy", "reorth_axpy_kernel")):
+        n_ev = sum(v[1] for k, v in times.items() if first in k)
+        dev_events[name] = n_ev
+        dev_ms[name] = (sum(v[0] for k, v in times.items() if name in k)
+                        / n_ev / 1e3) if n_ev else None
+    vec = T * 128 * 4
+    need = {   # bytes each function must move, flops it must do
+        "reorth_dots": ((M + 1) * vec + 2 * M * 4, 2 * M * T * 128),
+        "reorth_axpy": ((M + 2) * vec + M * 4, 2 * M * T * 128),
+    }
+    library = {
+        "reorth_dots": "torch.mv(basis.view(M, -1), w.view(-1)) (cuBLAS; "
+                       "no mask)",
+        "reorth_axpy": "torch.addmv(w.view(-1), basis.view(M, -1).t(), "
+                       "dots, alpha=-1) (cuBLAS)",
+    }
+    records = []
+    for name, (kern, plain, lib) in timed.items():
+        nbytes, flops = need[name]
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+        kernel_ms = time_ms(kern, [()], iters=20)
+        records.append({
+            "name": name,
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/reorth.cu",
+            "replaces": ("src/repro/kernels/reorth.py:90" if name ==
+                         "reorth_dots" else
+                         "src/repro/kernels/reorth.py:118"),
+            "tpu_kernel": f"src/repro/kernels/reorth.py::{name}",
+            "launches": None,
+            "max_abs_err": max(
+                e["dots_err_rel_to_norms"] if name == "reorth_dots"
+                else e["axpy_max_abs_diff"] for e in errs.values()),
+            "max_abs_err_is": ("max |kernel - plain| / (||v_k|| ||w||)"
+                               if name == "reorth_dots" else
+                               "max |kernel - plain| given the same dots"),
+            "ms": kernel_ms,
+            "kernel_ms": kernel_ms,
+            "device_ms": dev_ms[name],
+            "device_events": dev_events[name],
+            "plain_ms": time_ms(plain, [()], iters=5),
+            "bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_bytes": nbytes,
+            "library_ms": time_ms(lib, [()], iters=20),
+            "library": library[name],
+            "shape": {"M": M, "T": T, "live": REORTH_M},
+        })
+    return records
+
+
+# ---------------------------------------------------------------------------
 # phase 4: full-width training
 # ---------------------------------------------------------------------------
 
@@ -582,7 +751,8 @@ def _train_100m_trainer(api, backend):
         api.loss_fn, opt,
         AlgoConfig(algo="dpsgd", topology="random_pair",
                    n_learners=TRAIN_LEARNERS),
-        kernel_backend=backend, params_from_tree=api.params_from_tree)
+        alpha_for_diag=TRAIN_LR, kernel_backend=backend,
+        params_from_tree=api.params_from_tree)
 
 
 def train_phase(kernels):
@@ -642,12 +812,14 @@ def train_phase(kernels):
     check(launches["gossip_mix_update_flat"] == want,
           f"gossip kernel launches {launches['gossip_mix_update_flat']} != "
           f"{steps} steps x {trainer.rounds_per_step} rounds")
-    check(launches["paged_decode_attention_fwd"] == 0,
-          "the training path launched the decode kernel")
+    check(launches["paged_decode_attention_fwd"] == 0
+          and launches["reorth_dots"] == 0 == launches["reorth_axpy"],
+          f"the training path launched another path's kernel: {launches}")
     busy_us = sum(v[0] for v in times.values())
     gossip_us = sum(v[0] for k, v in times.items() if "gossip_mix_kernel" in k)
     top = sorted(times.items(), key=lambda kv: -kv[1][0])[:8]
     top_host = sorted(host.items(), key=lambda kv: -kv[1][0])[:10]
+    probe, probe_launches = probe_phase(trainer, state, api, loader, kernels)
     del trainer, state, metrics
     torch.cuda.empty_cache()
 
@@ -696,7 +868,101 @@ def train_phase(kernels):
         "losses": losses, "sigma_w_sq": sigma,
         "kernel_launches": launches,
         "ref_backend_max_abs_diff_after_2_steps": ref_err,
-    }, launches["gossip_mix_update_flat"]
+    }, launches["gossip_mix_update_flat"], probe, probe_launches
+
+
+def probe_phase(trainer, state, api, loader, kernels):
+    """The full-width landscape probe on the trained state, through the
+    trainer's probe seam, then the same probe with the plain reorth and
+    ``trainer.diagnostics``.  Returns (record, {kernel: launches})."""
+    from repro_torch.kernels.reorth import reorth_axpy, reorth_dots
+    from repro_torch.landscape import ProbeSchedule, make_trainer_probe
+
+    def probe_fn(reorth):
+        return make_trainer_probe(
+            api.loss_fn, alpha=TRAIN_LR, lanczos_iters=PROBE_ITERS,
+            hutchinson_samples=PROBE_SAMPLES, seed=SEED, reorth=reorth,
+            params_from_tree=api.params_from_tree)
+
+    batch = loader.batch(10_000)        # the superbatch, 4 x 2 x 512 tokens
+    trainer.add_probe("landscape", ProbeSchedule(every=1), probe_fn("auto"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels:
+        k.launches = 0
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=utilization.gpu,clocks.sm",
+         "--format=csv,noheader,nounits", "-lms", "100"],
+        stdout=subprocess.PIPE, text=True)
+    try:
+        t0 = time.perf_counter()
+        state, results = trainer.run_probes(state, batch, step=state.step)
+        torch.cuda.synchronize()
+        probe_s = time.perf_counter() - t0
+    finally:
+        smi.terminate()
+        samples = smi.communicate()[0].split("\n")
+    launches = {k.__name__: k.launches for k in kernels}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    trainer.hooks.clear()
+    res = results["landscape"]
+    util = [float(x.split(",")[0]) for x in samples if "," in x]
+    clocks = sorted(float(x.split(",")[1]) for x in samples if "," in x)
+
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    ref_res = probe_fn("ref")(trainer.state_view(state), batch)
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    ref_launches = {k.__name__: k.launches for k in kernels}
+
+    t0 = time.perf_counter()
+    diag = trainer.diagnostics(state, batch)
+    torch.cuda.synchronize()
+    diag_s = time.perf_counter() - t0
+
+    fields = {f: float(v) for f, v in res._asdict().items()}
+    ref_fields = {f: float(v) for f, v in ref_res._asdict().items()}
+    diag_fields = {f: float(v) for f, v in diag._asdict().items()}
+    check(all(np.isfinite(list(fields.values()))),
+          f"non-finite probe result {fields}")
+    check(all(np.isfinite(list(diag_fields.values()))),
+          f"non-finite diagnostics {diag_fields}")
+    rel = abs(fields["sharpness"] - ref_fields["sharpness"]) / abs(
+        ref_fields["sharpness"])
+    check(rel <= PROBE_RTOL,
+          f"probe sharpness {fields['sharpness']} differs from the plain "
+          f"reorth run's {ref_fields['sharpness']} by {rel} relative")
+    want = 2 * PROBE_ITERS          # two CGS sweeps per Lanczos step
+    check(launches["reorth_dots"] == want == launches["reorth_axpy"],
+          f"reorth launches in the probe {launches}, want {want} each")
+    check(ref_launches["reorth_dots"] == 0 == ref_launches["reorth_axpy"],
+          f"the reorth='ref' probe launched a kernel: {ref_launches}")
+    check(launches["gossip_mix_update_flat"] == 0
+          and launches["paged_decode_attention_fwd"] == 0,
+          f"the probe launched another path's kernel: {launches}")
+    busy = float(np.mean(util)) / 100 if util else None
+    return {
+        "model": api.cfg.name, "superbatch": [TRAIN_LEARNERS, TRAIN_BATCH,
+                                              TRAIN_SEQ],
+        "lanczos_iters": PROBE_ITERS, "hutchinson_samples": PROBE_SAMPLES,
+        "step": state.step,
+        "wall_s_per_probe": probe_s,
+        "device_busy_share": busy,
+        "device_idle_share": None if busy is None else 1 - busy,
+        "busy_from": "nvidia-smi utilization.gpu, 100 ms samples over the "
+                     "probe",
+        "busy_samples": len(util),
+        "sm_clock_mhz_median": clocks[len(clocks) // 2] if clocks else None,
+        "max_memory_allocated_gb": peak_gb,
+        "result": fields,
+        "ref_reorth_result": ref_fields, "ref_reorth_wall_s": ref_s,
+        "sharpness_rel_diff_vs_ref_reorth": rel,
+        "diagnostics": diag_fields, "diagnostics_wall_s": diag_s,
+        "kernel_launches": launches,
+        "ref_reorth_kernel_launches": ref_launches,
+    }, launches
 
 
 def _leaves(tree):
@@ -778,6 +1044,68 @@ def fc_phase(kernels):
     }
 
 
+# ---------------------------------------------------------------------------
+# phase 6: Table 1 at the largest batch — SSGD, DPSGD, SSGD+AutoLR
+# ---------------------------------------------------------------------------
+
+def table1_phase(kernels):
+    from repro_torch.bench.table1_large_batch import run_cell
+    from repro_torch.kernels.reorth import reorth_axpy, reorth_dots
+
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    cells = {a: run_cell(a, TABLE1_SCALE, steps=TABLE1_STEPS)
+             for a in ("ssgd", "dpsgd", "ssgd_autolr")}
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in kernels}
+    n_probes = len(cells["ssgd_autolr"]["probes"])
+    for k in kernels:
+        k.launches = 0
+    ref = run_cell("ssgd_autolr", TABLE1_SCALE, steps=TABLE1_STEPS,
+                   probe_kwargs={"reorth": "ref"})
+    ref_launches = {k.__name__: k.launches for k in kernels}
+
+    final = {a: c["final_loss"] for a, c in cells.items()}
+    auto = cells["ssgd_autolr"]
+    scales = [s for _, s in auto["scales"]]
+    sharp = [float(r.sharpness) for _, r in auto["probes"]]
+    ref_sharp = [float(r.sharpness) for _, r in ref["probes"]]
+    first_rel = abs(sharp[0] - ref_sharp[0]) / abs(ref_sharp[0])
+    check(np.isfinite(final["ssgd_autolr"]) and final["ssgd_autolr"] < 1e-2,
+          f"SSGD+AutoLR final loss {final['ssgd_autolr']} is not below 1e-2")
+    check(not np.isfinite(final["ssgd"]) or final["ssgd"] > 1.0,
+          f"SSGD final loss {final['ssgd']} did not fail (> 1)")
+    check(np.isfinite(final["dpsgd"]) and final["dpsgd"] < 1e-2,
+          f"DPSGD final loss {final['dpsgd']} did not converge")
+    check(min(scales) < 1.0, f"the controller never clamped: {scales}")
+    check(launches["reorth_dots"] == 2 * 8 * n_probes
+          == launches["reorth_axpy"] > 0,
+          f"reorth launches {launches} for {n_probes} probes")
+    check(ref_launches["reorth_dots"] == 0 == ref_launches["reorth_axpy"],
+          f"the reorth='ref' run launched a kernel: {ref_launches}")
+    check(first_rel <= PROBE_RTOL,
+          f"first probe sharpness {sharp[0]} (kernels) vs {ref_sharp[0]} "
+          f"(plain): {first_rel} relative")
+    check(np.isfinite(ref["final_loss"]) and ref["final_loss"] < 1e-2,
+          f"SSGD+AutoLR with reorth='ref' ended at {ref['final_loss']}")
+    return {
+        "nB": auto["nB"], "lr": auto["lr"], "steps": TABLE1_STEPS,
+        "landscape_every": 10,
+        "final_loss": final,
+        "ssgd_autolr_scales": auto["scales"],
+        "ssgd_autolr_sharpness": sharp,
+        "ref_reorth": {"final_loss": ref["final_loss"],
+                       "scales": ref["scales"], "sharpness": ref_sharp,
+                       "kernel_launches": ref_launches},
+        "first_probe_sharpness_rel_diff": first_rel,
+        "us_per_step": {a: c["us_per_step"] for a, c in cells.items()},
+        "wall_s_three_cells": wall_s,
+        "kernel_launches": launches,
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
@@ -785,43 +1113,54 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch import cuda_build
-    from repro_torch.kernels import decode_attention, gossip_mix
+    from repro_torch.kernels import decode_attention, gossip_mix, reorth
 
     torch.backends.cuda.matmul.allow_tf32 = False   # float32 products in
     torch.backends.cudnn.allow_tf32 = False         # full float32
 
     card = card_line()
     print(f"card: {card}", flush=True)
-    sources = [decode_attention.SOURCE, gossip_mix.SOURCE]
+    sources = [decode_attention.SOURCE, gossip_mix.SOURCE, reorth.SOURCE]
     t0 = time.perf_counter()
     cuda_build.build_all(sources)
     print(f"build: {len(sources)} kernel source(s) in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     kernels = [decode_attention.paged_decode_attention_fwd,
-               gossip_mix.gossip_mix_update_flat]
+               gossip_mix.gossip_mix_update_flat,
+               reorth.reorth_dots, reorth.reorth_axpy]
 
     decode_record = decode_attention_phase()
     gossip_record = gossip_phase()
+    torch.cuda.empty_cache()
+    dots_record, axpy_record = reorth_phase()
     torch.cuda.empty_cache()
 
     for k in kernels:
         k.launches = 0
     serve, _ = serve_phase()
     serve["kernel_launches"] = {k.__name__: k.launches for k in kernels}
-    check(serve["kernel_launches"]["gossip_mix_update_flat"] == 0,
-          "the serving path launched the gossip kernel")
+    check(all(v == 0 for k, v in serve["kernel_launches"].items()
+              if k != "paged_decode_attention_fwd"),
+          f"the serving path launched another path's kernel: "
+          f"{serve['kernel_launches']}")
     decode_record["launches"] = serve["kernel_launches"][
         "paged_decode_attention_fwd"]
     print(json.dumps({"serve": serve}), flush=True)
 
-    train, gossip_record["launches"] = train_phase(kernels)
+    train, gossip_record["launches"], probe, probe_launches = \
+        train_phase(kernels)
+    dots_record["launches"] = probe_launches["reorth_dots"]
+    axpy_record["launches"] = probe_launches["reorth_axpy"]
     print(json.dumps({"train": train}), flush=True)
+    print(json.dumps({"probe": probe}), flush=True)
     fc = fc_phase(kernels)
     print(json.dumps({"fc": fc}), flush=True)
+    table1 = table1_phase(kernels)
+    print(json.dumps({"table1": table1}), flush=True)
 
     print(card, flush=True)
-    print(json.dumps({"kernels": [decode_record, gossip_record]}),
-          flush=True)
+    print(json.dumps({"kernels": [decode_record, gossip_record, dots_record,
+                                  axpy_record]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -7,9 +7,13 @@ run on ``cuda`` unless the caller asks for ``device="cpu"``
 takes its plain PyTorch version, on a CUDA tensor it launches the
 hand-written kernel or raises.
 
-Ported so far (ROADMAP slice 1, the serving path): ``configs``
-(transformer-100m), ``models`` (dense decoder, paged decode), ``kernels``
-(paged decode attention in CUDA C++) and ``serve`` (``ServeEngine``).
+Ported so far (ROADMAP slices 1-3): ``configs`` (transformer-100m),
+``models`` (dense decoder, paged decode, the FC net), ``serve``
+(``ServeEngine``), ``core`` (``MultiLearnerTrainer``'s flat engine, its
+probe seam, diagnostics, smoothing), ``optim``, ``data``, ``landscape``
+(probes, AutoLR), ``bench`` (Table 1) and ``kernels``: paged decode
+attention, the fused gossip + momentum-SGD update and the Lanczos
+reorthogonalization, in CUDA C++.
 """
 from .device import resolve_device
 

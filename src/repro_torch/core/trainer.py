@@ -25,16 +25,24 @@ consumed by ``train_step`` — as the reference donates it — and the trainer
 holds one live state at a time.  AD-PSGD's published buffer alternates the
 same way; the momentum is updated in place.
 
+The probe seam (DESIGN §10): ``add_probe`` registers a measurement under
+a schedule (``landscape.ProbeSchedule``), ``run_probes`` runs the due ones
+between steps — each receives the tree view ``state_view(state)``, and its
+optional ``on_result`` receives the real flat state, so a controller
+(``landscape.AutoLRController`` through ``optim.set_controller_scale``)
+writes the live optimizer state.  ``diagnostics`` measures the paper's
+alpha_e, sigma_w^2 and Delta split (``core/diagnostics.py``).
+
 What the reference has and this port does not yet (each raises
 ``NotImplementedError`` naming its ROADMAP slice): the pytree engine and
-SSGD* (the rest of slice 2); diagnostics (the rest of slice 2); probe
-hooks (slice 3); elastic membership (slice 4).  ``engine="auto"`` sends
-every algorithm, SSGD included, to the flat engine, since the pytree
-engine is not ported.
+SSGD* (the rest of slice 2); elastic membership (slice 4).
+``engine="auto"`` sends every algorithm, SSGD included, to the flat
+engine, since the pytree engine is not ported.
 
 ``train_step`` makes no host sync: gossip tables are drawn on the device,
 masks are built there from host integers, and the metrics stay device
-tensors.
+tensors.  Nor do ``run_probes`` and ``diagnostics`` (``state.step`` is a
+host integer); a controller's reads of a probe result are its own.
 
 # lint: hot-path
 """
@@ -49,6 +57,7 @@ from ..device import resolve_device
 from ..kernels import ops as kops
 from ..optim import Optimizer, apply_updates
 from . import schedule as gsched
+from .diagnostics import DiagStats, compute_diagnostics
 from .dpsgd import (AlgoConfig, mean_broadcast, mix_einsum,
                     mix_pair_gather, straggler_active_mask)
 from .flatstate import LANE, FlatMeta, flat_meta
@@ -91,10 +100,27 @@ def _step_seed(seed: int, step: int) -> int:
 
 
 @dataclasses.dataclass
+class ProbeHook:
+    """A scheduled measurement on the trainer's probe seam.
+
+    ``schedule.due(step)`` gates it (e.g. ``landscape.ProbeSchedule``);
+    ``fn(state_view, batch) -> result`` is the measurement
+    (``trainer.diagnostics``, a landscape probe, ...); ``on_result(state,
+    result) -> state`` optionally closes a control loop (AutoLR writing its
+    multiplier into the optimizer state)."""
+    name: str
+    schedule: Any
+    fn: Callable
+    on_result: Optional[Callable] = None
+
+
+@dataclasses.dataclass
 class MultiLearnerTrainer:
     loss_fn: Callable          # (params, batch) -> scalar, one learner
     optimizer: Optimizer
     algo: AlgoConfig
+    alpha_for_diag: float = 1.0   # alpha of the alpha_e instrument
+    hooks: list = dataclasses.field(default_factory=list)  # [ProbeHook]
     engine: str = "auto"       # auto | flat (pytree: not ported yet)
     kernel_backend: str = "auto"   # auto | cuda | ref (flat-engine dispatch)
     # tree of views (the reference's layout) -> the params object loss_fn
@@ -439,15 +465,52 @@ class MultiLearnerTrainer:
             out.append(m)
         return state, StepMetrics(*[torch.stack(f) for f in zip(*out)])
 
-    # -- not ported yet ------------------------------------------------------
-    def add_probe(self, *args, **kwargs):
-        raise NotImplementedError(
-            "probe hooks arrive with ROADMAP slice 3 (landscape probes)")
+    # -- probe seam (DESIGN §10) ----------------------------------------------
+    def add_probe(self, name: str, schedule, fn,
+                  on_result: Optional[Callable] = None) -> None:
+        """Register a scheduled probe: ``schedule.due(step)`` gates it;
+        ``fn(state_view, batch) -> result``; the optional
+        ``on_result(state, result) -> state`` feeds a controller back into
+        the training state."""
+        self.hooks.append(ProbeHook(name, schedule, fn, on_result))
 
-    def diagnostics(self, *args, **kwargs):
-        raise NotImplementedError(
-            "diagnostics (alpha_e, sigma_w^2 decomposition) arrive with the "
-            "rest of ROADMAP slice 2")
+    def probes_due(self, step: int) -> bool:
+        """True if any registered probe fires at ``step`` (lets the host
+        loop skip fetching a probe superbatch on quiet steps)."""
+        return any(h.schedule.due(step) for h in self.hooks)
+
+    def run_probes(self, state: TrainState, stacked_batch, step: int = None):
+        """Run every due probe; returns (possibly updated state, {name:
+        result}).  ``step`` defaults to ``state.step``; pass the step you
+        gated on with ``probes_due``.
+
+        Probe fns receive the tree view ``state_view(state)``, rebuilt per
+        hook so a later probe sees what an earlier ``on_result`` wrote;
+        ``on_result`` receives the real state, so a controller writes the
+        live optimizer state.  A probe does not consume the state."""
+        step = state.step if step is None else step
+        results = {}
+        for h in self.hooks:
+            if not h.schedule.due(step):
+                continue
+            r = h.fn(self.state_view(state), stacked_batch)
+            results[h.name] = r
+            if h.on_result is not None:
+                state = h.on_result(state, r)
+        return state, results
+
+    # -- diagnostics (paper Fig. 2b / Fig. 4) ---------------------------------
+    def diagnostics(self, state: TrainState, stacked_batch) -> DiagStats:
+        """The paper's instruments at ``state`` over ``stacked_batch``
+        (leaves (n, B_local, ...)): alpha_e at ``alpha_for_diag``, sigma_w^2
+        and the Delta split.  ``state`` may be the real state or its
+        ``state_view`` (what a probe hook receives)."""
+        params = state.params
+        if isinstance(params, torch.Tensor):
+            params = self._meta.unflatten(params)
+        return compute_diagnostics(self.loss_fn, params, stacked_batch,
+                                   self.alpha_for_diag, age=state.age,
+                                   params_from_tree=self.params_from_tree)
 
     # -- eval ----------------------------------------------------------------
     @torch.no_grad()

@@ -15,6 +15,7 @@ import torch
 from . import ref
 from .decode_attention import paged_decode_attention_fwd
 from .gossip_mix import check_outputs, gossip_mix_update_flat
+from .reorth import reorth_pass
 
 BACKENDS = ("auto", "cuda", "ref")
 
@@ -96,3 +97,24 @@ def flat_gossip_mix(w, partners, coefs, *, active=None, out=None,
     full = torch.cat([coefs.to(torch.float32), ones, act], dim=1)
     return flat_gossip_update(w, w, w, None, partners, full, lr=0.0,
                               out=out, backend=backend)[0]
+
+
+def reorthogonalize(basis, w, mask, *, backend: str = "auto"):
+    """Fully reorthogonalize ``w`` against the masked basis prefix
+    (DESIGN §10): two classical Gram-Schmidt sweeps (CGS2, "twice is
+    enough").
+
+    basis: (M, T, 128) stacked flat Lanczos vectors; w: (T, 128)
+    candidate; mask: (M,) 0/1 float32 marking the live prefix.  A CUDA
+    tensor goes through the dots and axpy kernels of
+    ``kernels/reorth.py`` (the first sweep writes a fresh tensor, the
+    second writes into it in place; ``w`` is not touched); a CPU tensor, or
+    ``backend="ref"``, through ``ref.reorth_ref``.  Returns the new w.
+    """
+    if _use_plain(w, backend):
+        w, _ = ref.reorth_ref(basis, w, mask)
+        w, _ = ref.reorth_ref(basis, w, mask)
+        return w
+    w, _ = reorth_pass(basis, w, mask)
+    w, _ = reorth_pass(basis, w, mask, out=w)
+    return w

@@ -89,3 +89,31 @@ def paged_decode_attention_ref(q, k_pages, v_pages, page_table, lengths, *,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgw,bwkd->bkgd", p, vc.float())
     return o.reshape(S, H, hd).to(q.dtype)
+
+
+def reorth_axpy_ref(w, basis, dots):
+    """Same contract as ``kernels.reorth.reorth_axpy``: w - sum_k d_k v_k,
+    k in order, each product and difference rounded on its own (the CUDA
+    kernel repeats it bitwise given the same dots)."""
+    acc = w.float()
+    for k in range(basis.shape[0]):
+        acc = acc - dots[k] * basis[k].float()
+    return acc.to(w.dtype)
+
+
+def reorth_dots_ref(basis, w, mask):
+    """Same contract as ``kernels.reorth.reorth_dots``: the (M,) dots
+    <v_k, w>, one vector at a time, times ``mask``."""
+    wf = w.float()
+    return torch.stack([torch.sum(basis[k].float() * wf)
+                        for k in range(basis.shape[0])]) * mask
+
+
+def reorth_ref(basis, w, mask):
+    """Same contract as ``kernels.reorth.reorth_pass`` (one CGS sweep), the
+    plain version of ``repro.kernels.ref.reorth_ref``.
+
+    basis: (M, T, 128); w: (T, 128); mask: (M,) 0/1.  Returns (w_new,
+    dots).  Loops vector by vector, as the reference's oracle does."""
+    dots = reorth_dots_ref(basis, w, mask)
+    return reorth_axpy_ref(w, basis, dots), dots

@@ -2,7 +2,7 @@
 
 Ported so far: ``sgd`` (the paper's optimizer, with its fused recipe) and
 the schedule/controller wrappers.  ``adam``, ``lamb``, ``decentlam`` and
-``adascale`` arrive with ROADMAP slice 3.
+``adascale`` come later (ROADMAP Queue A item 10).
 """
 from .base import FusedSGD, Optimizer, apply_updates, scale_by_schedule
 from .schedules import (constant_schedule, controller_scale, linear_warmup,

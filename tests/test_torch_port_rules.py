@@ -148,15 +148,54 @@ def test_unported_trainer_paths_raise_naming_their_slice(kw, slice_):
 
 
 def test_unported_trainer_methods_raise_naming_their_slice():
+    from repro_torch.bench.common import train_fc
     from repro_torch.models import fcnet
     tr = _fc_trainer(device="cpu")
     state = tr.init(0, fcnet.init_params(torch.Generator().manual_seed(0)))
     with pytest.raises(NotImplementedError, match="slice 4"):
         tr.train_step(state._replace(members=object()), {})
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        tr.add_probe("p", None, None)
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        tr.diagnostics(state, {})
+    with pytest.raises(NotImplementedError, match="slice 4"):
+        train_fc("dpsgd", 0.1, steps=2, fault_plan=object(), device="cpu")
+
+
+def test_probe_hooks_fire_on_the_steps_their_schedule_makes_due():
+    from repro_torch.core import AlgoConfig, MultiLearnerTrainer
+    from repro_torch.data import ShardedLoader, TemplateImages
+    from repro_torch.landscape import ProbeSchedule
+    from repro_torch.models import fcnet
+    from repro_torch.optim import controller_scale, scale_by_controller, sgd
+    tr = MultiLearnerTrainer(fcnet.loss_fn, scale_by_controller(sgd(0.1)),
+                             AlgoConfig(algo="dpsgd", n_learners=2),
+                             device="cpu")
+    state = tr.init(0, fcnet.init_params(torch.Generator().manual_seed(0)))
+    loader = ShardedLoader(TemplateImages(), n_learners=2, local_batch=4,
+                           device="cpu")
+    seen = []
+
+    def probe(view, batch):
+        # a probe sees the tree view of the live state
+        assert view.params["w1"].shape == (2, 784, 50)
+        return view.step
+
+    def halve(st, step):
+        seen.append(step)
+        return st._replace(opt_state={**st.opt_state, "scale":
+                                      st.opt_state["scale"] * 0.5})
+
+    sched = ProbeSchedule(every=3, start=1)
+    tr.add_probe("p", sched, probe, on_result=halve)
+    tr.add_probe("off", ProbeSchedule(every=0), lambda v, b: 1 / 0)
+    due = []
+    for i in range(8):
+        if tr.probes_due(i):
+            due.append(i)
+            state, results = tr.run_probes(state, loader.batch(i), step=i)
+            assert results == {"p": i}
+        state, _ = tr.train_step(state, loader.batch(i))
+    assert due == seen == [i for i in range(8) if sched.due(i)] == [1, 4, 7]
+    # on_result wrote the live optimizer state
+    assert torch.equal(controller_scale(state.opt_state),
+                       torch.full((2,), 0.125))
 
 
 def test_trainer_rejects_unknown_backends():
