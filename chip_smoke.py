@@ -50,16 +50,42 @@ Phases (any failure raises and the script exits non-zero):
      fail, DPSGD converge and SSGD+AutoLR converge below 1e-2 with the
      controller clamping below 1, through the reorth kernels; a
      ``reorth="ref"`` AutoLR run must agree on the first probe's
-     sharpness within 1e-4 and end below 1e-2 too.
+     sharpness within 1e-4 and end below 1e-2 too;
+  2d. the flash-attention kernel against its plain version at gemma2-27b's
+     shape (bf16, window 4,096, softcap 50, S = 4,608), transformer-100m's
+     training shape (float32, S = 512), granite-20b's MQA (bf16, S =
+     1,024), non-causal float32 (S = 256, hd 32), rows with no live key
+     (Sq 256 > Sk 128 + window 64) and gemma2's heads and masks in float32
+     with q scaled so the softcap binds — float32 within the reference's
+     tiers, bf16 within one bf16 ulp of each value — then, at gemma2's
+     prefill shapes (S = 8,192, global and local) and the training shape,
+     the same comparison, its time, the plain version's, SDPA's where one
+     call computes the same function and the bound (q.k of bf16 at the
+     tensor cores' bf16 rate, P.V at the float32 rate);
+  2e. the single-learner gossip kernel through ``ops.dpsgd_fused_update``
+     on transformer-100m's full parameter tree with 2 neighbour trees,
+     bitwise equal to ``backend="ref"``, then its time;
+  7. gemma2-27b at full width, depth cut to one local/global period (2
+     layers; 2.31 B bf16 parameters from a seeded torch.Generator), with
+     ``use_pallas``: ``api.apply`` prefill of 8,192 tokens (2 flash
+     launches, finite logits, the last 64 positions equal to the chunked
+     route's within a bf16 tier), then ``loss_fn`` + backward at 4,608
+     tokens (2 launches, finite gradients, both layers' ``wq`` gradients
+     equal to the chunked route's within the tier);
+  8. transformer-100m trained as in phase 4 with ``use_pallas``: 48 flash
+     launches per step, the first 2 losses equal to phase 4's within 1e-5
+     relative, step time, idle share and kernels per step beside phase
+     4's.
 Each path runs with every kernel's launch count set to 0 just before it
-and read just after.  The last lines are the serve, train, probe, FC and
-Table-1 numbers, the card, the kernels record and ``{"ok": true,
-"device": {...}}``.  Without CUDA the script exits 1 before printing any
-result.
+and read just after.  The last lines are the serve, train, probe, FC,
+Table-1, gemma2 and flash-training numbers, the card, the kernels record
+and ``{"ok": true, "device": {...}}``.  Without CUDA the script exits 1
+before printing any result.
 """
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import subprocess
 import sys
@@ -79,6 +105,7 @@ KERNEL_ATOL = 1e-5
 LOGIT_TOL = 1e-3
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12                  # float32 outside the tensor cores
+BF16_FLOPS = 989e12                # bf16 in the tensor cores, dense
 L2_BYTES = 50 * 2 ** 20
 # training (examples/train_100m.py's recipe at full width)
 TRAIN_LEARNERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 4, 2, 512, 0.5
@@ -101,6 +128,55 @@ REORTH_RESIDUAL = 1e-4      # of ||w||: tests/test_landscape.py's bound
 PROBE_ITERS, PROBE_SAMPLES = 8, 4
 PROBE_RTOL = 1e-4
 TABLE1_SCALE, TABLE1_STEPS = 4, 120     # nB = 2000, lr = 0.5
+# flash attention. float32: the reference's own sweep tiers
+# (tests/test_kernels.py) — the sums run in another order than the plain
+# version's einsum, so 2e-6 holds to S = 256 and 1e-5 above. bf16: both
+# sides round one float32 result once, so they may land one bf16 ulp apart
+# (at most 2^-7 of the value) and no further; each element is held to
+# 2^-7 |plain| + 1e-3 rms(plain), the second term for sums near 0
+FLASH_ATOL_F32_SHORT, FLASH_ATOL_F32 = 2e-6, 1e-5
+FLASH_BF16_ULP, FLASH_BF16_RMS = 2.0 ** -7, 1e-3
+_BF16, _F32 = torch.bfloat16, torch.float32
+FLASH_CASES = [   # (name, B, H, KV, hd, Sq, dtype, mask, Sk or None, q scale)
+    ("a_gemma2", 1, 32, 16, 128, 4608, _BF16,
+     dict(causal=True, window=4096, attn_softcap=50.0), None, 1.0),
+    ("b_train_100m", 2, 12, 12, 64, 512, _F32, dict(causal=True), None, 1.0),
+    ("c_granite_mqa", 1, 48, 1, 128, 1024, _BF16, dict(causal=True), None,
+     1.0),
+    ("d_full_f32", 1, 4, 2, 32, 256, _F32, dict(causal=False), None, 1.0),
+    ("e_no_live_key_rows", 1, 4, 2, 32, 256, _F32,
+     dict(causal=False, window=64), 128, 1.0),
+    # gemma2's heads and masks in float32, q scaled by 8 so scores reach
+    # tens and the cap at 50 changes them by whole units: a kernel that
+    # dropped or misplaced the softcap fails here (checked below)
+    ("f_softcap_binds_f32", 1, 32, 16, 128, 4608, _F32,
+     dict(causal=True, window=4096, attn_softcap=50.0), None, 8.0),
+]
+# the cap's effect on case f's plain output, in units of its tolerance
+FLASH_CAP_EFFECT_MIN = 100.0
+# single-learner gossip: every operation rounded as the plain version
+GOSSIP_SINGLE_K, GOSSIP_SINGLE_LR, GOSSIP_SINGLE_BETA = 2, 0.1, 0.9
+# gemma2-27b at full width, 2 layers (one local/global period)
+GEMMA_LAYERS, GEMMA_PREFILL_SEQ, GEMMA_TRAIN_SEQ = 2, 8192, 4608
+GEMMA_LAST = 64             # prefill positions compared with the chunked route
+GEMMA_CHUNK = 512           # the chunked route's block at S = 4,608 (9 x 512)
+# the flash and chunked routes round the attention output to bf16 from
+# float32 sums taken in other orders, and two bf16 layers and the tied head
+# carry the difference on: held as ||a - b|| / ||b||
+GEMMA_BF16_RTOL = 2e-2
+GEMMA_LOSS_RTOL = 1e-3
+FLASH_TIMED = {   # (B, H, KV, hd, S, dtype, mask, library call or None)
+    "gemma2_prefill_global": (1, 32, 16, 128, GEMMA_PREFILL_SEQ, _BF16,
+                              dict(causal=True, attn_softcap=50.0), None),
+    "gemma2_prefill_local": (1, 32, 16, 128, GEMMA_PREFILL_SEQ, _BF16,
+                             dict(causal=True, window=4096,
+                                  attn_softcap=50.0), None),
+    "train_100m": (TRAIN_BATCH, 12, 12, 64, TRAIN_SEQ, _F32,
+                   dict(causal=True), "sdpa"),
+}
+# transformer-100m with use_pallas against phase 4's chunked route
+FLASH_TRAIN_WARM, FLASH_TRAIN_TIMED, FLASH_TRAIN_PROF = 2, 4, 2
+FLASH_TRAIN_LOSS_RTOL = 1e-5
 
 
 def check(cond, msg):
@@ -161,6 +237,18 @@ def device_times(run):
         acc[0] += e.time_range.elapsed_us()
         acc[1] += 1
     return out, api, wall, host
+
+
+def per_event_ms(times, kernel_name, count_name=None):
+    """(device ms per launch, launches kept) of the kernels whose name holds
+    ``kernel_name`` in a ``device_times`` result, launches counted by the
+    events whose name holds ``count_name`` (``kernel_name`` by default; a
+    kernel of two stages counts its first): the profiler may drop events
+    from a short window, so divide by what it kept."""
+    n_ev = sum(v[1] for k, v in times.items()
+               if (count_name or kernel_name) in k)
+    total = sum(v[0] for k, v in times.items() if kernel_name in k)
+    return (total / n_ev / 1e3 if n_ev else None), n_ev
 
 
 # ---------------------------------------------------------------------------
@@ -685,13 +773,9 @@ def reorth_phase():
         for _ in range(20)])
     # per launch: both stages of the dots over the launches the profiler
     # recorded (counted by the first stage's events)
-    dev_ms, dev_events = {}, {}
-    for name, first in (("reorth_dots", "reorth_dots_partial"),
-                        ("reorth_axpy", "reorth_axpy_kernel")):
-        n_ev = sum(v[1] for k, v in times.items() if first in k)
-        dev_events[name] = n_ev
-        dev_ms[name] = (sum(v[0] for k, v in times.items() if name in k)
-                        / n_ev / 1e3) if n_ev else None
+    dev = {name: per_event_ms(times, name, first)
+           for name, first in (("reorth_dots", "reorth_dots_partial"),
+                               ("reorth_axpy", "reorth_axpy_kernel"))}
     vec = T * 128 * 4
     need = {   # bytes each function must move, flops it must do
         "reorth_dots": ((M + 1) * vec + 2 * M * 4, 2 * M * T * 128),
@@ -725,8 +809,8 @@ def reorth_phase():
                                "max |kernel - plain| given the same dots"),
             "ms": kernel_ms,
             "kernel_ms": kernel_ms,
-            "device_ms": dev_ms[name],
-            "device_events": dev_events[name],
+            "device_ms": dev[name][0],
+            "device_events": dev[name][1],
             "plain_ms": time_ms(plain, [()], iters=5),
             "bound_ms": 1e3 * max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -755,16 +839,24 @@ def _train_100m_trainer(api, backend):
         params_from_tree=api.params_from_tree)
 
 
-def train_phase(kernels):
+def train_100m(kernels, warm, timed, prof, use_pallas=False,
+               keep_after_warm=False):
+    """Train transformer-100m with phase 4's recipe for ``warm`` warm-up,
+    ``timed`` timed and ``prof`` profiled steps, every launch count set to
+    0 just before the first; checks that every loss is finite and that the
+    gossip kernel launched once per round.  Returns the run's pieces, with
+    a copy of the store after the warm-up when ``keep_after_warm``."""
+    from types import SimpleNamespace
+
     from repro_torch.configs import get_config
     from repro_torch.data import ShardedLoader, SyntheticTokenStream
     from repro_torch.models import build_model
 
-    cfg = get_config("transformer-100m")
+    cfg = dataclasses.replace(get_config("transformer-100m"),
+                              use_pallas=use_pallas)
     api = build_model(cfg)
     tree = api.param_tree(api.init(SEED))
-    n_params = sum(t.numel() for t in _leaves(tree))
-    steps = WARM_STEPS + TIMED_STEPS + PROF_STEPS
+    steps = warm + timed + prof
     loader = ShardedLoader(SyntheticTokenStream(vocab=cfg.vocab),
                            n_learners=TRAIN_LEARNERS,
                            local_batch=TRAIN_BATCH, extra_args=(TRAIN_SEQ,),
@@ -784,88 +876,104 @@ def train_phase(kernels):
     for k in kernels:
         k.launches = 0
     metrics = []
-    for i in range(WARM_STEPS):
-        state, m = trainer.train_step(state, batches[i])
-        metrics.append(m)
-    after_warm = state.params.clone()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for i in range(WARM_STEPS, WARM_STEPS + TIMED_STEPS):
-        state, m = trainer.train_step(state, batches[i])
-        metrics.append(m)
-    torch.cuda.synchronize()
-    step_ms = 1e3 * (time.perf_counter() - t0) / TIMED_STEPS
 
-    def prof_steps():
+    def run(lo, hi):
         nonlocal state
-        for i in range(WARM_STEPS + TIMED_STEPS, steps):
+        for i in range(lo, hi):
             state, m = trainer.train_step(state, batches[i])
             metrics.append(m)
-    times, api_calls, wall, host = device_times(prof_steps)
+
+    run(0, warm)
+    after_warm = state.params.clone() if keep_after_warm else None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run(warm, warm + timed)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0) / timed
+    times, api_calls, wall, host = device_times(
+        lambda: run(warm + timed, steps))
     launches = {k.__name__: k.launches for k in kernels}
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     losses = torch.stack([m.loss for m in metrics]).tolist()
-    sigma = float(metrics[-1].sigma_w_sq)
     check(all(np.isfinite(losses)), f"non-finite training loss: {losses}")
-    want = steps * trainer.rounds_per_step
-    check(launches["gossip_mix_update_flat"] == want,
+    check(launches["gossip_mix_update_flat"] == steps
+          * trainer.rounds_per_step,
           f"gossip kernel launches {launches['gossip_mix_update_flat']} != "
           f"{steps} steps x {trainer.rounds_per_step} rounds")
-    check(launches["paged_decode_attention_fwd"] == 0
-          and launches["reorth_dots"] == 0 == launches["reorth_axpy"],
-          f"the training path launched another path's kernel: {launches}")
+    tokens = TRAIN_LEARNERS * TRAIN_BATCH * TRAIN_SEQ
+    return SimpleNamespace(
+        cfg=cfg, api=api, tree=tree, loader=loader, batches=batches,
+        trainer=trainer, state=state, metrics=metrics, losses=losses,
+        after_warm=after_warm, steps=steps, data_s=data_s,
+        step_ms=step_ms, tokens_per_s=tokens / (step_ms / 1e3),
+        launches=launches,
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+        profile=train_profile(times, api_calls, wall, host, prof))
+
+
+def train_profile(times, api_calls, wall, host, n):
+    """Per-step figures of ``n`` profiled steps from ``device_times``."""
     busy_us = sum(v[0] for v in times.values())
-    gossip_us = sum(v[0] for k, v in times.items() if "gossip_mix_kernel" in k)
     top = sorted(times.items(), key=lambda kv: -kv[1][0])[:8]
     top_host = sorted(host.items(), key=lambda kv: -kv[1][0])[:10]
-    probe, probe_launches = probe_phase(trainer, state, api, loader, kernels)
-    del trainer, state, metrics
+    out = {
+        "steps": n,
+        "wall_ms_per_step_profiled": 1e3 * wall / n,
+        "device_busy_ms_per_step": busy_us / 1e3 / n,
+        "device_idle_share": (1 - busy_us / 1e6 / wall) if busy_us
+        else None,
+        "top_device_ms_per_step": [
+            [k[:90], v[0] / 1e3 / n, v[1] / n] for k, v in top],
+        "device_kernels_per_step": sum(v[1] for v in times.values()) / n,
+        "host_api_ms_per_step": {
+            k: [v[0] / 1e3 / n, v[1] / n] for k, v in api_calls.items()},
+        "top_host_self_ms_per_step": [
+            [k[:60], v[0] / 1e3 / n, v[1] / n] for k, v in top_host],
+    }
+    for label, name in (("gossip_kernel", "gossip_mix_kernel"),
+                        ("flash_kernel", "flash_attention_kernel")):
+        k_us = sum(v[0] for k, v in times.items() if name in k)
+        out[f"{label}_ms_per_step"] = k_us / 1e3 / n
+        out[f"{label}_share_of_device"] = k_us / busy_us if busy_us else None
+    return out
+
+
+def train_phase(kernels):
+    run = train_100m(kernels, WARM_STEPS, TIMED_STEPS, PROF_STEPS,
+                     keep_after_warm=True)
+    launches = run.launches
+    check(all(v == 0 for k, v in launches.items()
+              if k != "gossip_mix_update_flat"),
+          f"the training path launched another path's kernel: {launches}")
+    n_params = sum(t.numel() for t in _leaves(run.tree))
+    sigma = float(run.metrics[-1].sigma_w_sq)
+    probe, probe_launches = probe_phase(run.trainer, run.state, run.api,
+                                        run.loader, kernels)
+    del run.trainer, run.state, run.metrics
     torch.cuda.empty_cache()
 
     # the same first steps through the plain version on the card
-    ref_trainer = _train_100m_trainer(api, "ref")
-    ref_state = ref_trainer.init(SEED, tree)
+    ref_trainer = _train_100m_trainer(run.api, "ref")
+    ref_state = ref_trainer.init(SEED, run.tree)
     for i in range(REF_STEPS):
-        ref_state, _ = ref_trainer.train_step(ref_state, batches[i])
-    ref_err = float((ref_state.params - after_warm).abs().max())
+        ref_state, _ = ref_trainer.train_step(ref_state, run.batches[i])
+    ref_err = float((ref_state.params - run.after_warm).abs().max())
     check(ref_err <= TRAIN_REF_ATOL,
           f"kernel and plain training differ by {ref_err} after "
           f"{REF_STEPS} steps")
-    del ref_trainer, ref_state, after_warm
+    del ref_trainer, ref_state, run.after_warm
     torch.cuda.empty_cache()
 
-    tokens = TRAIN_LEARNERS * TRAIN_BATCH * TRAIN_SEQ
     return {
-        "model": cfg.name, "n_params": n_params,
+        "model": run.cfg.name, "n_params": n_params,
         "learners": TRAIN_LEARNERS, "local_batch": TRAIN_BATCH,
         "seq": TRAIN_SEQ, "algo": "dpsgd", "topology": "random_pair",
-        "lr": TRAIN_LR, "steps": steps, "data_setup_s": data_s,
-        "ms_per_step": step_ms, "timed_steps": TIMED_STEPS,
-        "tokens_per_s": tokens / (step_ms / 1e3),
-        "profile": {
-            "steps": PROF_STEPS,
-            "wall_ms_per_step_profiled": 1e3 * wall / PROF_STEPS,
-            "device_busy_ms_per_step": busy_us / 1e3 / PROF_STEPS,
-            "device_idle_share": (1 - busy_us / 1e6 / wall) if busy_us
-            else None,
-            "gossip_kernel_ms_per_step": gossip_us / 1e3 / PROF_STEPS,
-            "gossip_kernel_share_of_device": (gossip_us / busy_us
-                                              if busy_us else None),
-            "top_device_ms_per_step": [
-                [k[:90], v[0] / 1e3 / PROF_STEPS, v[1] / PROF_STEPS]
-                for k, v in top],
-            "device_kernels_per_step": sum(v[1] for v in times.values())
-            / PROF_STEPS,
-            "host_api_ms_per_step": {
-                k: [v[0] / 1e3 / PROF_STEPS, v[1] / PROF_STEPS]
-                for k, v in api_calls.items()},
-            "top_host_self_ms_per_step": [
-                [k[:60], v[0] / 1e3 / PROF_STEPS, v[1] / PROF_STEPS]
-                for k, v in top_host],
-        },
-        "max_memory_allocated_gb": peak_gb,
-        "losses": losses, "sigma_w_sq": sigma,
+        "lr": TRAIN_LR, "steps": run.steps, "data_setup_s": run.data_s,
+        "ms_per_step": run.step_ms, "timed_steps": TIMED_STEPS,
+        "tokens_per_s": run.tokens_per_s,
+        "profile": run.profile,
+        "max_memory_allocated_gb": run.peak_gb,
+        "losses": run.losses, "sigma_w_sq": sigma,
         "kernel_launches": launches,
         "ref_backend_max_abs_diff_after_2_steps": ref_err,
     }, launches["gossip_mix_update_flat"], probe, probe_launches
@@ -939,8 +1047,8 @@ def probe_phase(trainer, state, api, loader, kernels):
           f"reorth launches in the probe {launches}, want {want} each")
     check(ref_launches["reorth_dots"] == 0 == ref_launches["reorth_axpy"],
           f"the reorth='ref' probe launched a kernel: {ref_launches}")
-    check(launches["gossip_mix_update_flat"] == 0
-          and launches["paged_decode_attention_fwd"] == 0,
+    check(all(v == 0 for k, v in launches.items()
+              if k not in ("reorth_dots", "reorth_axpy")),
           f"the probe launched another path's kernel: {launches}")
     busy = float(np.mean(util)) / 100 if util else None
     return {
@@ -1106,6 +1214,421 @@ def table1_phase(kernels):
     }
 
 
+# ---------------------------------------------------------------------------
+# phase 2d: flash attention against its plain version
+# ---------------------------------------------------------------------------
+
+def flash_operands(B, H, KV, hd, Sq, dtype, seed, Sk=None, q_scale=1.0):
+    """q (B, H, Sq, hd), k, v (B, KV, Sk, hd) on the card, as the model
+    passes them: ``transpose(1, 2)`` views of (B, S, heads, hd) tensors
+    drawn from a seeded numpy RNG, q times ``q_scale``."""
+    rng = np.random.default_rng(seed)
+    Sk = Sq if Sk is None else Sk
+    out = []
+    for S, n, c in ((Sq, H, q_scale), (Sk, KV, 1.0), (Sk, KV, 1.0)):
+        a = c * rng.standard_normal((B, S, n, hd), dtype=np.float32)
+        out.append(torch.from_numpy(a).cuda().to(dtype).transpose(1, 2))
+    return out
+
+
+def flash_error(got, want, Sq):
+    """(max |got - want|, max of |got - want| over its tolerance): the
+    float32 tiers by length, or one bf16 ulp of the plain value plus
+    1e-3 rms of the plain output; the kernel is within tier when the
+    second is <= 1."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    if want.dtype == _BF16:
+        tol = (FLASH_BF16_ULP * w.abs()
+               + FLASH_BF16_RMS * float(w.pow(2).mean().sqrt()))
+    else:
+        tol = FLASH_ATOL_F32_SHORT if Sq <= 256 else FLASH_ATOL_F32
+    return float(err.max()), float((err / tol).max())
+
+
+def live_pairs(Sq, Sk, causal, window) -> int:
+    """(q, k) pairs the masks leave live, positions contiguous from 0."""
+    qpos = np.arange(Sq)[:, None]
+    lo = np.zeros((Sq, 1), np.int64)
+    hi = np.full((Sq, 1), Sk - 1)
+    if causal:
+        hi = np.minimum(hi, qpos)
+    if window:
+        lo = np.maximum(lo, qpos - window + 1)
+    return int(np.clip(hi - lo + 1, 0, None).sum())
+
+
+def flash_phase():
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import \
+        flash_attention_fwd as kernel
+
+    errs = {}
+    for i, (name, B, H, KV, hd, Sq, dt, kw, Sk, q_scale) in enumerate(
+            FLASH_CASES):
+        q, k, v = flash_operands(B, H, KV, hd, Sq, dt, SEED + i, Sk, q_scale)
+        before = kernel.launches
+        got = kernel(q, k, v, **kw)
+        want = ref.flash_attention_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        check(kernel.launches == before + 1, f"{name}: no launch")
+        check(got.dtype == dt and got.shape == q.shape,
+              f"{name}: output {got.dtype} {tuple(got.shape)}")
+        check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
+        err, ratio = flash_error(got, want, Sq)
+        errs[name] = {"max_abs_err": err, "max_err_over_tol": ratio}
+        check(ratio <= 1.0, f"{name}: |kernel - plain| reaches {ratio} x "
+              f"its tolerance (max abs {err})")
+        if kw.get("attn_softcap") and dt == _F32:
+            uncapped = ref.flash_attention_ref(
+                q, k, v, **{**kw, "attn_softcap": 0.0})
+            effect = float((uncapped - want).abs().max()) / (
+                FLASH_ATOL_F32_SHORT if Sq <= 256 else FLASH_ATOL_F32)
+            errs[name]["softcap_effect_over_tol"] = effect
+            check(effect >= FLASH_CAP_EFFECT_MIN,
+                  f"{name}: the softcap moves the output by only {effect} "
+                  f"x the tolerance")
+            del uncapped
+        del q, k, v, got, want
+    torch.cuda.empty_cache()
+    print(f"flash_attention error per case {json.dumps(errs)}", flush=True)
+
+    timed = {}
+    for j, (label, (B, H, KV, hd, S, dt, kw, lib)) in enumerate(
+            FLASH_TIMED.items()):
+        q, k, v = flash_operands(B, H, KV, hd, S, dt, SEED + 10 + j)
+        per_set = 4 * q.element_size() * q.numel()      # q, k, v, out
+        sets = [(q, k, v)] + [tuple(t.clone() for t in (q, k, v))
+                              for _ in range(L2_BYTES // per_set)]
+        big = S > 1024
+        kernel_ms = time_ms(lambda a, b, c: kernel(a, b, c, **kw), sets,
+                            iters=10 if big else 100)
+        plain_ms = time_ms(lambda a, b, c: ref.flash_attention_ref(
+            a, b, c, **kw), sets[:1], iters=2 if big else 20)
+        err, ratio = flash_error(kernel(q, k, v, **kw),
+                                 ref.flash_attention_ref(q, k, v, **kw), S)
+        check(ratio <= 1.0, f"{label}: |kernel - plain| reaches {ratio} x "
+              f"its tolerance (max abs {err})")
+        errs[label] = {"max_abs_err": err, "max_err_over_tol": ratio}
+        library_ms = None
+        if lib:
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            library_ms = time_ms(lambda a, b, c: sdpa(a, b, c, is_causal=True),
+                                 sets, iters=100)
+        times, _, _, _ = device_times(
+            lambda: [kernel(*sets[i % len(sets)], **kw) for i in range(10)])
+        device_ms, n_ev = per_event_ms(times, "flash_attention_kernel")
+        pairs = live_pairs(S, S, kw.get("causal", True), kw.get("window", 0))
+        # q.k of bf16 operands multiplies exactly in float32, so the tensor
+        # cores' bf16 rate bounds that half; P.V takes float32 P: 67 TFLOP/s
+        half = 2 * hd * pairs * B * H
+        flops = 2 * half
+        nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops = half / (BF16_FLOPS if dt == _BF16 else F32_FLOPS) \
+            + half / F32_FLOPS
+        timed[label] = {
+            "shape": {"B": B, "H": H, "KV": KV, "hd": hd, "S": S,
+                      "dtype": str(dt).replace("torch.", ""), **kw},
+            "ms": kernel_ms, "kernel_ms": kernel_ms, "device_ms": device_ms,
+            "device_events": n_ev, "plain_ms": plain_ms,
+            "bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "flops": flops, "live_pairs_per_head": pairs,
+            "share_of_bound": 1e3 * max(t_bytes, t_ops) / kernel_ms,
+            "library_ms": library_ms,
+            "library": ("torch.nn.functional.scaled_dot_product_attention("
+                        "is_causal=True)" if lib else
+                        "none: scaled_dot_product_attention has no logit "
+                        "softcap"),
+        }
+        del q, k, v, sets
+        torch.cuda.empty_cache()
+    main = timed["gemma2_prefill_global"]
+    return {
+        "name": "flash_attention_fwd",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:100",
+        "tpu_kernel": "src/repro/kernels/flash_attention.py::"
+                      "flash_attention_fwd",
+        "launches": None,
+        "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
+        "error_per_case_and_timed_shape": errs,
+        "ms": main["ms"], "kernel_ms": main["kernel_ms"],
+        "device_ms": main["device_ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "library_ms": main["library_ms"], "library": main["library"],
+        "shape": main["shape"],
+        "per_shape": timed,
+    }
+
+
+# ---------------------------------------------------------------------------
+# phase 2e: the single-learner gossip kernel through dpsgd_fused_update
+# ---------------------------------------------------------------------------
+
+def gossip_single_phase(kernels):
+    from repro_torch.configs import get_config
+    from repro_torch.core.flatstate import flatten_for_kernel
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.gossip_mix import gossip_mix_update
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_map
+
+    api = build_model(get_config("transformer-100m"))
+    tree = api.param_tree(api.init(SEED))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+
+    def draw(t):
+        return torch.randn(t.shape, generator=gen, device="cuda")
+
+    nbrs = [tree_map(draw, tree) for _ in range(GOSSIP_SINGLE_K)]
+    grads, mom = tree_map(draw, tree), tree_map(draw, tree)
+    coefs = [1.0 / (GOSSIP_SINGLE_K + 1)] * (GOSSIP_SINGLE_K + 1)
+    kw = dict(lr=GOSSIP_SINGLE_LR, beta=GOSSIP_SINGLE_BETA)
+    torch.cuda.synchronize()
+
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    got = ops.dpsgd_fused_update(tree, nbrs, grads, mom, coefs, **kw)
+    torch.cuda.synchronize()
+    tree_ms = 1e3 * (time.perf_counter() - t0)
+    launches = {k.__name__: k.launches for k in kernels}
+    check(launches["gossip_mix_update"] == 1 and sum(launches.values()) == 1,
+          f"dpsgd_fused_update launches {launches}")
+    want = ops.dpsgd_fused_update(tree, nbrs, grads, mom, coefs,
+                                  backend="ref", **kw)
+    err = 0.0
+    for g_tree, w_tree in zip(got, want):
+        for a, b in zip(_leaves(g_tree), _leaves(w_tree)):
+            err = max(err, _max_err(a, b))
+            check(_bits_equal(a, b),
+                  f"dpsgd_fused_update: kernel and plain differ by {err}")
+    print(f"gossip_mix_update (dpsgd_fused_update, 100m tree, K="
+          f"{GOSSIP_SINGLE_K}) max_abs_err {err}", flush=True)
+
+    w, _ = flatten_for_kernel(tree)
+    T = w.shape[0]
+    check(T == TRAIN_ROWS, f"the 100m tree flattens to {T} rows, not "
+          f"{TRAIN_ROWS}")
+    nb = torch.stack([flatten_for_kernel(t)[0] for t in nbrs])
+    g, mu = flatten_for_kernel(grads)[0], flatten_for_kernel(mom)[0]
+    c = torch.tensor(coefs, dtype=torch.float32, device="cuda")
+    del nbrs, grads, mom, got, want
+    kernel_ms = time_ms(lambda: gossip_mix_update(w, nb, g, mu, c, **kw),
+                        [()], iters=50)
+    plain_ms = time_ms(lambda: ref.gossip_mix_update_ref(w, nb, g, mu, c,
+                                                         **kw),
+                       [()], iters=5)
+    times, _, _, _ = device_times(
+        lambda: [gossip_mix_update(w, nb, g, mu, c, **kw)
+                 for _ in range(20)])
+    device_ms, n_ev = per_event_ms(times, "gossip_mix_single_kernel")
+    vec = w.numel() * 4
+    # w, the K neighbours, g and mu in; w' and mu' out
+    nbytes = (3 + GOSSIP_SINGLE_K) * vec + 2 * vec + c.numel() * 4
+    flops = (2 * GOSSIP_SINGLE_K + 5) * w.numel()
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+    return {
+        "name": "gossip_mix_update",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/gossip_mix.cu",
+        "replaces": "src/repro/kernels/gossip_mix.py:74",
+        "tpu_kernel": "src/repro/kernels/gossip_mix.py::gossip_mix_update",
+        "launches": launches["gossip_mix_update"],
+        "max_abs_err": err,
+        "ms": kernel_ms, "kernel_ms": kernel_ms, "device_ms": device_ms,
+        "device_events": n_ev, "plain_ms": plain_ms,
+        "bound_ms": 1e3 * max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bound_bytes": nbytes,
+        "library_ms": None,
+        "library": ("none: no single PyTorch call computes the K-term mix, "
+                    "the momentum update and the step in one pass"),
+        "tree_level_ms_first_call": tree_ms,
+        "shape": {"T": T, "K": GOSSIP_SINGLE_K, "coefs": coefs, **kw},
+    }
+
+
+# ---------------------------------------------------------------------------
+# phase 7: gemma2-27b at full width through the flash route
+# ---------------------------------------------------------------------------
+
+def _rel(a, b) -> float:
+    a, b = a.float(), b.float()
+    return float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+
+
+def gemma2_phase(kernels):
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    full = get_config("gemma2-27b")
+    cfg = dataclasses.replace(full, n_layers=GEMMA_LAYERS, use_pallas=True)
+    chunked = dataclasses.replace(cfg, use_pallas=False)
+    api, api_c = build_model(cfg), build_model(chunked)
+    t0 = time.perf_counter()
+    params = api.init(SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    rng = np.random.default_rng(SEED)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (1, GEMMA_PREFILL_SEQ))).cuda()
+
+    def counted(fn):
+        for k in kernels:
+            k.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return (out, 1e3 * (time.perf_counter() - t0),
+                {k.__name__: k.launches for k in kernels},
+                torch.cuda.max_memory_allocated() / 1e9)
+
+    # (i) prefill: every logit finite, the last positions against chunked
+    with torch.no_grad():
+        logits, prefill_ms, launches, prefill_gb = counted(
+            lambda: api.apply(params, {"tokens": tokens}))
+        check(launches["flash_attention_fwd"] == GEMMA_LAYERS
+              and sum(launches.values()) == GEMMA_LAYERS,
+              f"gemma2 prefill launches {launches}")
+        check(logits.shape == (1, GEMMA_PREFILL_SEQ, cfg.padded_vocab)
+              and logits.dtype == getattr(torch, cfg.compute_dtype),
+              f"gemma2 logits {tuple(logits.shape)} {logits.dtype}")
+        check(bool(torch.isfinite(logits).all()),
+              "non-finite gemma2 prefill logits")
+        last = logits[:, -GEMMA_LAST:].clone()
+        del logits
+        logits_c, chunked_ms, launches_c, chunked_gb = counted(
+            lambda: api_c.apply(params, {"tokens": tokens}))
+        check(sum(launches_c.values()) == 0,
+              f"the chunked route launched {launches_c}")
+        last_c = logits_c[:, -GEMMA_LAST:].clone()
+        del logits_c
+    prefill_rel = _rel(last, last_c)
+    prefill_max = float((last.float() - last_c.float()).abs().max())
+    check(prefill_rel <= GEMMA_BF16_RTOL,
+          f"gemma2 prefill: last {GEMMA_LAST} positions differ from the "
+          f"chunked route by {prefill_rel} relative")
+    torch.cuda.empty_cache()
+
+    # (ii) loss + backward; the chunked route at a 512 block (4,608 = 9 x
+    # 512; its default 1,024 does not divide the length)
+    labels = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (1, GEMMA_TRAIN_SEQ))).cuda()
+    batch = {"tokens": tokens[:, :GEMMA_TRAIN_SEQ].contiguous(),
+             "labels": labels}
+    api_c2 = build_model(dataclasses.replace(chunked,
+                                             attn_chunk=GEMMA_CHUNK))
+
+    def loss_and_grad(a):
+        params.zero_grad(set_to_none=True)
+        loss = a.loss_fn(params, batch)
+        loss.backward()
+        return loss.detach()
+
+    loss, train_ms, launches_t, train_gb = counted(
+        lambda: loss_and_grad(api))
+    check(launches_t["flash_attention_fwd"] == GEMMA_LAYERS
+          and sum(launches_t.values()) == GEMMA_LAYERS,
+          f"gemma2 loss/backward launches {launches_t}")
+    check(all(bool(torch.isfinite(p.grad).all())
+               for p in params.parameters()),
+          "non-finite gemma2 gradients")
+    wq = [params.periods[0][f"l{i}"].mixer.wq.grad.clone()
+          for i in range(2)]
+    loss_c, train_c_ms, launches_tc, train_c_gb = counted(
+        lambda: loss_and_grad(api_c2))
+    check(sum(launches_tc.values()) == 0,
+          f"the chunked route launched {launches_tc}")
+    wq_c = [params.periods[0][f"l{i}"].mixer.wq.grad for i in range(2)]
+    wq_rel = [_rel(a, b) for a, b in zip(wq, wq_c)]
+    loss_rel = abs(float(loss) - float(loss_c)) / abs(float(loss_c))
+    check(max(wq_rel) <= GEMMA_BF16_RTOL,
+          f"gemma2 wq gradients differ from the chunked route by {wq_rel}")
+    check(loss_rel <= GEMMA_LOSS_RTOL,
+          f"gemma2 loss {float(loss)} vs chunked {float(loss_c)}")
+    params.zero_grad(set_to_none=True)
+    del params, wq, wq_c
+    torch.cuda.empty_cache()
+    return {
+        "model": full.name, "n_layers": GEMMA_LAYERS,
+        "reduced": {"n_layers": f"{full.n_layers} -> {GEMMA_LAYERS} (one "
+                                "local/global period; every width kept)"},
+        "d_model": cfg.d_model, "n_heads": cfg.n_heads,
+        "n_kv_heads": cfg.n_kv_heads, "head_dim": cfg.head_dim_,
+        "d_ff": cfg.d_ff, "vocab": cfg.vocab, "window": cfg.window,
+        "softcaps": [cfg.attn_softcap, cfg.final_softcap],
+        "dtype": cfg.param_dtype, "n_params": n_params, "init_s": init_s,
+        "prefill": {"tokens": GEMMA_PREFILL_SEQ,
+                    "flash_wall_ms": prefill_ms,
+                    "chunked_wall_ms": chunked_ms,
+                    "flash_peak_gb": prefill_gb,
+                    "chunked_peak_gb": chunked_gb,
+                    "flash_launches": launches["flash_attention_fwd"],
+                    "last_positions": GEMMA_LAST,
+                    "last_logits_rel_diff_vs_chunked": prefill_rel,
+                    "last_logits_max_abs_diff_vs_chunked": prefill_max,
+                    "tier_rel": GEMMA_BF16_RTOL},
+        "loss_backward": {"tokens": GEMMA_TRAIN_SEQ,
+                          "loss": float(loss), "chunked_loss": float(loss_c),
+                          "loss_rel_diff": loss_rel,
+                          "flash_wall_ms": train_ms,
+                          "chunked_wall_ms": train_c_ms,
+                          "flash_peak_gb": train_gb,
+                          "chunked_peak_gb": train_c_gb,
+                          "chunked_block": GEMMA_CHUNK,
+                          "flash_launches": launches_t["flash_attention_fwd"],
+                          "wq_grad_rel_diff_vs_chunked": wq_rel,
+                          "tier_rel": GEMMA_BF16_RTOL},
+    }, launches["flash_attention_fwd"] + launches_t["flash_attention_fwd"]
+
+
+# ---------------------------------------------------------------------------
+# phase 8: transformer-100m trained through the flash route
+# ---------------------------------------------------------------------------
+
+def flash_train_phase(kernels, chunked_train):
+    run = train_100m(kernels, FLASH_TRAIN_WARM, FLASH_TRAIN_TIMED,
+                     FLASH_TRAIN_PROF, use_pallas=True)
+    launches, losses = run.launches, run.losses
+    per_step = TRAIN_LEARNERS * run.cfg.n_layers
+    check(launches["flash_attention_fwd"] == run.steps * per_step,
+          f"flash launches {launches['flash_attention_fwd']} != "
+          f"{run.steps} steps x {per_step}")
+    others = {k: v for k, v in launches.items() if k not in (
+        "flash_attention_fwd", "gossip_mix_update_flat")}
+    check(sum(others.values()) == 0, f"other kernels launched: {others}")
+    ref = chunked_train["losses"][:2]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses[:2], ref)]
+    check(max(rel) <= FLASH_TRAIN_LOSS_RTOL,
+          f"flash-route losses {losses[:2]} vs chunked {ref}: {rel}")
+    prof = chunked_train["profile"]
+    del run.trainer, run.state, run.metrics
+    torch.cuda.empty_cache()
+    return {
+        "model": run.cfg.name, "use_pallas": True, "steps": run.steps,
+        "timed_steps": FLASH_TRAIN_TIMED,
+        "ms_per_step": run.step_ms, "tokens_per_s": run.tokens_per_s,
+        "profile": run.profile,
+        "chunked_route": {
+            "ms_per_step": chunked_train["ms_per_step"],
+            "tokens_per_s": chunked_train["tokens_per_s"],
+            "device_idle_share": prof["device_idle_share"],
+            "device_busy_ms_per_step": prof["device_busy_ms_per_step"],
+            "device_kernels_per_step": prof["device_kernels_per_step"]},
+        "max_memory_allocated_gb": run.peak_gb,
+        "losses": losses, "chunked_losses_first_2": ref,
+        "loss_rel_diff_first_2": rel,
+        "kernel_launches": launches,
+    }, launches["flash_attention_fwd"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
@@ -1113,26 +1636,33 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch import cuda_build
-    from repro_torch.kernels import decode_attention, gossip_mix, reorth
+    from repro_torch.kernels import (decode_attention, flash_attention,
+                                     gossip_mix, reorth)
 
     torch.backends.cuda.matmul.allow_tf32 = False   # float32 products in
     torch.backends.cudnn.allow_tf32 = False         # full float32
 
     card = card_line()
     print(f"card: {card}", flush=True)
-    sources = [decode_attention.SOURCE, gossip_mix.SOURCE, reorth.SOURCE]
+    sources = [decode_attention.SOURCE, gossip_mix.SOURCE, reorth.SOURCE,
+               flash_attention.SOURCE]
     t0 = time.perf_counter()
     cuda_build.build_all(sources)
     print(f"build: {len(sources)} kernel source(s) in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     kernels = [decode_attention.paged_decode_attention_fwd,
                gossip_mix.gossip_mix_update_flat,
-               reorth.reorth_dots, reorth.reorth_axpy]
+               reorth.reorth_dots, reorth.reorth_axpy,
+               gossip_mix.gossip_mix_update,
+               flash_attention.flash_attention_fwd]
 
     decode_record = decode_attention_phase()
     gossip_record = gossip_phase()
     torch.cuda.empty_cache()
     dots_record, axpy_record = reorth_phase()
+    torch.cuda.empty_cache()
+    flash_record = flash_phase()
+    single_record = gossip_single_phase(kernels)
     torch.cuda.empty_cache()
 
     for k in kernels:
@@ -1157,10 +1687,19 @@ def main() -> int:
     print(json.dumps({"fc": fc}), flush=True)
     table1 = table1_phase(kernels)
     print(json.dumps({"table1": table1}), flush=True)
+    gemma, gemma_launches = gemma2_phase(kernels)
+    print(json.dumps({"gemma2": gemma}), flush=True)
+    flash_train, train_launches = flash_train_phase(kernels, train)
+    print(json.dumps({"flash_train": flash_train}), flush=True)
+    flash_record["launches"] = gemma_launches + train_launches
+    flash_record["launches_by_path"] = {
+        "gemma2_prefill_and_loss_backward": gemma_launches,
+        "transformer_100m_use_pallas_training": train_launches}
 
     print(card, flush=True)
     print(json.dumps({"kernels": [decode_record, gossip_record, dots_record,
-                                  axpy_record]}), flush=True)
+                                  axpy_record, single_record,
+                                  flash_record]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

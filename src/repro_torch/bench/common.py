@@ -40,10 +40,10 @@ def train_fc(algo: str, lr: float, *, n: int = 5, local_batch: int = 400,
     dispatch.  Losses are read from the device once, at the end.
 
     ``fault_plan`` (elastic membership under a supervisor) arrives with
-    ROADMAP slice 4 and raises."""
+    ROADMAP slice 6 and raises."""
     if fault_plan is not None:
         raise NotImplementedError(
-            "fault_plan / Supervisor runs arrive with ROADMAP slice 4 "
+            "fault_plan / Supervisor runs arrive with ROADMAP slice 6 "
             "(elastic membership)")
     dev = resolve_device(device)
     ds = dataset or TemplateImages()

@@ -58,7 +58,7 @@ class ModelConfig:
     n_frontend_tokens: int = 1024
 
     use_rope: bool = True
-    use_pallas: bool = False       # reference-only: its Pallas prefill path
+    use_pallas: bool = False       # attention through the flash kernel
 
     # --- numerics -------------------------------------------------------------
     param_dtype: str = "float32"

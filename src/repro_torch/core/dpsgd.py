@@ -12,7 +12,7 @@ carry a leading learner axis of size n.  One DPSGD step (paper Eq. 2,
 SSGD (Eq. 1): g_j = grad L^{mu_j}(w_a); w_a <- w_a - alpha * mean_j g_j.
 AD-PSGD averages with a partner's possibly stale published weights (see
 ``core/trainer.py``).  The collective (multi-GPU) gossip helpers arrive
-with the launch slice (ROADMAP slice 6); ``member_active_mask`` and
+with the launch slice (ROADMAP slice 7); ``member_active_mask`` and
 ``perturb_weights`` (SSGD*) with slices 4 and 2.
 """
 from __future__ import annotations

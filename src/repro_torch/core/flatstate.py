@@ -32,7 +32,8 @@ import torch
 
 from ..tree import tree_flatten, tree_unflatten
 
-__all__ = ["LANE", "ROW_ALIGN", "FlatMeta", "flat_meta"]
+__all__ = ["LANE", "ROW_ALIGN", "FlatMeta", "flat_meta",
+           "flatten_for_kernel"]
 
 LANE = 128
 ROW_ALIGN = 8           # row count a multiple of 8, as the reference's
@@ -99,3 +100,12 @@ def flat_meta(tree) -> FlatMeta:
     rows += (-rows) % ROW_ALIGN
     return FlatMeta(treedef, shapes, tuple(x.dtype for x in leaves), sizes,
                     tuple(offsets), off, rows)
+
+
+def flatten_for_kernel(tree):
+    """Tree -> ((T, 128) float32 buffer, unflatten): the port's copy of
+    ``repro/kernels/gossip_mix.py::flatten_for_kernel``, for the one-shot
+    kernel wrappers (``ops.dpsgd_fused_update``).  ``unflatten`` restores
+    each leaf's shape and dtype; float32 leaves come back as views."""
+    meta = flat_meta(tree)
+    return meta.flatten(tree), meta.unflatten

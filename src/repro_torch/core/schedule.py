@@ -17,7 +17,7 @@ equal the reference's exactly.
 Randomized schedules (``random_pair``, ``random_matching``) draw each
 round's matching from a ``torch.Generator`` on the caller's device: the
 reference's law, not its ``jax.random`` draws.  ``reschedule`` (elastic
-membership) arrives with ROADMAP slice 4.
+membership) arrives with ROADMAP slice 6.
 """
 from __future__ import annotations
 

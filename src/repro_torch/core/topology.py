@@ -11,7 +11,7 @@ Matchings are drawn from a ``torch.Generator`` on its own device, so a
 trainer on the card draws them there with no host round trip.  They follow
 the reference's law (a uniform random permutation, paired consecutively),
 not its ``jax.random`` draws.  ``masked_pair_partners`` (elastic
-membership) arrives with ROADMAP slice 4.
+membership) arrives with ROADMAP slice 6.
 """
 from __future__ import annotations
 

@@ -35,7 +35,7 @@ alpha_e, sigma_w^2 and Delta split (``core/diagnostics.py``).
 
 What the reference has and this port does not yet (each raises
 ``NotImplementedError`` naming its ROADMAP slice): the pytree engine and
-SSGD* (the rest of slice 2); elastic membership (slice 4).
+SSGD* (the rest of slice 2); elastic membership (slice 6).
 ``engine="auto"`` sends every algorithm, SSGD included, to the flat
 engine, since the pytree engine is not ported.
 
@@ -76,7 +76,7 @@ class TrainState(NamedTuple):
     buffer: Any = None    # last-published weights, (n, T, 128)
     age: Any = None       # (n,) int32 ticks since each learner published
     clock: Any = None     # (n,) int32 completed local steps per learner
-    members: Any = None   # elastic membership: ROADMAP slice 4
+    members: Any = None   # elastic membership: ROADMAP slice 6
 
 
 class StepMetrics(NamedTuple):
@@ -343,7 +343,7 @@ class MultiLearnerTrainer:
         tests inject the reference's).  Returns (new state, StepMetrics)."""
         if state.members is not None:
             raise NotImplementedError(
-                "elastic membership arrives with ROADMAP slice 4")
+                "elastic membership arrives with ROADMAP slice 6")
         algo = self.algo
         n = algo.n_learners
         dev = self.device

@@ -2,7 +2,7 @@
 (the tree walking itself is ``repro_torch.tree``).  Sums are taken in
 float32, leaf by leaf, and folded left to right as the reference's
 ``tree_reduce`` does.  The masked (elastic) variants arrive with ROADMAP
-slice 4.
+slice 6.
 
 ``bind_params`` / ``value_and_grad`` differentiate a loss with respect to a
 parameter TREE (the reference's layout) for models whose ``loss_fn`` takes

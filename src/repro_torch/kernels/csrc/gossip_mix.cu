@@ -1,4 +1,5 @@
-// Batched fused gossip mix + momentum SGD for Hopper (sm_90a), float32.
+// Batched fused gossip mix + momentum SGD for Hopper (sm_90a), float32,
+// and its single-learner form (at the end of this file).
 //
 // Replaces the TPU kernel src/repro/kernels/gossip_mix.py ::
 // gossip_mix_update_flat (the Pallas body _flat_kernel).  Same contract, on
@@ -129,9 +130,64 @@ void launch(const void* w, const void* remote, const void* grads, void* mu,
       beta, wd);
 }
 
+// Single-learner fused mix + momentum + apply: replaces the TPU kernel
+// src/repro/kernels/gossip_mix.py :: gossip_mix_update (the Pallas body
+// _kernel), the reduced form of the batched kernel above that
+// ops.dpsgd_fused_update reaches.  On one (T, 128) buffer with an explicit
+// (K, T, 128) neighbour stack and coefs = [self, nbr_0..nbr_{K-1}]:
+//
+//   mixed = c_0 * w + sum_k c_{1+k} * nbr_k;  mu' = beta * mu + g;
+//   w'    = mixed - lr * mu'
+//
+// into fresh outputs, every operation rounded on its own in the plain
+// version's order (kernels/ref.py::gossip_mix_update_ref, bitwise).  One
+// thread per float4, a block per 1,024 elements; coefs in shared memory.
+// Bound: (3 + K) reads and 2 writes of the buffer; at transformer-100m's
+// T = 1,056,920 and K = 2 that is 7 x 541.1 MB, 1.13 ms at 3.35 TB/s.
+__global__ void __launch_bounds__(kThreads)
+gossip_mix_single_kernel(const float4* __restrict__ w,
+                         const float4* __restrict__ nbrs,
+                         const float4* __restrict__ grads,
+                         const float4* __restrict__ mu,
+                         const float* __restrict__ coefs,
+                         float4* __restrict__ w_out,
+                         float4* __restrict__ mu_out, long long vecs, int K,
+                         float lr, float beta) {
+  __shared__ float c[kMaxK + 1];
+  if (threadIdx.x <= K) c[threadIdx.x] = coefs[threadIdx.x];
+  __syncthreads();
+  const long long e = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (e >= vecs) return;
+  float4 mixed = mul(c[0], w[e]);
+  for (int k = 0; k < K; ++k) {
+    mixed = add(mixed, mul(c[1 + k], nbrs[k * vecs + e]));
+  }
+  const float4 mn = add(mul(beta, mu[e]), grads[e]);
+  w_out[e] = sub(mixed, mul(lr, mn));
+  mu_out[e] = mn;
+}
+
 }  // namespace
 
 extern "C" {
+
+// Launches on `stream` and returns cudaGetLastError() (0 on success).
+// `elems` is T * 128 (a multiple of 4); nbrs is (K, elems) with
+// 1 <= K <= 16; coefs (1 + K,) float32 on the device.  The caller has
+// checked devices, dtypes, contiguity, 16-byte alignment, shapes, and that
+// the outputs overlap no input.
+int gossip_mix_update_f32(const void* w, const void* nbrs, const void* grads,
+                          const void* mu, const void* coefs, void* w_out,
+                          void* mu_out, long long elems, int K, float lr,
+                          float beta, void* stream) {
+  const long long vecs = elems / 4;
+  const unsigned blocks = (unsigned)((vecs + kThreads - 1) / kThreads);
+  gossip_mix_single_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      (const float4*)w, (const float4*)nbrs, (const float4*)grads,
+      (const float4*)mu, (const float*)coefs, (float4*)w_out, (float4*)mu_out,
+      vecs, K, lr, beta);
+  return (int)cudaGetLastError();
+}
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
 // `mu` null selects the momentum-free update; `buffer` non-null selects

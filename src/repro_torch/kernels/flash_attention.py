@@ -1,0 +1,115 @@
+"""Hand-written CUDA kernel: blocked flash attention forward (causal /
+sliding window / logit softcap, GQA) for training and prefill.
+
+Port of ``repro/kernels/flash_attention.py::flash_attention_fwd`` (the
+Pallas TPU kernel) to CUDA C++ for Hopper; the source and its design note
+are in ``csrc/flash_attention.cu``.  The wrapper takes CUDA tensors only —
+``kernels.ops.flash_attention`` sends CPU tensors to the plain version in
+``kernels.ref`` — and checks device, dtype (float32 or bf16, one for all
+three), shapes (``H % KV == 0``, hd in {32, 64, 128}, Sq and Sk multiples
+of the 64-row tile, as the reference asserts its block), layout and
+alignment before launching on the current stream.
+
+Layout: q (B, H, Sq, hd), k and v (B, KV, Sk, hd), as the reference's
+kernel takes them.  Each may be a strided view — the model's (B, S, H, hd)
+tensors ``transpose(1, 2)``-ed — as long as the head dim is contiguous and
+the pointer and every other stride are 16-byte aligned: the kernel reads
+through the strides, so the dispatcher makes no transposed copies.  The
+output takes q's strides.
+
+``flash_attention_fwd.launches`` counts launches (a plain integer, reset
+by whoever wants to count a run).
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from ..cuda_build import load_library
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+TILE = 64                    # q rows per block and k rows per tile
+HEAD_DIMS = (32, 64, 128)
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+SIGNATURES = {
+    "flash_attention_fwd": (
+        ctypes.c_int,
+        [_P, _P, _P, _P,                # q k v out
+         _I, _I, _I, _I, _I, _I, _I,    # dtype B H KV Sq Sk hd
+         _P,                            # 12 int64 strides
+         _I, _I, _F, _F, _P]),          # causal window softcap scale stream
+    "flash_attention_error_string": (ctypes.c_char_p, [_I]),
+}
+
+
+def _check(q, k, v):
+    if q.device.type != "cuda":
+        raise ValueError(f"the CUDA kernel needs CUDA tensors, got q on "
+                         f"{q.device} (ops.flash_attention sends CPU tensors "
+                         "to the plain version)")
+    tensors = {"q": q, "k": k, "v": v}
+    if q.dtype not in DTYPES:
+        raise ValueError(f"q must be float32 or bfloat16, got {q.dtype}")
+    for name, t in tensors.items():
+        if t.device != q.device:
+            raise ValueError(f"{name} must be on {q.device}, got {t.device}")
+        if t.dtype != q.dtype:
+            raise ValueError(f"{name} is {t.dtype}, q {q.dtype}: the kernel "
+                             "takes one dtype")
+        if t.dim() != 4:
+            raise ValueError(f"{name} must be 4-d, got {tuple(t.shape)}")
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name}'s head dim must be contiguous (stride "
+                             f"1), got strides {t.stride()}")
+        if t.data_ptr() % 16 or any(
+                (s * t.element_size()) % 16 for s in t.stride()[:3]):
+            raise ValueError(f"{name} must be 16-byte aligned with 16-byte "
+                             f"strides (the kernel loads 16-byte rows), got "
+                             f"strides {t.stride()}")
+    B, H, Sq, hd = q.shape
+    _, KV, Sk, _ = k.shape
+    if k.shape[0] != B or k.shape[3] != hd or v.shape != k.shape:
+        raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
+                         f"fit q {tuple(q.shape)}")
+    if KV < 1 or H % KV:
+        raise ValueError(f"H={H}, KV={KV}: need H % KV == 0")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd}: the kernel takes {HEAD_DIMS}")
+    if Sq % TILE or Sk % TILE or not Sq or not Sk:
+        raise ValueError(f"Sq={Sq}, Sk={Sk}: the kernel needs multiples of "
+                         f"its {TILE}-row tile")
+
+
+def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
+                        attn_softcap: float = 0.0):
+    """q: (B, H, Sq, hd); k, v: (B, KV, Sk, hd) -> (B, H, Sq, hd) in q's
+    dtype and strides, on one CUDA device.  Positions are contiguous from
+    0 (training / prefill)."""
+    _check(q, k, v)
+    B, H, Sq, hd = q.shape
+    _, KV, Sk, _ = k.shape
+    out = torch.empty_like(q)              # q's strides (preserve_format)
+    strides = (ctypes.c_longlong * 12)(
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        *out.stride()[:3])
+    lib = load_library(SOURCE, SIGNATURES)
+    with torch.cuda.device(q.device):
+        err = lib.flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            DTYPES[q.dtype], B, H, KV, Sq, Sk, hd,
+            ctypes.cast(strides, ctypes.c_void_p), int(bool(causal)),
+            int(window), float(attn_softcap), hd ** -0.5,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        msg = lib.flash_attention_error_string(err).decode()
+        raise RuntimeError(f"flash_attention launch failed: {msg} "
+                           f"(cudaError {err})")
+    flash_attention_fwd.launches += 1
+    return out
+
+
+flash_attention_fwd.launches = 0

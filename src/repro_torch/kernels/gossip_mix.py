@@ -1,5 +1,5 @@
-"""Hand-written CUDA kernel: batched fused gossip mix + momentum SGD on the
-persistent (n, T, 128) parameter store.
+"""Hand-written CUDA kernels: batched fused gossip mix + momentum SGD on the
+persistent (n, T, 128) parameter store, and its single-learner form.
 
 Port of ``repro/kernels/gossip_mix.py::gossip_mix_update_flat`` (the
 Pallas TPU kernel) to CUDA C++ for Hopper; the source and its design note
@@ -14,7 +14,13 @@ writes where it is told: ``out`` (and ``buffer_out`` in publish mode) must
 be other buffers than the inputs — the trainer ping-pongs between two —
 while the momentum is updated in place.
 
-``gossip_mix_update_flat.launches`` counts launches (a plain integer, reset
+``gossip_mix_update`` is the single-learner fused mix + momentum + apply
+on one (T, 128) buffer with an explicit (K, T, 128) neighbour stack — the
+port of ``repro/kernels/gossip_mix.py::gossip_mix_update``, which
+``ops.dpsgd_fused_update`` reaches.  It returns fresh outputs, as
+``pallas_call`` does.
+
+Each wrapper's ``.launches`` counts its launches (a plain integer, reset
 by whoever wants to count a run).
 """
 from __future__ import annotations
@@ -38,6 +44,11 @@ SIGNATURES = {
          _P, _P, _P, _P,         # partners coefs w_out buf_out
          _I, _L, _I,             # n elems K
          _F, _F, _F, _P]),       # lr beta wd stream
+    "gossip_mix_update_f32": (
+        ctypes.c_int,
+        [_P, _P, _P, _P, _P,     # w nbrs grads mu coefs
+         _P, _P, _L, _I,         # w_out mu_out elems K
+         _F, _F, _P]),           # lr beta stream
     "gossip_mix_error_string": (ctypes.c_char_p, [_I]),
 }
 
@@ -156,3 +167,64 @@ def gossip_mix_update_flat(w, remote, grads, momentum, partners, coefs, *,
 
 
 gossip_mix_update_flat.launches = 0
+
+
+def _check_single(w, neighbors, grads, momentum, coefs):
+    if w.device.type != "cuda":
+        raise ValueError(f"the CUDA kernel needs CUDA tensors, got w on "
+                         f"{w.device} (ops.gossip_mix_update sends CPU "
+                         "tensors to the plain version)")
+    if w.dim() != 2 or w.shape[-1] != 128:
+        raise ValueError(f"w must be (T, 128), got {tuple(w.shape)}")
+    data = {"w": w, "grads": grads, "momentum": momentum,
+            "neighbors": neighbors}
+    for name, t in {**data, "coefs": coefs}.items():
+        if t.device != w.device:
+            raise ValueError(f"{name} must be on {w.device}, got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32, got {t.dtype}")
+    for name, t in data.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (the kernel "
+                             "loads float4)")
+    for name in ("grads", "momentum"):
+        if data[name].shape != w.shape:
+            raise ValueError(f"{name} has shape {tuple(data[name].shape)}, "
+                             f"w {tuple(w.shape)}")
+    if neighbors.dim() != 3 or neighbors.shape[1:] != w.shape:
+        raise ValueError(f"neighbors must be (K, {w.shape[0]}, 128), got "
+                         f"{tuple(neighbors.shape)}")
+    K = neighbors.shape[0]
+    if not 1 <= K <= MAX_NEIGHBORS:
+        raise ValueError(f"K={K}: the kernel takes 1 to {MAX_NEIGHBORS} "
+                         "neighbours")
+    if tuple(coefs.shape) != (1 + K,):
+        raise ValueError(f"coefs must be ({1 + K},), got "
+                         f"{tuple(coefs.shape)}")
+
+
+def gossip_mix_update(w, neighbors, grads, momentum, coefs, *, lr: float,
+                      beta: float = 0.9):
+    """w, grads, momentum: (T, 128) float32; neighbors: (K, T, 128);
+    coefs: (1 + K,) float32 ``[self, nbr...]``, all on one CUDA device.
+    Returns fresh (w_new, mu_new)."""
+    _check_single(w, neighbors, grads, momentum, coefs)
+    w_out, mu_out = torch.empty_like(w), torch.empty_like(momentum)
+    lib = load_library(SOURCE, SIGNATURES)
+    with torch.cuda.device(w.device):
+        err = lib.gossip_mix_update_f32(
+            w.data_ptr(), neighbors.data_ptr(), grads.data_ptr(),
+            momentum.data_ptr(), coefs.data_ptr(), w_out.data_ptr(),
+            mu_out.data_ptr(), w.numel(), neighbors.shape[0], float(lr),
+            float(beta), torch.cuda.current_stream(w.device).cuda_stream)
+    if err:
+        msg = lib.gossip_mix_error_string(err).decode()
+        raise RuntimeError(f"gossip_mix_update launch failed: {msg} "
+                           f"(cudaError {err})")
+    gossip_mix_update.launches += 1
+    return w_out, mu_out
+
+
+gossip_mix_update.launches = 0

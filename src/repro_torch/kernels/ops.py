@@ -12,9 +12,12 @@ from __future__ import annotations
 
 import torch
 
+from ..core.flatstate import flatten_for_kernel
 from . import ref
 from .decode_attention import paged_decode_attention_fwd
-from .gossip_mix import check_outputs, gossip_mix_update_flat
+from .flash_attention import flash_attention_fwd
+from .gossip_mix import (check_outputs, gossip_mix_update,
+                         gossip_mix_update_flat)
 from .reorth import reorth_pass
 
 BACKENDS = ("auto", "cuda", "ref")
@@ -42,6 +45,72 @@ def _use_plain(t: torch.Tensor, backend: str) -> bool:
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
     return backend == "ref" or (backend == "auto" and t.device.type == "cpu")
+
+
+def _flash_ref_bsh(q, k, v, causal, window, attn_softcap):
+    """The plain version in the model layout (B, S, H, hd)."""
+    o = ref.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                v.transpose(1, 2), causal=causal,
+                                window=window, attn_softcap=attn_softcap)
+    return o.transpose(1, 2)
+
+
+class FlashAttention(torch.autograd.Function):
+    """The kernel forward with the reference's recompute backward
+    (``repro/kernels/ops.py::_flash_bwd``): the TPU kernel has no backward
+    kernel, so the gradient is that of the plain version, recomputed from
+    the saved q, k, v.
+
+    Once differentiable: a backward that builds a graph (``create_graph``,
+    as the landscape probe's HVP does) raises instead of differentiating
+    the oracle behind the kernel's back; the reference cannot take that
+    path either (JAX refuses forward-mode AD through its custom VJP).
+    ``torch.autograd.function.once_differentiable`` is not enough here: its
+    error node has no edge to the inputs, so ``torch.autograd.grad`` prunes
+    it and silently drops the attention's second-order term."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, attn_softcap):
+        ctx.save_for_backward(q, k, v)
+        ctx.mask = (causal, window, attn_softcap)
+        o = flash_attention_fwd(q.transpose(1, 2), k.transpose(1, 2),
+                                v.transpose(1, 2), causal=causal,
+                                window=window, attn_softcap=attn_softcap)
+        return o.transpose(1, 2)
+
+    @staticmethod
+    def backward(ctx, g):
+        if torch.is_grad_enabled():
+            raise RuntimeError(
+                "FlashAttention is once differentiable: its backward "
+                "recomputes the plain version, and a double backward "
+                "(create_graph=True) through the kernel is not supported; "
+                "run the model with use_pallas=False for second-order "
+                "derivatives")
+        q, k, v = ctx.saved_tensors
+        with torch.enable_grad():
+            qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+            o = _flash_ref_bsh(*qkv, *ctx.mask)
+            dq, dk, dv = torch.autograd.grad(o, qkv, g)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention(q, k, v, *, q_positions=None, k_positions=None,
+                    causal: bool = True, window: int = 0,
+                    attn_softcap: float = 0.0, backend: str = "auto"):
+    """Model-layout flash attention (training / prefill).  q: (B, Sq, H,
+    hd); k, v: (B, Sk, KV, hd) -> (B, Sq, H, hd).
+
+    Positions are contiguous from 0; ``q_positions`` / ``k_positions`` are
+    accepted for the signature of ``chunked_attention`` and not read (as
+    in the reference), so the call makes no host sync.  A CUDA tensor goes
+    through ``FlashAttention`` (the kernel forward, the plain version's
+    gradient); a CPU tensor, or ``backend="ref"``, through the plain
+    version with its own autograd.
+    """
+    if _use_plain(q, backend):
+        return _flash_ref_bsh(q, k, v, causal, window, attn_softcap)
+    return FlashAttention.apply(q, k, v, causal, window, attn_softcap)
 
 
 def flat_gossip_update(w, remote, grads, momentum, partners, coefs, *,
@@ -118,3 +187,27 @@ def reorthogonalize(basis, w, mask, *, backend: str = "auto"):
     w, _ = reorth_pass(basis, w, mask)
     w, _ = reorth_pass(basis, w, mask, out=w)
     return w
+
+
+def dpsgd_fused_update(params_tree, neighbor_trees, grads_tree,
+                       momentum_tree, coefs, *, lr: float, beta: float = 0.9,
+                       backend: str = "auto"):
+    """Tree-level fused gossip + momentum update of one learner: each tree
+    flattened to the (T, 128) float32 layout (``flatten_for_kernel``), the
+    neighbour trees stacked to (K, T, 128), one pass of
+    ``gossip_mix_update`` (``coefs``: ``[self, nbr...]``, a list or a
+    tensor), then unflattened.  Returns (new_params_tree,
+    new_momentum_tree).  A CPU tensor, or ``backend="ref"``, takes the
+    plain version."""
+    w, unflatten_w = flatten_for_kernel(params_tree)
+    mu, unflatten_mu = flatten_for_kernel(momentum_tree)
+    g, _ = flatten_for_kernel(grads_tree)
+    nbrs = torch.stack([flatten_for_kernel(t)[0] for t in neighbor_trees])
+    c = torch.as_tensor(coefs, dtype=torch.float32, device=w.device)
+    if _use_plain(w, backend):
+        w_new, mu_new = ref.gossip_mix_update_ref(w, nbrs, g, mu, c, lr=lr,
+                                                  beta=beta)
+    else:
+        w_new, mu_new = gossip_mix_update(w, nbrs, g, mu, c, lr=lr,
+                                          beta=beta)
+    return unflatten_w(w_new), unflatten_mu(mu_new)

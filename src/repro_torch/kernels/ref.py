@@ -11,6 +11,24 @@ import torch
 NEG_INF = -1e30
 
 
+def gossip_mix_update_ref(w, neighbors, grads, momentum, coefs, *,
+                          lr: float, beta: float = 0.9):
+    """Same contract as ``kernels.gossip_mix.gossip_mix_update``: the
+    single-learner fused mix + momentum + apply, fresh outputs.
+
+    w, grads, momentum: (T, 128); neighbors: (K, T, 128); coefs: (1 + K,)
+    ``[self, nbr...]``.  ``mixed = c0 w + sum_k c_k nbr_k`` (self term
+    first, neighbours in order), ``mu' = beta mu + g``, ``w' = mixed - lr
+    mu'``, one rounded operation at a time — the arithmetic of
+    ``repro.kernels.ref.gossip_mix_update_ref``; the CUDA kernel repeats it
+    bitwise.  Returns (w_new, mu_new)."""
+    mixed = coefs[0] * w
+    for k in range(neighbors.shape[0]):
+        mixed = mixed + coefs[k + 1] * neighbors[k]
+    mu_new = beta * momentum + grads
+    return mixed - lr * mu_new, mu_new
+
+
 def gossip_mix_update_flat_ref(w, remote, grads, momentum, partners, coefs,
                                *, lr: float, beta: float = 0.0,
                                weight_decay: float = 0.0,
@@ -117,3 +135,35 @@ def reorth_ref(basis, w, mask):
     dots).  Loops vector by vector, as the reference's oracle does."""
     dots = reorth_dots_ref(basis, w, mask)
     return reorth_axpy_ref(w, basis, dots), dots
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
+                        attn_softcap: float = 0.0):
+    """Same contract as ``kernels.flash_attention.flash_attention_fwd``.
+
+    q: (B, H, Sq, hd); k, v: (B, KV, Sk, hd) -> (B, H, Sq, hd) in q's
+    dtype.  Dense (unblocked) softmax attention in float32 — scores times
+    ``hd**-0.5``, then the softcap, then the causal (``qpos >= kpos``) and
+    window (``qpos - kpos < window``) masks with positions contiguous from
+    0, filled with ``NEG_INF`` (not ``-inf``: a row masked entirely comes
+    out as the uniform average of V) — the chain of
+    ``repro.kernels.ref.flash_attention_ref``.  Differentiable: the flash
+    dispatcher's backward recomputes through it."""
+    B, H, Sq, hd = q.shape
+    _, KV, Sk, _ = k.shape
+    G = H // KV
+    qf = q.float().reshape(B, KV, G, Sq, hd)
+    s = torch.einsum("bkgqd,bksd->bkgqs", qf, k.float()) * hd ** -0.5
+    if attn_softcap:
+        s = attn_softcap * torch.tanh(s / attn_softcap)
+    qpos = torch.arange(Sq, device=q.device)[:, None]
+    kpos = torch.arange(Sk, device=q.device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qpos >= kpos
+    if window:
+        mask &= qpos - kpos < window
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqs,bksd->bkgqd", p, v.float())
+    return o.reshape(B, H, Sq, hd).to(q.dtype)

@@ -69,7 +69,7 @@ def probe_landscape(loss_fn: Callable, params, stacked_batch,
     Lanczos start vector, then the Hutchinson probes; ``q0`` (a tree) and
     ``probes`` (a list of trees) replace those draws.  (The reference's
     ``stacked=False`` single-replica form serves its launch path, which
-    arrives with ROADMAP slice 6.)"""
+    arrives with ROADMAP slice 7.)"""
     pft = params_from_tree
     w_a = learner_mean(params)
     sig_sq = learner_var(params)

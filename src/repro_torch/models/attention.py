@@ -1,13 +1,14 @@
-"""Attention: GQA projections, chunked attention for training/prefill,
-and paged decode for serving.
+"""Attention: GQA projections, chunked or flash attention for
+training/prefill, and paged decode for serving.
 
 Port of ``repro/models/attention.py`` (``init_attn_params``,
 ``chunked_attention``, ``attn_forward``, ``init_paged_attn_cache``,
 ``attn_decode_paged``).  Weights keep the reference's (d_in, d_out)
 orientation and the layer computes ``x @ w``, so the arithmetic matches
-the reference's.  The rotating-buffer ``attn_decode`` and the
-``use_pallas`` flash-attention route arrive with the model zoo (ROADMAP
-slice 5).
+the reference's.  ``attn_forward(use_pallas=True)`` routes the core to
+``kernels.ops.flash_attention`` (the hand-written flash kernel on the
+card).  The rotating-buffer ``attn_decode`` arrives with the model zoo
+(ROADMAP slice 5).
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ from typing import Callable, Optional
 import torch
 from torch import nn
 
-from ..kernels.ops import paged_decode_attention
+from ..kernels.ops import flash_attention, paged_decode_attention
 from .layers import dense_init, softcap
 
 NEG_INF = -1e30
@@ -104,10 +105,13 @@ def chunked_attention(q, k, v, *, q_positions, k_positions,
 def attn_forward(params: AttnParams, x, *, n_heads: int, n_kv: int,
                  head_dim: int, rope_fn: Optional[Callable], q_positions,
                  window: int = 0, attn_softcap: float = 0.0,
-                 chunk: int = 1024, causal: bool = True):
+                 chunk: int = 1024, causal: bool = True,
+                 use_pallas: bool = False):
     """Self-attention layer forward.  x: (B, S, d); q_positions (S,) feed
-    the rope_fn and the causal/window mask.  Cross-attention (``kv_input``)
-    and M-RoPE positions arrive with the model zoo (ROADMAP slice 5)."""
+    the rope_fn and the causal/window mask.  ``use_pallas`` sends the core
+    to ``ops.flash_attention`` (positions contiguous from 0), otherwise
+    ``chunked_attention``.  Cross-attention (``kv_input``) and M-RoPE
+    positions arrive with the model zoo (ROADMAP slice 5)."""
     B, S, _ = x.shape
     q = (x @ params.wq).reshape(B, S, n_heads, head_dim)
     k = (x @ params.wk).reshape(B, S, n_kv, head_dim)
@@ -115,10 +119,15 @@ def attn_forward(params: AttnParams, x, *, n_heads: int, n_kv: int,
     if rope_fn is not None:
         q = rope_fn(q, q_positions)
         k = rope_fn(k, q_positions)
-    out = chunked_attention(q, k, v, q_positions=q_positions,
-                            k_positions=q_positions, causal=causal,
-                            window=window, attn_softcap=attn_softcap,
-                            chunk=chunk)
+    if use_pallas:
+        out = flash_attention(q, k, v, q_positions=q_positions,
+                              k_positions=q_positions, causal=causal,
+                              window=window, attn_softcap=attn_softcap)
+    else:
+        out = chunked_attention(q, k, v, q_positions=q_positions,
+                                k_positions=q_positions, causal=causal,
+                                window=window, attn_softcap=attn_softcap,
+                                chunk=chunk)
     return out.reshape(B, S, n_heads * head_dim) @ params.wo
 
 

@@ -29,9 +29,19 @@ from .transformer import (LayerParams, MLPParams, TransformerParams,
                           n_periods, period_spec)
 
 
+def _tensor(a, device):
+    # torch has no numpy bfloat16 (ml_dtypes' type): go through float32,
+    # which holds every bfloat16 value exactly, and cast back
+    if a.dtype.name == "bfloat16":
+        return torch.tensor(a.astype("float32"),
+                            device=device).to(torch.bfloat16)
+    return torch.tensor(a, device=device)
+
+
 def tree_from_jax(tree, device=None):
-    """A tree of numpy arrays -> the same tree of torch tensors."""
-    return tree_map(lambda a: torch.tensor(a, device=device), tree)
+    """A tree of numpy arrays -> the same tree of torch tensors, each leaf
+    in its own dtype (bfloat16 included)."""
+    return tree_map(lambda a: _tensor(a, device), tree)
 
 
 def transformer_tree(params: TransformerParams):

@@ -1,6 +1,7 @@
 """Decoder-only LM, dense family — the port of
-``repro/models/transformer.py``: training/prefill forward (``apply``) and
-paged decode for serving.
+``repro/models/transformer.py``: training/prefill forward (``apply``,
+through chunked attention or, with ``cfg.use_pallas``, the flash kernel)
+and paged decode for serving.
 
 Depth is n_periods x period as in the reference; a dense model's period is
 one (attn, dense) layer.  Parameters are ``nn.Module``s holding
@@ -131,7 +132,11 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> TransformerParams:
 # ---------------------------------------------------------------------------
 
 def embed_tokens(params: TransformerParams, cfg: ModelConfig, tokens):
-    return params.embed[tokens.long()] * math.sqrt(cfg.d_model)
+    # the reference's Python-float scale takes the table's dtype (JAX's
+    # weak typing): sqrt(4608) is 68.0 in bfloat16, not 67.88
+    dt = params.embed.dtype
+    scale = torch.tensor(math.sqrt(cfg.d_model), dtype=dt).item()
+    return params.embed[tokens.long()] * scale
 
 
 def logits_from_hidden(params: TransformerParams, cfg: ModelConfig, x):
@@ -146,16 +151,13 @@ def logits_from_hidden(params: TransformerParams, cfg: ModelConfig, x):
 
 def _layer_forward(lp: LayerParams, x, cfg: ModelConfig, mixer: str,
                    rope_fn, positions):
-    if cfg.use_pallas:
-        raise NotImplementedError(
-            f"{cfg.name}: use_pallas routes attention to the flash-attention "
-            "kernel, which arrives with ROADMAP slice 5")
     h = rms_norm(x, lp.norm1, cfg.norm_eps)
     x = x + attn_forward(lp.mixer, h, n_heads=cfg.n_heads,
                          n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim_,
                          rope_fn=rope_fn, q_positions=positions,
                          window=_window(cfg, mixer),
-                         attn_softcap=cfg.attn_softcap, chunk=cfg.attn_chunk)
+                         attn_softcap=cfg.attn_softcap, chunk=cfg.attn_chunk,
+                         use_pallas=cfg.use_pallas)
     h = rms_norm(x, lp.norm2, cfg.norm_eps)
     mlp = lp.mlp
     return x + swiglu(h, mlp.w1, mlp.w3, mlp.w2)

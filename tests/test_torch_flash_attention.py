@@ -1,0 +1,333 @@
+"""The port's flash attention against the JAX reference.
+
+The same numpy inputs go through the port's plain version
+(``repro_torch.kernels.ref.flash_attention_ref``) and the reference's jnp
+oracle over the reference's whole sweep grid (tests/test_kernels.py
+``test_flash_attention_sweep``: 3 shapes x 2 dtypes x 4 mask settings),
+and through the reference's Pallas kernel in interpret mode on 4 of those
+cases.  float32 is held to the reference's own sweep tier, 2e-6 absolute
+(both sides compute the same dense float32 softmax; the sums run in other
+orders: measured at most 6.0e-7).  bfloat16 is held per element to one
+bfloat16 ulp of the value, 2^-7 |want|, plus 1e-3 of the output's rms for
+sums near 0: each side rounds its float32 result to bfloat16 once, so a
+value near a rounding boundary may land one ulp apart and no further.
+Where the logit softcap binds (q scaled so scores reach tens), float32 is
+held to 1e-5, the reference's tier above S = 256.
+
+``ops.flash_attention``'s q, k, v gradients (the reference's custom VJP:
+kernel forward, oracle backward) are held against ``jax.grad`` at 1e-5
+absolute on the reference's model-layout shapes (measured: 4.8e-6 on
+gradients of O(10)), both
+through the CPU dispatch (the plain version with autograd) and through
+``FlashAttention`` itself with a CPU stand-in for the kernel forward.
+
+The CUDA kernel must agree with its plain version on the card within the
+same tiers (``cuda`` marker, skipped here).
+"""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.kernels import ops as jax_ops  # noqa: E402
+from repro.kernels import ref as jax_ref  # noqa: E402
+from repro.kernels.flash_attention import \
+    flash_attention_fwd as jax_kernel  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels.flash_attention import \
+    flash_attention_fwd  # noqa: E402
+
+SHAPES = [(128, 64, 4, 4), (256, 64, 4, 2), (256, 128, 2, 1)]
+DTYPES = ["float32", "bfloat16"]
+MASKS = [dict(causal=True), dict(causal=True, window=64),
+         dict(causal=False), dict(causal=True, attn_softcap=50.0)]
+ATOL_F32 = 2e-6
+BF16_ULP, BF16_RMS = 2.0 ** -7, 1e-3
+GRAD_ATOL = 1e-5
+INTERPRET_CASES = [((128, 64, 4, 4), "float32", MASKS[0]),
+                   ((256, 64, 4, 2), "float32", MASKS[1]),
+                   ((256, 128, 2, 1), "bfloat16", MASKS[3]),
+                   ((128, 64, 4, 4), "float32", MASKS[2])]
+
+
+def _operands(S, hd, H, KV, dtype, seed=0, Sk=None, q_scale=1.0):
+    """(B=1) q (1, H, S, hd), k, v (1, KV, Sk, hd) as numpy float32 holding
+    values exactly representable in ``dtype``, q times ``q_scale``."""
+    rng = np.random.default_rng(seed)
+    Sk = S if Sk is None else Sk
+    arrs = [rng.standard_normal(s, dtype=np.float32)
+            for s in ((1, H, S, hd), (1, KV, Sk, hd), (1, KV, Sk, hd))]
+    arrs[0] *= np.float32(q_scale)
+    if dtype == "bfloat16":
+        arrs = [np.asarray(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32))
+                for a in arrs]
+    return arrs
+
+
+def _jax(arrs, dtype):
+    return [jnp.asarray(a, getattr(jnp, dtype)) for a in arrs]
+
+
+def _torch(arrs, dtype, device="cpu"):
+    return [torch.tensor(a, device=device).to(getattr(torch, dtype))
+            for a in arrs]
+
+
+def _f32(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().cpu().numpy()
+    return np.asarray(jnp.asarray(x).astype(jnp.float32))
+
+
+def _assert_within_tier(got, want, dtype, atol_f32=ATOL_F32):
+    g, w = _f32(got), _f32(want)
+    if dtype == "float32":
+        np.testing.assert_allclose(g, w, atol=atol_f32, rtol=0)
+        return
+    tol = BF16_ULP * np.abs(w) + BF16_RMS * np.sqrt(np.mean(w ** 2))
+    ratio = float(np.max(np.abs(g - w) / tol))
+    assert ratio <= 1.0, f"|got - want| reaches {ratio} x one bf16 ulp"
+
+
+@pytest.mark.parametrize("kw", MASKS, ids=["causal", "window64", "full",
+                                           "softcap50"])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("S,hd,H,KV", SHAPES)
+def test_plain_version_matches_reference_oracle(S, hd, H, KV, dtype, kw):
+    arrs = _operands(S, hd, H, KV, dtype, seed=S + hd)
+    want = jax_ref.flash_attention_ref(*_jax(arrs, dtype), **kw)
+    got = ref.flash_attention_ref(*_torch(arrs, dtype), **kw)
+    assert got.dtype == getattr(torch, dtype)
+    _assert_within_tier(got, want, dtype)
+
+
+def test_plain_version_matches_reference_oracle_where_the_cap_binds():
+    """q x 8: scores reach tens, so the cap at 50 moves them by whole
+    units; the cap's effect dwarfs the tier."""
+    arrs = _operands(256, 128, 4, 2, "float32", seed=5, q_scale=8.0)
+    kw = dict(causal=True, window=128, attn_softcap=50.0)
+    want = jax_ref.flash_attention_ref(*_jax(arrs, "float32"), **kw)
+    got = ref.flash_attention_ref(*_torch(arrs, "float32"), **kw)
+    _assert_within_tier(got, want, "float32", atol_f32=1e-5)
+    uncapped = ref.flash_attention_ref(*_torch(arrs, "float32"),
+                                       **{**kw, "attn_softcap": 0.0})
+    assert float((uncapped - got).abs().max()) > 1e3 * 1e-5
+
+
+@pytest.mark.parametrize("shape,dtype,kw", INTERPRET_CASES,
+                         ids=["causal_f32", "window_gqa_f32",
+                              "softcap_mqa_bf16", "full_f32"])
+def test_plain_version_matches_pallas_interpret_mode(shape, dtype, kw):
+    S, hd, H, KV = shape
+    arrs = _operands(S, hd, H, KV, dtype, seed=S + hd)
+    want = jax_kernel(*_jax(arrs, dtype), block_q=64, block_k=64,
+                      interpret=True, **kw)
+    got = ref.flash_attention_ref(*_torch(arrs, dtype), **kw)
+    _assert_within_tier(got, want, dtype)
+
+
+def _model_layout_operands():
+    """The reference's ``test_flash_attention_model_layout_and_grad``
+    shapes: q (2, 64, 4, 32), k, v (2, 64, 2, 32)."""
+    rng = np.random.default_rng(9)
+    return [rng.standard_normal(s, dtype=np.float32)
+            for s in ((2, 64, 4, 32), (2, 64, 2, 32), (2, 64, 2, 32))]
+
+
+def _jax_grads(arrs, **kw):
+    def f(q, k, v):
+        return jnp.sum(jax_ops.flash_attention(q, k, v, **kw) ** 2)
+    return jax.grad(f, argnums=(0, 1, 2))(*[jnp.asarray(a) for a in arrs])
+
+
+def _port_grads(fn, arrs):
+    qkv = [torch.tensor(a, requires_grad=True) for a in arrs]
+    torch.sum(fn(*qkv) ** 2).backward()
+    return [t.grad for t in qkv]
+
+
+@pytest.mark.parametrize("kw", [dict(causal=True),
+                                dict(causal=True, window=16,
+                                     attn_softcap=30.0)],
+                         ids=["causal", "window_softcap"])
+def test_dispatcher_gradients_match_reference_custom_vjp(kw):
+    arrs = _model_layout_operands()
+    want = _jax_grads(arrs, **kw)
+    got = _port_grads(lambda q, k, v: ops.flash_attention(q, k, v, **kw),
+                      arrs)
+    for g, w in zip(got, want):
+        assert np.isfinite(g.numpy()).all()
+        np.testing.assert_allclose(g.numpy(), np.asarray(w),
+                                   atol=GRAD_ATOL, rtol=0)
+
+
+@pytest.fixture
+def cpu_kernel(monkeypatch):
+    """``FlashAttention`` with its kernel forward replaced by the plain
+    version on the CPU (counting calls): the Function's own backward and
+    once-differentiable guard run as they do on the card."""
+    calls = []
+
+    def fake(q, k, v, **kw):
+        calls.append(kw)
+        return ref.flash_attention_ref(q, k, v, **kw)
+
+    monkeypatch.setattr(ops, "flash_attention_fwd", fake)
+    return calls
+
+
+def test_function_backward_is_the_reference_recompute(cpu_kernel):
+    kw = dict(causal=True, window=16, attn_softcap=30.0)
+    arrs = _model_layout_operands()
+    want = _jax_grads(arrs, **kw)
+    got = _port_grads(lambda q, k, v: ops.FlashAttention.apply(
+        q, k, v, kw["causal"], kw["window"], kw["attn_softcap"]), arrs)
+    assert cpu_kernel == [kw]                 # forward only, once
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w),
+                                   atol=GRAD_ATOL, rtol=0)
+
+
+def test_double_backward_through_the_function_raises(cpu_kernel):
+    q, k, v = [torch.tensor(a, requires_grad=True)
+               for a in _model_layout_operands()]
+    out = ops.FlashAttention.apply(q, k, v, True, 0, 0.0)
+    with pytest.raises(RuntimeError, match="once differentiable"):
+        torch.autograd.grad(torch.sum(out ** 2), q, create_graph=True)
+    # a plain backward goes through
+    out = ops.FlashAttention.apply(q, k, v, True, 0, 0.0)
+    (gq,) = torch.autograd.grad(torch.sum(out ** 2), q)
+    assert not gq.requires_grad and np.isfinite(gq.numpy()).all()
+    # the plain route differentiates twice, as a probe's HVP needs
+    plain = ops.flash_attention(q, k, v)
+    (gq,) = torch.autograd.grad(torch.sum(plain ** 2), q, create_graph=True)
+    (hq,) = torch.autograd.grad(torch.sum(gq), q)
+    assert np.isfinite(hq.numpy()).all()
+
+
+def test_dispatcher_takes_plain_version_for_cpu_tensors():
+    q, k, v = [torch.tensor(a) for a in _model_layout_operands()]
+    before = flash_attention_fwd.launches
+    got = ops.flash_attention(q, k, v, window=8)
+    want = ref.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                   v.transpose(1, 2), window=8)
+    torch.testing.assert_close(got, want.transpose(1, 2), rtol=0, atol=0)
+    assert got.shape == q.shape
+    assert flash_attention_fwd.launches == before
+    # positions are accepted and not read (contiguous from 0)
+    junk = torch.full((64,), 7)
+    torch.testing.assert_close(
+        ops.flash_attention(q, k, v, q_positions=junk, k_positions=junk,
+                            window=8, backend="ref"), got, rtol=0, atol=0)
+    with pytest.raises(ValueError, match="backend"):
+        ops.flash_attention(q, k, v, backend="pallas")
+
+
+def test_fully_masked_rows_average_v_as_the_reference_does():
+    """Non-causal with a window and Sq > Sk + window: the last rows see no
+    live key; the oracle (and the TPU kernel) give the uniform average of
+    V there."""
+    arrs = _operands(256, 32, 2, 2, "float32", seed=3, Sk=128)
+    kw = dict(causal=False, window=64)
+    want = jax_ref.flash_attention_ref(*_jax(arrs, "float32"), **kw)
+    got = ref.flash_attention_ref(*_torch(arrs, "float32"), **kw)
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=2e-6, rtol=0)
+    v = arrs[2]
+    np.testing.assert_allclose(_f32(got)[0, :, -1], v[0].mean(axis=1),
+                               atol=2e-6)
+
+
+def test_kernel_wrapper_refuses_cpu_tensors():
+    q, k, v = _torch(_operands(64, 32, 2, 2, "float32"), "float32")
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_fwd(q, k, v)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel on the card
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernel has no CPU mode)")
+    return torch.device("cuda")
+
+
+CUDA_CASES = [
+    # (S, hd, H, KV, dtype, mask, Sk, q scale)
+    (128, 64, 4, 4, "float32", MASKS[0], None, 1.0),
+    (256, 64, 4, 2, "float32", MASKS[1], None, 1.0),
+    (256, 128, 2, 1, "bfloat16", MASKS[3], None, 1.0),
+    (256, 32, 4, 4, "float32", MASKS[2], None, 1.0),
+    (512, 128, 32, 16, "bfloat16",
+     dict(causal=True, window=128, attn_softcap=50.0), None, 1.0),
+    (192, 128, 14, 2, "bfloat16", MASKS[0], None, 1.0),         # G = 7
+    (128, 64, 12, 1, "float32", MASKS[0], None, 1.0),           # G = 12
+    (128, 128, 48, 1, "bfloat16", MASKS[0], None, 1.0),         # G = 48
+    (256, 32, 2, 2, "float32", dict(causal=False, window=64), 128, 1.0),
+    (128, 64, 4, 2, "float32", MASKS[0], 256, 1.0),             # Sq < Sk
+    (512, 128, 32, 16, "float32",                       # the cap binds
+     dict(causal=True, window=128, attn_softcap=50.0), None, 8.0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,hd,H,KV,dtype,kw,Sk,q_scale", CUDA_CASES)
+def test_cuda_kernel_matches_plain_version(cuda_device, S, hd, H, KV, dtype,
+                                           kw, Sk, q_scale):
+    q, k, v = _torch(_operands(S, hd, H, KV, dtype, seed=S + H, Sk=Sk,
+                               q_scale=q_scale), dtype, cuda_device)
+    want = ref.flash_attention_ref(q, k, v, **kw)
+    before = flash_attention_fwd.launches
+    got = flash_attention_fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention_fwd.launches == before + 1
+    assert got.dtype == q.dtype and got.shape == q.shape
+    _assert_within_tier(got, want, dtype,
+                        atol_f32=ATOL_F32 if S <= 256 else 1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_function_reads_the_model_layout_and_matches_gradients(
+        cuda_device):
+    arrs = _model_layout_operands()
+    kw = dict(causal=True, window=16, attn_softcap=30.0)
+    qkv = [torch.tensor(a, device=cuda_device, requires_grad=True)
+           for a in arrs]
+    before = flash_attention_fwd.launches
+    out = ops.flash_attention(*qkv, **kw)
+    torch.sum(out ** 2).backward()
+    assert flash_attention_fwd.launches == before + 1
+    assert out.is_contiguous()
+    # against the plain route on the CPU, which the CPU tests hold to the
+    # reference (whose Pallas kernel lowers for a TPU or in interpret mode,
+    # not for a JAX GPU backend)
+    want = _port_grads(lambda q, k, v: ops.flash_attention(q, k, v, **kw),
+                       arrs)
+    for t, w in zip(qkv, want):
+        np.testing.assert_allclose(_f32(t.grad), w.numpy(),
+                                   atol=GRAD_ATOL, rtol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
+    q, k, v = _torch(_operands(128, 64, 4, 2, "float32"), "float32",
+                     cuda_device)
+    with pytest.raises(ValueError, match="multiples"):
+        flash_attention_fwd(q[:, :, :96], k, v)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention_fwd(q[..., :48].contiguous(),
+                            k[..., :48].contiguous(),
+                            v[..., :48].contiguous())
+    with pytest.raises(ValueError, match="one dtype"):
+        flash_attention_fwd(q, k.bfloat16(), v)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        flash_attention_fwd(q.double(), k.double(), v.double())
+    with pytest.raises(ValueError, match="H % KV"):
+        flash_attention_fwd(q[:, :3], k, v)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention_fwd(q.transpose(2, 3), k, v)

@@ -12,6 +12,13 @@ float32 ulps — XLA compiles the interpreted kernel body on its own and may
 contract a product and a sum into one FMA, where the port rounds every
 operation).  The CUDA kernel must equal the plain version bitwise on the
 card (``cuda`` marker, skipped here).
+
+The single-learner kernel (``gossip_mix_update``, which
+``ops.dpsgd_fused_update`` reaches) is held the same way on
+``test_gossip_kernel_sweep``'s grid: its plain version bitwise against the
+reference's oracle, within 1e-6 of interpret mode, and the tree-level
+``dpsgd_fused_update`` within 1e-6 of the reference's (which runs the
+kernel in interpret mode on the CPU).
 """
 import itertools
 
@@ -19,6 +26,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
@@ -27,8 +35,8 @@ from repro.kernels.gossip_mix import \
     gossip_mix_update_flat as jax_kernel  # noqa: E402
 from repro_torch.core.schedule import make_schedule  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
-from repro_torch.kernels.gossip_mix import \
-    gossip_mix_update_flat  # noqa: E402
+from repro_torch.kernels.gossip_mix import (  # noqa: E402
+    gossip_mix_update, gossip_mix_update_flat)
 
 ATOL = 1e-6
 GRID = [(4, 16, 1), (5, 24, 1), (8, 32, 2), (6, 24, 4), (8, 16, 4)]
@@ -321,3 +329,150 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
     big = torch.zeros((17, 4), dtype=torch.int32, device=cuda_device)
     with pytest.raises(ValueError, match="K=17"):
         gossip_mix_update_flat(w, remote, g, mu, big, coefs, lr=0.1)
+
+
+# ---------------------------------------------------------------------------
+# the single-learner kernel (ops.dpsgd_fused_update)
+# ---------------------------------------------------------------------------
+
+SINGLE_GRID = [(256, 1), (512, 2), (1024, 3)]   # test_gossip_kernel_sweep's
+
+
+def _single_operands(T, K, seed):
+    rng = np.random.default_rng(seed)
+    w, g, mu = (rng.standard_normal((T, 128), dtype=np.float32)
+                for _ in range(3))
+    nb = rng.standard_normal((K, T, 128), dtype=np.float32)
+    coefs = np.concatenate([[0.5], np.full((K,), 0.5 / K)]).astype(
+        np.float32)
+    return w, nb, g, mu, coefs
+
+
+@pytest.mark.parametrize("T,K", SINGLE_GRID)
+def test_single_learner_plain_version_matches_reference(T, K):
+    """Bitwise against the reference's jnp oracle (the same rounded
+    operations in the same order); within ``ATOL`` of its Pallas kernel in
+    interpret mode, which XLA may contract into FMAs."""
+    from repro.kernels.gossip_mix import gossip_mix_update as jax_single
+    arrs = _single_operands(T, K, seed=T + K)
+    want = jax_ref.gossip_mix_update_ref(*map(jnp.asarray, arrs), lr=0.1,
+                                         beta=0.9)
+    got = ref.gossip_mix_update_ref(*map(torch.tensor, arrs), lr=0.1,
+                                    beta=0.9)
+    kern = jax_single(*map(jnp.asarray, arrs), lr=0.1, beta=0.9,
+                      interpret=True)
+    for g, w, k in zip(got, want, kern):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+        np.testing.assert_allclose(g.numpy(), np.asarray(k), atol=ATOL,
+                                   rtol=0)
+
+
+def _trees(seed, K):
+    """A small parameter tree (mixed shapes, padding in the flat view), K
+    neighbour trees, gradients and momentum, as numpy."""
+    rng = np.random.default_rng(seed)
+
+    def tree():
+        return {"w": rng.standard_normal((33, 7), dtype=np.float32),
+                "b": rng.standard_normal((5,), dtype=np.float32),
+                "blk": {"k": rng.standard_normal((3, 64), dtype=np.float32)}}
+    return tree(), [tree() for _ in range(K)], tree(), tree()
+
+
+@pytest.mark.parametrize("K", [1, 2])
+def test_dpsgd_fused_update_matches_reference(K):
+    from repro.kernels.ops import dpsgd_fused_update as jax_fused
+    from repro_torch.tree import tree_map
+    params, nbrs, grads, mom = _trees(K, K)
+    coefs = [1.0 / (K + 1)] * (K + 1)
+    to_j = lambda t: jax.tree_util.tree_map(jnp.asarray, t)   # noqa: E731
+    to_t = lambda t: tree_map(torch.tensor, t)                # noqa: E731
+    jw, jmu = jax_fused(to_j(params), [to_j(t) for t in nbrs], to_j(grads),
+                        to_j(mom), coefs, lr=0.1, beta=0.9)
+    before = gossip_mix_update.launches
+    pw, pmu = ops.dpsgd_fused_update(to_t(params), [to_t(t) for t in nbrs],
+                                     to_t(grads), to_t(mom), coefs, lr=0.1,
+                                     beta=0.9)
+    assert gossip_mix_update.launches == before        # CPU: plain version
+    for name in ("w", "b"):
+        assert pw[name].shape == params[name].shape
+        np.testing.assert_allclose(pw[name].numpy(), np.asarray(jw[name]),
+                                   atol=ATOL, rtol=0)
+        np.testing.assert_allclose(pmu[name].numpy(), np.asarray(jmu[name]),
+                                   atol=ATOL, rtol=0)
+    np.testing.assert_allclose(pw["blk"]["k"].numpy(),
+                               np.asarray(jw["blk"]["k"]), atol=ATOL, rtol=0)
+
+
+def test_dpsgd_fused_update_closed_form():
+    """The reference's ``test_dpsgd_fused_update_tree``: mixed = (w + (w +
+    1)) / 2 = w + 0.5, mu = g = 1, new = mixed - 0.1."""
+    rng = np.random.default_rng(10)
+    tree = {"w": torch.tensor(rng.standard_normal((33, 7),
+                                                  dtype=np.float32)),
+            "b": torch.ones(5)}
+    nbr = {k: v + 1.0 for k, v in tree.items()}
+    g = {k: torch.ones_like(v) for k, v in tree.items()}
+    mu = {k: torch.zeros_like(v) for k, v in tree.items()}
+    new_w, new_mu = ops.dpsgd_fused_update(tree, [nbr], g, mu, [0.5, 0.5],
+                                           lr=0.1, beta=0.9)
+    torch.testing.assert_close(new_w["w"], tree["w"] + 0.5 - 0.1,
+                               atol=1e-5, rtol=0)
+    torch.testing.assert_close(new_mu["b"], torch.ones(5), atol=1e-6, rtol=0)
+    with pytest.raises(ValueError, match="backend"):
+        ops.dpsgd_fused_update(tree, [nbr], g, mu, [0.5, 0.5], lr=0.1,
+                               backend="pallas")
+
+
+def test_single_learner_wrapper_refuses_cpu_tensors():
+    args = [torch.tensor(a) for a in _single_operands(8, 1, seed=0)]
+    with pytest.raises(ValueError, match="CUDA"):
+        gossip_mix_update(*args, lr=0.1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,K", SINGLE_GRID + [(1000, 16), (8, 1)])
+def test_cuda_single_learner_kernel_equals_plain_version_bitwise(
+        cuda_device, T, K):
+    arrs = _cuda(_single_operands(T, K, seed=T + K), cuda_device)
+    want = ref.gossip_mix_update_ref(*arrs, lr=0.1, beta=0.9)
+    before = gossip_mix_update.launches
+    got = gossip_mix_update(*arrs, lr=0.1, beta=0.9)
+    torch.cuda.synchronize()
+    assert gossip_mix_update.launches == before + 1
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_dpsgd_fused_update_launches_the_kernel(cuda_device):
+    from repro_torch.tree import tree_map
+    params, nbrs, grads, mom = _trees(3, 2)
+    to_c = lambda t: tree_map(                                 # noqa: E731
+        lambda a: torch.tensor(a, device=cuda_device), t)
+    args = (to_c(params), [to_c(t) for t in nbrs], to_c(grads), to_c(mom),
+            [0.5, 0.25, 0.25])
+    want = ops.dpsgd_fused_update(*args, lr=0.1, backend="ref")
+    before = gossip_mix_update.launches
+    got = ops.dpsgd_fused_update(*args, lr=0.1)
+    torch.cuda.synchronize()
+    assert gossip_mix_update.launches == before + 1
+    for a, b in zip(got, want):
+        for name in ("w", "b"):
+            torch.testing.assert_close(a[name], b[name], rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_single_learner_wrapper_rejects_what_it_does_not_take(
+        cuda_device):
+    w, nb, g, mu, coefs = _cuda(_single_operands(8, 2, seed=0), cuda_device)
+    with pytest.raises(ValueError, match="coefs"):
+        gossip_mix_update(w, nb, g, mu, coefs[:2], lr=0.1)
+    with pytest.raises(ValueError, match="neighbors"):
+        gossip_mix_update(w, nb[:, :4], g, mu, coefs, lr=0.1)
+    with pytest.raises(ValueError, match="float32"):
+        gossip_mix_update(w.double(), nb, g, mu, coefs, lr=0.1)
+    big = torch.zeros((17, 8, 128), device=cuda_device)
+    with pytest.raises(ValueError, match="K=17"):
+        gossip_mix_update(w, big, g, mu, torch.zeros(18, device=cuda_device),
+                          lr=0.1)

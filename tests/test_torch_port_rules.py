@@ -68,10 +68,14 @@ def test_lint_finds_nothing_in_the_port():
     assert port == [], port
 
 
+DENSE = ["transformer-100m", "gemma2-27b", "yi-34b", "granite-20b",
+         "mistral-large-123b"]
+
+
+@pytest.mark.parametrize("name", DENSE)
 @pytest.mark.parametrize("smoke", [False, True])
-def test_config_matches_reference_field_for_field(smoke):
-    port, ref = get_config("transformer-100m"), jax_get_config(
-        "transformer-100m")
+def test_config_matches_reference_field_for_field(smoke, name):
+    port, ref = get_config(name), jax_get_config(name)
     if smoke:
         port, ref = port.smoke_config(), ref.smoke_config()
     assert dataclasses.asdict(port) == dataclasses.asdict(ref)
@@ -80,8 +84,12 @@ def test_config_matches_reference_field_for_field(smoke):
 
 
 def test_unported_architectures_raise_naming_their_slice():
+    # the dense family resolves (gemma2 since the flash-attention route)
+    assert get_config("gemma2-27b").name == "gemma2-27b"
+    assert period_spec(get_config("gemma2-27b")) == (
+        ("attn_local", "dense"), ("attn", "dense"))
     with pytest.raises(NotImplementedError, match="slice 5"):
-        get_config("gemma2-27b")
+        get_config("granite-moe-3b-a800m")
     moe = dataclasses.replace(get_config("transformer-100m"), family="moe",
                               n_experts=4, experts_per_tok=2)
     with pytest.raises(NotImplementedError, match="slice 5"):
@@ -152,9 +160,9 @@ def test_unported_trainer_methods_raise_naming_their_slice():
     from repro_torch.models import fcnet
     tr = _fc_trainer(device="cpu")
     state = tr.init(0, fcnet.init_params(torch.Generator().manual_seed(0)))
-    with pytest.raises(NotImplementedError, match="slice 4"):
+    with pytest.raises(NotImplementedError, match="slice 6"):
         tr.train_step(state._replace(members=object()), {})
-    with pytest.raises(NotImplementedError, match="slice 4"):
+    with pytest.raises(NotImplementedError, match="slice 6"):
         train_fc("dpsgd", 0.1, steps=2, fault_plan=object(), device="cpu")
 
 
