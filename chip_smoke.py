@@ -6,9 +6,16 @@ Phases (any failure raises and the script exits non-zero):
   1. card and build: the card's name and power limit; every kernel of the
      port compiled from ``src/repro_torch/kernels/csrc`` with nvcc (one
      process per source, started together), with the build time;
-  2. each kernel against its plain PyTorch version on the card, on float32
-     inputs drawn from a seeded numpy RNG — the decode attention at the
-     serve shape and at GQA shapes with softcap and window; the gossip
+  2. each kernel against its plain PyTorch version on the card, on inputs
+     drawn from a seeded numpy RNG — the decode attention in float32 at
+     the serve shape and at GQA shapes with softcap and window (1e-5), and
+     from bf16 pools at gemma2-27b's decode shape (H 32, KV 16, hd 128, 8
+     slots up to 8,192 tokens: the global and local layers, a length-0
+     and a length-1 slot, windows that start inside a split) and at phase
+     3b's shape (40 pages, slots up to 576 tokens and either side of its
+     split boundaries, q scaled so the softcap binds), each element within
+     2^-7 |plain| + 1e-3 rms(plain), timed at the serve shape and at
+     gemma2's global and local decode layers; the gossip
      update at the training shape (n=4, T=1,056,920, K=1, momentum), on a
      ring with weight decay and an inactive NaN row, in AD-PSGD publish
      mode, and as a mixing-only round (K=3); the reorthogonalization
@@ -27,6 +34,13 @@ Phases (any failure raises and the script exits non-zero):
      attention kernel must have launched 12 times per engine step, and the
      first 3 steps' logits must match the port on the CPU (plain versions,
      same weights);
+  3b. gemma2-27b served the same way at full width, depth cut to one
+     local/global period (2 layers, 2.31 B bf16 parameters, bf16 K/V
+     pools): 8 slots, page 16, max_len 640, 16 requests of 32-512 prompt
+     and 16-64 new tokens; 2 decode launches per step, the first 3 steps'
+     logits within 2e-2 (relative, Frobenius) of the port on the CPU, and
+     the decode kernel, on the inputs both layers gave it at steps 256,
+     512 and 768, within the bf16 tier of its plain version;
   4. full-width training: transformer-100m trained with DPSGD by
      ``MultiLearnerTrainer`` (4 learners, random_pair, the
      ``examples/train_100m.py`` recipe: sgd(0.5, momentum 0.9) under a
@@ -51,17 +65,19 @@ Phases (any failure raises and the script exits non-zero):
      controller clamping below 1, through the reorth kernels; a
      ``reorth="ref"`` AutoLR run must agree on the first probe's
      sharpness within 1e-4 and end below 1e-2 too;
-  2d. the flash-attention kernel against its plain version at gemma2-27b's
-     shape (bf16, window 4,096, softcap 50, S = 4,608), transformer-100m's
-     training shape (float32, S = 512), granite-20b's MQA (bf16, S =
-     1,024), non-causal float32 (S = 256, hd 32), rows with no live key
-     (Sq 256 > Sk 128 + window 64) and gemma2's heads and masks in float32
-     with q scaled so the softcap binds — float32 within the reference's
-     tiers, bf16 within one bf16 ulp of each value — then, at gemma2's
-     prefill shapes (S = 8,192, global and local) and the training shape,
-     the same comparison, its time, the plain version's, SDPA's where one
-     call computes the same function and the bound (q.k of bf16 at the
-     tensor cores' bf16 rate, P.V at the float32 rate);
+  2d. the flash-attention kernels against their plain version at
+     gemma2-27b's shape (bf16, window 4,096, softcap 50, S = 4,608),
+     transformer-100m's training shape (float32, S = 512), granite-20b's
+     MQA (bf16, S = 1,024), non-causal float32 (S = 256, hd 32), rows with
+     no live key (Sq 256 > Sk 128 + window 64), gemma2's heads and masks in
+     float32 with q scaled so the softcap binds, ragged bf16 lengths (Sq =
+     Sk = 100; Sq 100, Sk 37) and bf16 at hd 64 — float32 within the
+     reference's tiers, bf16 within one bf16 ulp of each value — then, at
+     gemma2's prefill shapes (S = 8,192, global and local) and the
+     training shape, the same comparison, its time, the plain version's,
+     SDPA's where one call computes the same function and the bound (bf16
+     inputs: q.k once and P.V twice at the tensor cores' bf16 rate;
+     float32: both at the float32 rate);
   2e. the single-learner gossip kernel through ``ops.dpsgd_fused_update``
      on transformer-100m's full parameter tree with 2 neighbour trees,
      bitwise equal to ``backend="ref"``, then its time;
@@ -77,9 +93,9 @@ Phases (any failure raises and the script exits non-zero):
      relative, step time, idle share and kernels per step beside phase
      4's.
 Each path runs with every kernel's launch count set to 0 just before it
-and read just after.  The last lines are the serve, train, probe, FC,
-Table-1, gemma2 and flash-training numbers, the card, the kernels record
-and ``{"ok": true, "device": {...}}``.  Without CUDA the script exits 1
+and read just after.  The last lines are the serve (100m, gemma2), train,
+probe, FC, Table-1, gemma2 and flash-training numbers, the card, the
+kernels record and ``{"ok": true, "device": {...}}``.  Without CUDA the script exits 1
 before printing any result.
 """
 from __future__ import annotations
@@ -151,6 +167,14 @@ FLASH_CASES = [   # (name, B, H, KV, hd, Sq, dtype, mask, Sk or None, q scale)
     # dropped or misplaced the softcap fails here (checked below)
     ("f_softcap_binds_f32", 1, 32, 16, 128, 4608, _F32,
      dict(causal=True, window=4096, attn_softcap=50.0), None, 8.0),
+    # the tensor-core kernel's ragged tiles (a length the reference takes
+    # below its 128 block) and its hd-64 instance
+    ("g_ragged_bf16", 1, 4, 2, 128, 100, _BF16,
+     dict(causal=True, window=32, attn_softcap=50.0), None, 1.0),
+    ("h_ragged_sk_bf16", 1, 4, 2, 128, 100, _BF16, dict(causal=False), 37,
+     1.0),
+    ("i_hd64_bf16", 1, 8, 4, 64, 512, _BF16,
+     dict(causal=True, attn_softcap=50.0), None, 1.0),
 ]
 # the cap's effect on case f's plain output, in units of its tolerance
 FLASH_CAP_EFFECT_MIN = 100.0
@@ -165,6 +189,12 @@ GEMMA_CHUNK = 512           # the chunked route's block at S = 4,608 (9 x 512)
 # carry the difference on: held as ||a - b|| / ||b||
 GEMMA_BF16_RTOL = 2e-2
 GEMMA_LOSS_RTOL = 1e-3
+# gemma2-27b's decode shape in phase 2: 8 slots, lengths up to 8,192
+GEMMA_DECODE_LEN = 8192
+# phase 3b: gemma2-27b served (8 slots, page 16) from bf16 pools
+GEMMA_SERVE_MAX_LEN, GEMMA_SERVE_REQUESTS = 640, 16
+GEMMA_SERVE_PROMPT, GEMMA_SERVE_NEW = (32, 512), (16, 64)
+GEMMA_SERVE_KEEP_STEPS = (256, 512, 768)    # of 1,040 engine steps
 FLASH_TIMED = {   # (B, H, KV, hd, S, dtype, mask, library call or None)
     "gemma2_prefill_global": (1, 32, 16, 128, GEMMA_PREFILL_SEQ, _BF16,
                               dict(causal=True, attn_softcap=50.0), None),
@@ -239,96 +269,219 @@ def device_times(run):
     return out, api, wall, host
 
 
-def per_event_ms(times, kernel_name, count_name=None):
-    """(device ms per launch, launches kept) of the kernels whose name holds
-    ``kernel_name`` in a ``device_times`` result, launches counted by the
-    events whose name holds ``count_name`` (``kernel_name`` by default; a
-    kernel of two stages counts its first): the profiler may drop events
-    from a short window, so divide by what it kept."""
-    n_ev = sum(v[1] for k, v in times.items()
-               if (count_name or kernel_name) in k)
-    total = sum(v[0] for k, v in times.items() if kernel_name in k)
-    return (total / n_ev / 1e3 if n_ev else None), n_ev
+def per_event_ms(times, kernel_name):
+    """(device ms per call, fewest events kept) of the kernels whose name
+    holds ``kernel_name`` in a ``device_times`` result: the profiler may
+    drop events from a short window, and not evenly across kernels, so
+    each kernel's time is divided by its own events, and a call of two
+    stages adds the two per-event times."""
+    kept = [(v[0] / v[1], v[1]) for k, v in times.items()
+            if kernel_name in k and v[1]]
+    if not kept:
+        return None, 0
+    return sum(t for t, _ in kept) / 1e3, min(n for _, n in kept)
 
 
 # ---------------------------------------------------------------------------
 # phase 2: paged decode attention against its plain version
 # ---------------------------------------------------------------------------
 
-def paged_operands(S, H, KV, hd, page, max_pages, lengths, seed):
+def paged_operands(S, H, KV, hd, page, max_pages, lengths, seed,
+                   dtype=torch.float32, q_scale=1.0):
     rng = np.random.default_rng(seed)
     P = 1 + S * max_pages                   # page 0 = scratch, never mapped
-    q = rng.standard_normal((S, H, hd), dtype=np.float32)
+    q = q_scale * rng.standard_normal((S, H, hd), dtype=np.float32)
     kp = rng.standard_normal((P, page, KV, hd), dtype=np.float32)
     vp = rng.standard_normal((P, page, KV, hd), dtype=np.float32)
     table = rng.permutation(np.arange(1, P)).reshape(S, max_pages)
-    return [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in
-            (q, kp, vp, table.astype(np.int32),
-             np.asarray(lengths, np.int32))]
+    return [torch.from_numpy(np.ascontiguousarray(a)).cuda().to(dtype)
+            for a in (q, kp, vp)] + \
+        [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in
+         (table.astype(np.int32), np.asarray(lengths, np.int32))]
 
 
-def decode_attention_phase():
+def decode_error(got, want, live):
+    """(max |got - want| over live slots, max of that over its tier): 1e-5
+    for float32; for bf16 the flash phase's rule, 2^-7 |plain| + 1e-3
+    rms(plain) per element."""
+    g, w = got[live].float(), want[live].float()
+    err = (g - w).abs()
+    if want.dtype == _BF16:
+        tol = (FLASH_BF16_ULP * w.abs()
+               + FLASH_BF16_RMS * float(w.pow(2).mean().sqrt()))
+    else:
+        tol = torch.full_like(w, KERNEL_ATOL)
+    return float(err.max()), float((err / tol).max())
+
+
+def decode_timed(kernel, label, shape, lengths, dtype, kw, seed):
+    """Kernel (events and device), plain and SDPA ms at one shape, on pool
+    copies that together exceed the L2, with the byte bound in the pool's
+    dtype."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.decode_attention import \
-        paged_decode_attention_fwd as kernel
+    from repro_torch.kernels.decode_attention import split_plan
 
-    lengths = np.linspace(1, MAX_LEN, N_SLOTS).astype(int).tolist()
-    cases = [
-        ("serve", dict(S=N_SLOTS, H=12, KV=12, hd=64), {}),
-        ("gqa_softcap", dict(S=N_SLOTS, H=8, KV=2, hd=128),
-         dict(attn_softcap=50.0)),
-        ("gqa_window", dict(S=N_SLOTS, H=8, KV=2, hd=128), dict(window=64)),
-    ]
-    errs = {}
-    for i, (name, shape, kw) in enumerate(cases):
-        ops = paged_operands(page=PAGE, max_pages=MAX_LEN // PAGE,
-                             lengths=lengths, seed=SEED + i, **shape)
-        got = kernel(*ops, **kw)
-        want = ref.paged_decode_attention_ref(*ops, **kw)
-        torch.cuda.synchronize()
-        live = ops[4] > 0
-        errs[name] = float((got - want)[live].abs().max())
-        check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
-        check(errs[name] <= KERNEL_ATOL,
-              f"{name}: max |kernel - plain| {errs[name]} > {KERNEL_ATOL}")
-    print(f"decode_attention max_abs_err per case {json.dumps(errs)}",
-          flush=True)
-
-    # timing at the serve shape, on copies that together exceed the L2
-    q, kp, vp, table, ln = paged_operands(
-        N_SLOTS, 12, 12, 64, PAGE, MAX_LEN // PAGE, lengths, SEED)
-    n_copies = 1 + L2_BYTES // (2 * kp.numel() * 4)
-    sets = [(q, kp.clone(), vp.clone(), table, ln) for _ in range(n_copies)]
-    kernel_ms = time_ms(kernel, sets)
-    plain_ms = time_ms(ref.paged_decode_attention_ref, sets)
+    q, kp, vp, table, ln = paged_operands(lengths=lengths, dtype=dtype,
+                                          seed=seed, **shape)
+    n_copies = 1 + L2_BYTES // (2 * kp.numel() * kp.element_size())
+    sets = [(q, kp, vp, table, ln)] + [
+        (q, kp.clone(), vp.clone(), table, ln) for _ in range(n_copies - 1)]
+    err, ratio = decode_error(kernel(*sets[0], **kw),
+                              ref.paged_decode_attention_ref(*sets[0], **kw),
+                              ln > 0)
+    check(ratio <= 1.0, f"decode {label}: |kernel - plain| reaches {ratio} "
+          f"x its tier (max abs {err})")
+    kernel_ms = time_ms(lambda *a: kernel(*a, **kw), sets)
+    plain_ms = time_ms(lambda *a: ref.paged_decode_attention_ref(*a, **kw),
+                       sets[:1], iters=20)
 
     S, H, hd = q.shape
-    KV = kp.shape[2]
-    W = table.shape[1] * PAGE
-    valid = torch.arange(W, device="cuda")[None, :] < ln.long()[:, None]
+    KV, page = kp.shape[2], kp.shape[1]
+    W = table.shape[1] * page
+    pos = torch.arange(W, device="cuda")[None, :]
+    valid = pos < ln.long()[:, None]
+    if kw.get("window"):
+        valid &= pos >= ln.long()[:, None] - kw["window"]
 
     def gathered(k, v):
         def g(pool):
             return pool[table.long()].reshape(S, W, KV, hd).transpose(1, 2)
         return q[:, :, None, :], g(k), g(v), valid[:, None, None, :]
 
-    lib_sets = [gathered(k, v) for _, k, v, _, _ in sets]
+    lib_sets = [gathered(k, v) for _, k, v, _, _ in sets[:2]]
 
     def sdpa(qq, kk, vv, mask):
         return torch.nn.functional.scaled_dot_product_attention(
             qq, kk, vv, attn_mask=mask, enable_gqa=H != KV)
-    library_ms = time_ms(sdpa, lib_sets)
-    times, _, _, _ = device_times(lambda: [kernel(*sets[i % len(sets)])
-                                        for i in range(50)])
-    dev = [v for k, v in times.items() if "paged_decode_kernel" in k]
-    device_ms = dev[0][0] / dev[0][1] / 1e3 if dev else None
+    library_ms = time_ms(sdpa, lib_sets, iters=50)
+    del lib_sets
+    times, _, _, _ = device_times(lambda: [kernel(*sets[i % len(sets)], **kw)
+                                           for i in range(40)])
+    device_ms, n_ev = per_event_ms(times, "paged_decode")
 
-    live = ln.clamp(0, W).long()
-    n_live = int(live.sum())
-    nbytes = 4 * (2 * q.numel() + table.numel() + ln.numel()
-                  + 2 * n_live * KV * hd)
-    flops = 4 * n_live * H * hd
+    live = int(valid.sum())
+    nbytes = (kp.element_size() * (2 * q.numel() + 2 * live * KV * hd)
+              + 4 * (table.numel() + ln.numel()))
+    flops = 4 * live * H * hd
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+    bound_ms = 1e3 * max(t_bytes, t_ops)
+    splits, pages = split_plan(table.shape[1], page, S, KV,
+                               torch.cuda.get_device_properties(0)
+                               .multi_processor_count)
+    del sets
+    torch.cuda.empty_cache()
+    return {
+        "shape": {"S": S, "H": H, "KV": KV, "hd": hd, "page": page,
+                  "max_pages": W // page, "dtype": str(dtype)[6:],
+                  "lengths": lengths, **kw},
+        "splits": splits, "split_tokens": pages * page,
+        "max_abs_err": err, "max_err_over_tier": ratio,
+        "ms": kernel_ms, "kernel_ms": kernel_ms, "device_ms": device_ms,
+        "device_events": n_ev, "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bound_bytes": nbytes,
+        "share_of_bound": bound_ms / device_ms if device_ms else None,
+        "library_ms": library_ms,
+    }
+
+
+def decode_attention_phase():
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import \
+        paged_decode_attention_fwd as kernel
+    from repro_torch.kernels.decode_attention import split_plan
+
+    lengths = np.linspace(1, MAX_LEN, N_SLOTS).astype(int).tolist()
+    g_shape = dict(S=N_SLOTS, H=32, KV=16, hd=128, page=PAGE,
+                   max_pages=GEMMA_DECODE_LEN // PAGE)
+    g_lengths = np.linspace(1, GEMMA_DECODE_LEN, N_SLOTS).astype(int).tolist()
+    # a length-0 and a length-1 slot, and windows whose live range starts
+    # inside a split (start = len - 4,096, split boundaries at multiples of
+    # the split's tokens)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    _, pages = split_plan(g_shape["max_pages"], PAGE, N_SLOTS, 16, n_sm)
+    tok = pages * PAGE
+    edge = [0, 1, GEMMA_DECODE_LEN, 4096 + tok // 2, 4096 + tok + 3,
+            2 * tok - 1, 2 * tok + 1, GEMMA_DECODE_LEN - 5]
+    # phase 3b's own shape (max_len 640: 40 pages, fewer and shorter
+    # splits), up to the longest slot it serves (512 prompt + 64 new
+    # tokens) and either side of its split boundaries; q scaled so that the
+    # cap at 50 binds (checked below)
+    s_shape = dict(g_shape, max_pages=GEMMA_SERVE_MAX_LEN // PAGE)
+    _, pages = split_plan(s_shape["max_pages"], PAGE, N_SLOTS, 16, n_sm)
+    s_tok, s_max = pages * PAGE, sum(x[1] for x in (GEMMA_SERVE_PROMPT,
+                                                     GEMMA_SERVE_NEW))
+    s_lengths = np.linspace(1, s_max, N_SLOTS).astype(int).tolist()
+    s_edge = [0, 1, s_tok - 1, s_tok, s_tok + 1, 2 * s_tok + 1, s_max,
+              GEMMA_SERVE_MAX_LEN]
+    cases = [   # (name, shape, lengths, dtype, mask, q scale)
+        ("serve", dict(S=N_SLOTS, H=12, KV=12, hd=64, page=PAGE,
+                       max_pages=MAX_LEN // PAGE), lengths, _F32, {}, 1.0),
+        ("gqa_softcap", dict(S=N_SLOTS, H=8, KV=2, hd=128, page=PAGE,
+                             max_pages=MAX_LEN // PAGE), lengths, _F32,
+         dict(attn_softcap=50.0), 1.0),
+        ("gqa_window", dict(S=N_SLOTS, H=8, KV=2, hd=128, page=PAGE,
+                            max_pages=MAX_LEN // PAGE), lengths, _F32,
+         dict(window=64), 1.0),
+        ("gemma2_global_bf16", g_shape, g_lengths, _BF16,
+         dict(attn_softcap=50.0), 1.0),
+        ("gemma2_local_bf16", g_shape, g_lengths, _BF16,
+         dict(window=4096, attn_softcap=50.0), 1.0),
+        ("gemma2_edges_local_bf16", g_shape, edge, _BF16,
+         dict(window=4096, attn_softcap=50.0), 1.0),
+        ("gemma2_edges_global_bf16", g_shape, edge, _BF16,
+         dict(attn_softcap=50.0), 1.0),
+        ("gemma2_serve_global_bf16", s_shape, s_lengths, _BF16,
+         dict(attn_softcap=50.0), 8.0),
+        ("gemma2_serve_local_bf16", s_shape, s_lengths, _BF16,
+         dict(window=4096, attn_softcap=50.0), 8.0),
+        ("gemma2_serve_edges_global_bf16", s_shape, s_edge, _BF16,
+         dict(attn_softcap=50.0), 8.0),
+        ("gemma2_serve_edges_local_bf16", s_shape, s_edge, _BF16,
+         dict(window=4096, attn_softcap=50.0), 8.0),
+    ]
+    errs = {}
+    for i, (name, shape, lens, dt, kw, q_scale) in enumerate(cases):
+        ops = paged_operands(lengths=lens, dtype=dt, seed=SEED + i,
+                             q_scale=q_scale, **shape)
+        got = kernel(*ops, **kw)
+        want = ref.paged_decode_attention_ref(*ops, **kw)
+        torch.cuda.synchronize()
+        live = ops[4] > 0
+        err, ratio = decode_error(got, want, live)
+        errs[name] = {"max_abs_err": err, "max_err_over_tier": ratio}
+        check(got.dtype == dt, f"{name}: output {got.dtype}")
+        check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
+        check(bool((got[~live] == 0).all()), f"{name}: a length-0 slot is "
+              "not 0")
+        check(ratio <= 1.0, f"{name}: |kernel - plain| reaches {ratio} x "
+              f"its tier (max abs {err})")
+        if q_scale != 1.0:
+            # the cap's effect on the plain output in units of the tier:
+            # a kernel that dropped the cap would miss it by this much
+            uncapped = ref.paged_decode_attention_ref(
+                *ops, **{**kw, "attn_softcap": 0.0})
+            _, effect = decode_error(uncapped, want, live)
+            errs[name]["softcap_effect_over_tier"] = effect
+            check(effect >= FLASH_CAP_EFFECT_MIN,
+                  f"{name}: the softcap moves the output by only {effect} "
+                  "x the tier")
+            del uncapped
+        del ops, got, want
+    print(f"decode_attention error per case {json.dumps(errs)}", flush=True)
+
+    timed = {
+        "serve_100m_f32": decode_timed(
+            kernel, "serve", cases[0][1], lengths, _F32, {}, SEED),
+        "gemma2_global_bf16": decode_timed(
+            kernel, "gemma2 global", g_shape, g_lengths, _BF16,
+            dict(attn_softcap=50.0), SEED + 20),
+        "gemma2_local_bf16": decode_timed(
+            kernel, "gemma2 local", g_shape, g_lengths, _BF16,
+            dict(window=4096, attn_softcap=50.0), SEED + 21),
+    }
+    main = timed["serve_100m_f32"]
     return {
         "name": "paged_decode_attention",
         "route": "cuda",
@@ -337,19 +490,20 @@ def decode_attention_phase():
         "tpu_kernel": ("src/repro/kernels/decode_attention.py::"
                        "paged_decode_attention_fwd"),
         "launches": None,
-        "max_abs_err": max(errs.values()),
-        "ms": kernel_ms,
-        "kernel_ms": kernel_ms,
-        "device_ms": device_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": 1e3 * max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": library_ms,
+        "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
+        "error_per_case": errs,
+        "ms": main["ms"], "kernel_ms": main["kernel_ms"],
+        "device_ms": main["device_ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "library_ms": main["library_ms"],
         "library": ("torch.nn.functional.scaled_dot_product_attention on "
-                    "the already-gathered K/V with the length mask "
-                    "(gather excluded)"),
-        "shape": {"S": S, "H": H, "KV": KV, "hd": hd, "page": PAGE,
-                  "max_pages": W // PAGE, "lengths": lengths},
+                    "the already-gathered K/V with the length (and window) "
+                    "mask, no softcap (gather excluded)"),
+        "ms_is": ("CUDA events over back-to-back wrapper calls (host "
+                  "wrapper included); device_ms: the kernel from "
+                  "torch.profiler, per call"),
+        "shape": main["shape"],
+        "per_shape": timed,
     }
 
 
@@ -375,47 +529,83 @@ class Recorder:
         return logits, cache
 
 
-def requests(vocab):
+class DecodeCapture:
+    """Wraps the model's decode-attention entry point: counts its calls and
+    keeps a copy of the inputs (the pools as they are at that call) of the
+    calls numbered in ``at``."""
+
+    def __init__(self, fn, at):
+        self.fn, self.at, self.calls, self.kept = fn, set(at), 0, []
+
+    def __call__(self, q, k_pages, v_pages, page_table, lengths, **kw):
+        if self.calls in self.at:
+            self.kept.append(([t.clone() for t in (q, k_pages, v_pages,
+                                                   page_table, lengths)], kw))
+        self.calls += 1
+        return self.fn(q, k_pages, v_pages, page_table, lengths, **kw)
+
+
+def requests(vocab, n_requests=N_REQUESTS, prompt=(8, 128), new=(16, 64)):
+    """(prompt tokens, max_new_tokens) per request from numpy seed SEED:
+    prompt lengths and budgets uniform over the closed ranges given."""
     rng = np.random.default_rng(SEED)
     out = []
-    for _ in range(N_REQUESTS):
-        n = int(rng.integers(8, 129))
+    for _ in range(n_requests):
+        n = int(rng.integers(prompt[0], prompt[1] + 1))
         out.append((rng.integers(1, vocab, n).tolist(),
-                    int(rng.integers(16, 65))))
+                    int(rng.integers(new[0], new[1] + 1))))
     return out
 
 
-def serve_phase():
-    from repro_torch.configs import get_config
+def serve_model(cfg, jobs, n_slots, page, max_len, compare, n_prof,
+                capture_at=()):
+    """Serve ``jobs`` through ``ServeEngine`` on the card, then the same
+    weights and requests for CPU_STEPS steps on the CPU (plain versions);
+    ``compare(card logits, cpu logits)`` returns the step's error and
+    raises past its tier.  The decode-attention calls numbered in
+    ``capture_at`` keep their inputs, on which the kernel is then held
+    against its plain version (decode_error's tier).  Returns (record,
+    decode kernel launches)."""
+    from repro_torch.kernels import ops
     from repro_torch.kernels.decode_attention import \
         paged_decode_attention_fwd as kernel
-    from repro_torch.models import build_model
+    from repro_torch.kernels.decode_attention import split_plan
+    from repro_torch.models import attention, build_model
     from repro_torch.serve import ServeEngine
 
-    cfg = get_config("transformer-100m")
     api = build_model(cfg)
+    t0 = time.perf_counter()
     params = api.init(SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in params.parameters())
     rec = Recorder(api.paged_decode_step, CPU_STEPS)
     eng = ServeEngine(api._replace(paged_decode_step=rec), params,
-                      n_slots=N_SLOTS, page_size=PAGE, max_len=MAX_LEN)
+                      n_slots=n_slots, page_size=page, max_len=max_len)
     t0 = time.perf_counter()
     eng.warmup()
     torch.cuda.synchronize()
     warmup_s = time.perf_counter() - t0
 
-    jobs = requests(cfg.vocab)
     kernel.launches = 0
     rec.on = True
+    cap = DecodeCapture(attention.paged_decode_attention, capture_at)
+    attention.paged_decode_attention = cap
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    reqs = [eng.submit(p, m) for p, m in jobs]
-    ends = []                   # host clock after each step (ends in a sync)
-    while eng.has_work:
-        eng.step()
-        ends.append(time.perf_counter() - t0)
-        check(len(ends) < 10 * MAX_LEN * N_REQUESTS, "serve engine wedged")
-    torch.cuda.synchronize()
+    try:
+        reqs = [eng.submit(p, m) for p, m in jobs]
+        ends = []               # host clock after each step (ends in a sync)
+        while eng.has_work:
+            eng.step()
+            ends.append(time.perf_counter() - t0)
+            check(len(ends) < 10 * max_len * len(jobs),
+                  "serve engine wedged")
+        torch.cuda.synchronize()
+    finally:
+        attention.paged_decode_attention = cap.fn
     run_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     step_ms = np.diff([0.0] + ends) * 1e3
     ttft_ms = sorted(1e3 * ends[r.first_token_step] for r in reqs)
     launches = kernel.launches
@@ -423,41 +613,63 @@ def serve_phase():
 
     check(all(r.done and len(r.generated) == m
               for r, (_, m) in zip(reqs, jobs)),
-          "a request did not finish with its token budget")
-    check(bool(rec.finite), "non-finite logits in the serve run")
+          f"{cfg.name}: a request did not finish with its token budget")
+    check(bool(rec.finite), f"{cfg.name}: non-finite logits in the serve run")
     check(launches == steps * cfg.n_layers,
-          f"kernel launches {launches} != {steps} steps x "
+          f"{cfg.name}: kernel launches {launches} != {steps} steps x "
           f"{cfg.n_layers} layers")
+
+    # the kernel on the kept inputs of the run; these launches compare and
+    # do not count
+    check(len(cap.kept) == len(capture_at), f"{cfg.name}: kept "
+          f"{len(cap.kept)} of {len(capture_at)} decode calls")
+    decode_checks = []
+    for inputs, kw in cap.kept:
+        got = kernel(*inputs, **kw)
+        want = ops.paged_decode_attention(*inputs, backend="ref", **kw)
+        err, ratio = decode_error(got, want, inputs[4] > 0)
+        max_len_kept = int(inputs[4].max())
+        check(ratio <= 1.0, f"{cfg.name}: on the inputs of serve call with "
+              f"lengths up to {max_len_kept}, |kernel - plain| reaches "
+              f"{ratio} x its tier (max abs {err})")
+        decode_checks.append({"max_length": max_len_kept,
+                              "max_abs_err": err,
+                              "max_err_over_tier": ratio, **kw})
+    kernel.launches = launches
+    if decode_checks:
+        q, k_pool = cap.kept[0][0][:2]
+        _, pages = split_plan(cap.kept[0][0][3].shape[1], page, q.shape[0],
+                              k_pool.shape[2], torch.cuda
+                              .get_device_properties(0).multi_processor_count)
+        check(max(c["max_length"] for c in decode_checks) > 2 * pages * page,
+              f"{cfg.name}: no kept call fills three splits of "
+              f"{pages * page} tokens")
+    del cap
 
     # the same weights and requests through the port on the CPU
     cpu_api = build_model(cfg, device="cpu")
     cpu_params = copy.deepcopy(params).to("cpu")
     cpu_rec = Recorder(cpu_api.paged_decode_step, CPU_STEPS)
     cpu_eng = ServeEngine(cpu_api._replace(paged_decode_step=cpu_rec),
-                          cpu_params, n_slots=N_SLOTS, page_size=PAGE,
-                          max_len=MAX_LEN)
+                          cpu_params, n_slots=n_slots, page_size=page,
+                          max_len=max_len)
     cpu_rec.on = True
     for p, m in jobs:
         cpu_eng.submit(p, m)
     for _ in range(CPU_STEPS):
         cpu_eng.step()
-    logit_err = 0.0
-    for i, (g, c) in enumerate(zip(rec.logits, cpu_rec.logits)):
-        g = g.cpu()
-        logit_err = max(logit_err, float((g - c).abs().max()))
-        check(torch.allclose(g, c, atol=LOGIT_TOL, rtol=LOGIT_TOL),
-              f"step {i}: card logits differ from the CPU's by "
-              f"{float((g - c).abs().max())}")
     check(len(cpu_rec.logits) == CPU_STEPS == len(rec.logits),
           "fewer recorded steps than compared")
+    logit_err = max(compare(i, g.cpu(), c) for i, (g, c) in
+                    enumerate(zip(rec.logits, cpu_rec.logits)))
+    del cpu_eng, cpu_params, cpu_api, cpu_rec
 
-    # where a steady serve step's time goes: 20 steps of 8 fresh requests
+    # where a steady serve step's time goes: n_prof steps of fresh requests
     rec.on = False
-    for p, m in jobs[:N_SLOTS]:
+    for p, m in jobs[:n_slots]:
         eng.submit(p, m)
     for _ in range(5):
         eng.step()
-    n_prof = 20
     smi = subprocess.Popen(
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
          "--format=csv,noheader,nounits", "-lms", "100"],
@@ -478,7 +690,7 @@ def serve_phase():
         "device_idle_share": (1 - busy_us / 1e6 / wall) if busy_us else None,
         "attention_kernel_ms_per_step": sum(
             v[0] for k, v in times.items()
-            if "paged_decode_kernel" in k) / 1e3 / n_prof,
+            if "paged_decode" in k) / 1e3 / n_prof,
         "host_api_ms_per_step": {
             k: [v[0] / 1e3 / n_prof, v[1] / n_prof]
             for k, v in api_calls.items()},
@@ -487,11 +699,14 @@ def serve_phase():
         "top_device_ms_per_step": [
             [k[:90], v[0] / 1e3 / n_prof, v[1] / n_prof] for k, v in top],
     }
+    del eng, params
+    torch.cuda.empty_cache()
 
     prompt_tokens = sum(len(p) for p, _ in jobs)
     return {
-        "model": cfg.name, "n_params": n_params, "n_slots": N_SLOTS,
-        "page_size": PAGE, "max_len": MAX_LEN, "requests": N_REQUESTS,
+        "model": cfg.name, "n_layers": cfg.n_layers, "n_params": n_params,
+        "dtype": cfg.param_dtype, "init_s": init_s, "n_slots": n_slots,
+        "page_size": page, "max_len": max_len, "requests": len(jobs),
         "prompt_tokens": prompt_tokens, "generated_tokens": generated,
         "real_steps": steps, "warmup_s": warmup_s, "run_s": run_s,
         "ms_per_step": 1e3 * run_s / steps,
@@ -502,9 +717,55 @@ def serve_phase():
         "ttft_ms_max": ttft_ms[-1],
         "tokens_per_s": generated / run_s,
         "fed_tokens_per_s": (prompt_tokens + generated) / run_s,
-        "cpu_logit_max_abs_diff_first_3_steps": logit_err,
+        "max_memory_allocated_gb": peak_gb,
+        f"cpu_logit_err_first_{CPU_STEPS}_steps": logit_err,
+        "decode_kernel_on_kept_serve_calls": decode_checks,
         "profile": profile,
     }, launches
+
+
+def serve_phase():
+    from repro_torch.configs import get_config
+
+    def compare(i, g, c):
+        err = float((g - c).abs().max())
+        check(torch.allclose(g, c, atol=LOGIT_TOL, rtol=LOGIT_TOL),
+              f"step {i}: card logits differ from the CPU's by {err}")
+        return err
+
+    cfg = get_config("transformer-100m")
+    return serve_model(cfg, requests(cfg.vocab), N_SLOTS, PAGE, MAX_LEN,
+                       compare, n_prof=20)
+
+
+def gemma2_serve_phase():
+    """Phase 3b: gemma2-27b at full width, 2 layers, bf16 pools."""
+    from repro_torch.configs import get_config
+
+    def compare(i, g, c):
+        rel = _rel(g, c)
+        check(rel <= GEMMA_BF16_RTOL,
+              f"gemma2 serve step {i}: card logits differ from the CPU's by "
+              f"{rel} relative (Frobenius)")
+        return rel
+
+    full = get_config("gemma2-27b")
+    cfg = dataclasses.replace(full, n_layers=GEMMA_LAYERS)
+    jobs = requests(cfg.vocab, GEMMA_SERVE_REQUESTS, GEMMA_SERVE_PROMPT,
+                    GEMMA_SERVE_NEW)
+    # both layers' decode calls at three steps spread over the run
+    at = [GEMMA_LAYERS * step + layer for step in GEMMA_SERVE_KEEP_STEPS
+          for layer in range(GEMMA_LAYERS)]
+    record, launches = serve_model(cfg, jobs, N_SLOTS, PAGE,
+                                   GEMMA_SERVE_MAX_LEN, compare, n_prof=10,
+                                   capture_at=at)
+    record["reduced"] = {"n_layers": f"{full.n_layers} -> {GEMMA_LAYERS} "
+                                     "(one local/global period; every "
+                                     "width kept)"}
+    record["window"] = cfg.window
+    record["logit_tier"] = ("||card - cpu|| / ||cpu|| <= "
+                            f"{GEMMA_BF16_RTOL}")
+    return record, launches
 
 
 # ---------------------------------------------------------------------------
@@ -771,11 +1032,9 @@ def reorth_phase():
     times, _, _, _ = device_times(lambda: [
         (reorth_dots(basis, w, mask), reorth_axpy(w, basis, dots, out=out))
         for _ in range(20)])
-    # per launch: both stages of the dots over the launches the profiler
-    # recorded (counted by the first stage's events)
-    dev = {name: per_event_ms(times, name, first)
-           for name, first in (("reorth_dots", "reorth_dots_partial"),
-                               ("reorth_axpy", "reorth_axpy_kernel"))}
+    # per call: both stages of the dots, each over its own events
+    dev = {name: per_event_ms(times, name)
+           for name in ("reorth_dots", "reorth_axpy")}
     vec = T * 128 * 4
     need = {   # bytes each function must move, flops it must do
         "reorth_dots": ((M + 1) * vec + 2 * M * 4, 2 * M * T * 128),
@@ -931,7 +1190,7 @@ def train_profile(times, api_calls, wall, host, n):
             [k[:60], v[0] / 1e3 / n, v[1] / n] for k, v in top_host],
     }
     for label, name in (("gossip_kernel", "gossip_mix_kernel"),
-                        ("flash_kernel", "flash_attention_kernel")):
+                        ("flash_kernel", "flash_attention")):
         k_us = sum(v[0] for k, v in times.items() if name in k)
         out[f"{label}_ms_per_step"] = k_us / 1e3 / n
         out[f"{label}_share_of_device"] = k_us / busy_us if busy_us else None
@@ -1317,16 +1576,17 @@ def flash_phase():
                                  sets, iters=100)
         times, _, _, _ = device_times(
             lambda: [kernel(*sets[i % len(sets)], **kw) for i in range(10)])
-        device_ms, n_ev = per_event_ms(times, "flash_attention_kernel")
+        device_ms, n_ev = per_event_ms(times, "flash_attention")
         pairs = live_pairs(S, S, kw.get("causal", True), kw.get("window", 0))
-        # q.k of bf16 operands multiplies exactly in float32, so the tensor
-        # cores' bf16 rate bounds that half; P.V takes float32 P: 67 TFLOP/s
+        # bf16 inputs (the tensor-core kernel): q.k one bf16 pass, P.V two
+        # (P = hi + lo in bf16), all at the tensor cores' bf16 rate; float32
+        # inputs (the FMA kernel): both halves at the float32 rate
         half = 2 * hd * pairs * B * H
         flops = 2 * half
         nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
         t_bytes = nbytes / HBM_BYTES_PER_S
-        t_ops = half / (BF16_FLOPS if dt == _BF16 else F32_FLOPS) \
-            + half / F32_FLOPS
+        t_ops = (3 * half / BF16_FLOPS if dt == _BF16
+                 else 2 * half / F32_FLOPS)
         timed[label] = {
             "shape": {"B": B, "H": H, "KV": KV, "hd": hd, "S": S,
                       "dtype": str(dt).replace("torch.", ""), **kw},
@@ -1335,6 +1595,8 @@ def flash_phase():
             "bound_ms": 1e3 * max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "flops": flops, "live_pairs_per_head": pairs,
+            "kernel": "flash_attention_tc_kernel" if dt == _BF16 and hd in
+                      (64, 128) else "flash_attention_kernel",
             "share_of_bound": 1e3 * max(t_bytes, t_ops) / kernel_ms,
             "library_ms": library_ms,
             "library": ("torch.nn.functional.scaled_dot_product_attention("
@@ -1673,9 +1935,25 @@ def main() -> int:
               if k != "paged_decode_attention_fwd"),
           f"the serving path launched another path's kernel: "
           f"{serve['kernel_launches']}")
-    decode_record["launches"] = serve["kernel_launches"][
-        "paged_decode_attention_fwd"]
     print(json.dumps({"serve": serve}), flush=True)
+
+    for k in kernels:
+        k.launches = 0
+    serve_gemma, _ = gemma2_serve_phase()
+    serve_gemma["kernel_launches"] = {k.__name__: k.launches
+                                      for k in kernels}
+    check(all(v == 0 for k, v in serve_gemma["kernel_launches"].items()
+              if k != "paged_decode_attention_fwd"),
+          f"the gemma2 serving path launched another path's kernel: "
+          f"{serve_gemma['kernel_launches']}")
+    print(json.dumps({"serve_gemma2": serve_gemma}), flush=True)
+    serve_launches = {
+        "transformer_100m_serving": serve["kernel_launches"][
+            "paged_decode_attention_fwd"],
+        "gemma2_27b_serving": serve_gemma["kernel_launches"][
+            "paged_decode_attention_fwd"]}
+    decode_record["launches"] = sum(serve_launches.values())
+    decode_record["launches_by_path"] = serve_launches
 
     train, gossip_record["launches"], probe, probe_launches = \
         train_phase(kernels)

@@ -24,15 +24,17 @@ BACKENDS = ("auto", "cuda", "ref")
 
 
 def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
-                           window: int = 0, attn_softcap: float = 0.0):
+                           window: int = 0, attn_softcap: float = 0.0,
+                           backend: str = "auto"):
     """Paged serving decode attention (DESIGN §14).
 
     q: (S, H, hd) — one query token per serve slot; k_pages, v_pages:
     (P, page, KV, hd) shared pools; page_table: (S, max_pages) int32
     physical page ids in logical order; lengths: (S,) int32 valid tokens
-    per slot (current token included).  Inference only.
+    per slot (current token included).  Inference only.  A CPU tensor, or
+    ``backend="ref"``, takes the plain version; a CUDA tensor the kernel.
     """
-    if q.device.type == "cpu":
+    if _use_plain(q, backend):
         return ref.paged_decode_attention_ref(
             q, k_pages, v_pages, page_table, lengths, window=window,
             attn_softcap=attn_softcap)

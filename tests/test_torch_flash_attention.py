@@ -21,8 +21,12 @@ gradients of O(10)), both
 through the CPU dispatch (the plain version with autograd) and through
 ``FlashAttention`` itself with a CPU stand-in for the kernel forward.
 
-The CUDA kernel must agree with its plain version on the card within the
-same tiers (``cuda`` marker, skipped here).
+The CUDA kernels must agree with their plain version on the card within
+the same tiers (``cuda`` marker, skipped here): the float32-FMA kernel
+for float32 inputs and hd 32, and the tensor-core kernel for bf16 at hd
+64 and 128, which masks ragged tiles and so takes every length the
+reference takes.  The wrapper's shape rule and its choice between the two
+kernels are checked on the CPU.
 """
 import pytest
 
@@ -37,8 +41,8 @@ from repro.kernels import ref as jax_ref  # noqa: E402
 from repro.kernels.flash_attention import \
     flash_attention_fwd as jax_kernel  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
-from repro_torch.kernels.flash_attention import \
-    flash_attention_fwd  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    check_shapes, flash_attention_fwd, kernel_for)
 
 SHAPES = [(128, 64, 4, 4), (256, 64, 4, 2), (256, 128, 2, 1)]
 DTYPES = ["float32", "bfloat16"]
@@ -82,13 +86,19 @@ def _f32(x):
     return np.asarray(jnp.asarray(x).astype(jnp.float32))
 
 
-def _assert_within_tier(got, want, dtype, atol_f32=ATOL_F32):
+def _tier_ratio(got, want):
+    """max |got - want| over the bf16 tier, 2^-7 |want| + 1e-3 rms."""
     g, w = _f32(got), _f32(want)
-    if dtype == "float32":
-        np.testing.assert_allclose(g, w, atol=atol_f32, rtol=0)
-        return
     tol = BF16_ULP * np.abs(w) + BF16_RMS * np.sqrt(np.mean(w ** 2))
-    ratio = float(np.max(np.abs(g - w) / tol))
+    return float(np.max(np.abs(g - w) / tol))
+
+
+def _assert_within_tier(got, want, dtype, atol_f32=ATOL_F32):
+    if dtype == "float32":
+        np.testing.assert_allclose(_f32(got), _f32(want), atol=atol_f32,
+                                   rtol=0)
+        return
+    ratio = _tier_ratio(got, want)
     assert ratio <= 1.0, f"|got - want| reaches {ratio} x one bf16 ulp"
 
 
@@ -246,6 +256,50 @@ def test_kernel_wrapper_refuses_cpu_tensors():
         flash_attention_fwd(q, k, v)
 
 
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("Sq,Sk", [(100, 100), (128, 128), (384, 384),
+                                   (1, 1), (37, 100), (256, 128),
+                                   (100, 384)])
+def test_wrapper_takes_every_length_the_reference_takes_in_bf16(Sq, Sk,
+                                                                hd):
+    """The reference takes any length below its 128 block or a multiple of
+    it; the tensor-core kernel masks its ragged tiles and takes them all.
+    The reference's own Pallas kernel agrees at the ragged length."""
+    assert kernel_for(torch.bfloat16, hd) == "tc"
+    assert check_shapes((1, 4, Sq, hd), (1, 2, Sk, hd), (1, 2, Sk, hd),
+                        torch.bfloat16) == "tc"
+    if (Sq, Sk) == (100, 100):
+        arrs = _operands(100, hd, 4, 2, "bfloat16", seed=hd)
+        kw = dict(causal=True, window=32, attn_softcap=50.0)
+        want = jax_kernel(*_jax(arrs, "bfloat16"), interpret=True, **kw)
+        got = ref.flash_attention_ref(*_torch(arrs, "bfloat16"), **kw)
+        _assert_within_tier(got, want, "bfloat16")
+
+
+def test_wrapper_shape_rule_refuses_what_no_kernel_takes():
+    bf = torch.bfloat16
+    with pytest.raises(ValueError, match="head_dim"):
+        check_shapes((1, 4, 128, 48), (1, 2, 128, 48), (1, 2, 128, 48), bf)
+    with pytest.raises(ValueError, match="H % KV"):
+        check_shapes((1, 3, 128, 128), (1, 2, 128, 128), (1, 2, 128, 128),
+                     bf)
+    with pytest.raises(ValueError, match="fit"):
+        check_shapes((1, 4, 128, 128), (1, 2, 128, 128), (1, 2, 64, 128),
+                     bf)
+    # the float32-FMA kernel keeps its 64-row tile: float32 at any hd, and
+    # bf16 at hd 32, route there by (dtype, hd) alone
+    assert kernel_for(torch.float32, 128) == "ffma"
+    assert kernel_for(torch.float32, 64) == "ffma"
+    assert kernel_for(bf, 32) == "ffma"
+    assert check_shapes((1, 4, 128, 64), (1, 2, 192, 64), (1, 2, 192, 64),
+                        torch.float32) == "ffma"
+    with pytest.raises(ValueError, match="multiples"):
+        check_shapes((1, 4, 100, 64), (1, 2, 100, 64), (1, 2, 100, 64),
+                     torch.float32)
+    with pytest.raises(ValueError, match="multiples"):
+        check_shapes((1, 4, 100, 32), (1, 2, 100, 32), (1, 2, 100, 32), bf)
+
+
 # ---------------------------------------------------------------------------
 # the CUDA kernel on the card
 # ---------------------------------------------------------------------------
@@ -291,6 +345,62 @@ def test_cuda_kernel_matches_plain_version(cuda_device, S, hd, H, KV, dtype,
                         atol_f32=ATOL_F32 if S <= 256 else 1e-5)
 
 
+TC_CASES = [
+    # (Sq, hd, H, KV, mask, Sk, q scale): bf16 through the tensor cores
+    (256, 128, 4, 2, dict(causal=True), None, 1.0),
+    (256, 64, 4, 2, dict(causal=True), None, 1.0),
+    (512, 128, 32, 16, dict(causal=True, window=128, attn_softcap=50.0),
+     None, 1.0),
+    (384, 64, 4, 1, dict(causal=True, window=100, attn_softcap=50.0), None,
+     1.0),
+    (256, 128, 2, 2, dict(causal=False), None, 1.0),
+    (256, 64, 2, 2, dict(causal=False, window=64), 128, 1.0),  # no live key
+    (100, 128, 4, 2, dict(causal=True), None, 1.0),            # ragged
+    (100, 64, 4, 2, dict(causal=True, window=16, attn_softcap=50.0), None,
+     1.0),
+    (100, 128, 4, 2, dict(causal=False), 37, 1.0),
+    (1024, 128, 8, 1, dict(causal=True), None, 1.0),
+    (512, 128, 4, 2, dict(causal=True, attn_softcap=50.0), None, 8.0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,hd,H,KV,kw,Sk,q_scale", TC_CASES)
+def test_cuda_tensor_core_kernel_matches_plain_version(cuda_device, S, hd, H,
+                                                       KV, kw, Sk, q_scale):
+    q, k, v = _torch(_operands(S, hd, H, KV, "bfloat16", seed=S + hd + H,
+                               Sk=Sk, q_scale=q_scale), "bfloat16",
+                     cuda_device)
+    want = ref.flash_attention_ref(q, k, v, **kw)
+    before = flash_attention_fwd.launches
+    got = flash_attention_fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention_fwd.launches == before + 1
+    assert got.dtype == q.dtype and got.shape == q.shape
+    assert torch.isfinite(got).all()
+    _assert_within_tier(got, want, "bfloat16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,hd,name", [
+    ("float32", 128, "flash_attention_kernel"),
+    ("float32", 64, "flash_attention_kernel"),
+    ("bfloat16", 32, "flash_attention_kernel"),
+    ("bfloat16", 128, "flash_attention_tc_kernel"),
+    ("bfloat16", 64, "flash_attention_tc_kernel")])
+def test_cuda_inputs_reach_the_kernel_their_dtype_and_width_name(
+        cuda_device, dtype, hd, name):
+    from torch.profiler import ProfilerActivity, profile
+    q, k, v = _torch(_operands(128, hd, 4, 2, dtype), dtype, cuda_device)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        flash_attention_fwd(q, k, v)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if "flash_attention" in e.name]
+    assert names and all(name in n for n in names), names
+    assert any(("_tc_" in n) == (name.endswith("_tc_kernel"))
+               for n in names)
+
+
 @pytest.mark.cuda
 def test_cuda_function_reads_the_model_layout_and_matches_gradients(
         cuda_device):
@@ -331,3 +441,37 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
         flash_attention_fwd(q[:, :3], k, v)
     with pytest.raises(ValueError, match="contiguous"):
         flash_attention_fwd(q.transpose(2, 3), k, v)
+
+
+def _round_tf32(x):
+    """float32 -> the nearest TF32 value (10 mantissa bits, ties away)."""
+    b = x.float().contiguous().view(torch.int32)
+    return ((b + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def test_one_rounding_of_p_misses_the_bf16_tier_and_two_bf16_terms_do_not():
+    """Why the tensor-core kernel multiplies P V with P in two bf16 terms:
+    a dense float32 attention with P = softmax numerators rounded once,
+    to bf16 or to TF32, lands outside the bf16 tier of the exact one on
+    causal rows with few keys (an output near 0 built from a few large
+    weights); hi + lo in bf16 stays inside it, as P unrounded does
+    (measured 12.7, 1.57, 0.92 and 0.78 x the tier; the last two are the
+    one-ulp flips of rounding a float32 result to bf16)."""
+    S, H, KV, hd = 1024, 16, 8, 128
+    arrs = _operands(S, hd, H, KV, "bfloat16", seed=21)
+    q, k, v = (torch.tensor(a) for a in arrs)
+    G = H // KV
+    kf, vf = k.repeat_interleave(G, 1), v.repeat_interleave(G, 1)
+    s = q @ kf.transpose(-1, -2) * hd ** -0.5
+    s = s.masked_fill(~torch.ones(S, S, dtype=torch.bool).tril(), -1e30)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    l = p.sum(-1, keepdim=True)
+    exact = (p.double() @ vf.double() / l.double()).bfloat16()
+    hi = p.bfloat16().float()
+
+    def ratio(pp):
+        return _tier_ratio((pp @ vf / l).bfloat16(), exact)
+
+    assert ratio(hi) > 1.0
+    assert ratio(_round_tf32(p)) > 1.0
+    assert ratio(hi + (p - hi).bfloat16().float()) <= 1.0

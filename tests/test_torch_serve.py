@@ -7,6 +7,13 @@ port must match the reference's ``paged_decode_step`` logits (float32,
 atol/rtol 1e-5: the two frameworks sum matrix products in different
 orders) and its ``ServeEngine`` must generate the same tokens; the
 engine's scheduling behaviour mirrors tests/test_serve.py.
+
+gemma2-27b's smoke config in bf16 (parameters, compute and the paged K/V
+pools; local/global layers with a window of 3 so the local mask bites,
+softcaps 50 / 30) goes through both packages' ``paged_decode_step`` on the
+same weights: logits within 2e-2 of the largest reference logit, the
+tier of tests/test_torch_dense_flash.py (the two frameworks round bf16 at
+other places).  The port's ``ServeEngine`` serves it end to end.
 """
 import copy
 import dataclasses
@@ -294,3 +301,65 @@ def test_engine_rejects_bad_requests_and_params(models):
     eng.set_params(params)                  # hot swap: same device is fine
     with pytest.raises(ValueError, match="engine on"):
         eng.set_params(copy.deepcopy(params).to("meta"))
+
+
+# -- (e) gemma2-27b in bf16: paged decode on bf16 pools -----------------------
+
+GEMMA_BF16 = dict(param_dtype="bfloat16", compute_dtype="bfloat16", window=3)
+GEMMA_BF16_TOL = 2e-2            # of the largest reference logit
+
+
+@pytest.fixture(scope="module")
+def gemma_bf16():
+    jcfg = dataclasses.replace(
+        jax_get_config("gemma2-27b").smoke_config(), **GEMMA_BF16)
+    cfg = dataclasses.replace(get_config("gemma2-27b").smoke_config(),
+                              **GEMMA_BF16)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+    japi = jax_build_model(jcfg)
+    jparams = japi.init(jax.random.PRNGKey(0))
+    api = build_model(cfg, device="cpu")
+    params = params_from_jax(jax.tree_util.tree_map(np.asarray, jparams),
+                             cfg, "cpu")
+    return japi, jparams, api, params
+
+
+def test_gemma2_bf16_paged_decode_step_matches_reference(gemma_bf16):
+    japi, jparams, api, params = gemma_bf16
+    vocab, B = api.cfg.vocab, 3
+    table = _shuffled_table(B, seed=2)
+    jcache = japi.init_paged_cache(jparams, B, 1 + B * MAX_PAGES, PAGE)
+    cache = api.init_paged_cache(params, B, 1 + B * MAX_PAGES, PAGE)
+    assert all(pool.dtype == torch.bfloat16 for layer in cache.values()
+               for pool in layer.values())
+    rng = np.random.default_rng(3)
+    # ragged positions: slot 0 six steps ahead of slot 2
+    for step in range(8):
+        toks = rng.integers(0, vocab, (B, 1)).astype(np.int32)
+        positions = np.array([step + 6, step + 3, step], np.int32)
+        jl, jcache = japi.paged_decode_step(
+            jparams, jcache, jnp.asarray(toks), jnp.asarray(positions),
+            jnp.asarray(table))
+        tl, cache = api.paged_decode_step(
+            params, cache, torch.tensor(toks), torch.tensor(positions),
+            torch.tensor(table))
+        assert tl.dtype == torch.bfloat16
+        jl = np.asarray(jl.astype(jnp.float32))[..., :vocab]
+        tl = tl.float().numpy()[..., :vocab]
+        assert np.isfinite(tl).all()
+        err = float(np.max(np.abs(tl - jl)))
+        assert err <= GEMMA_BF16_TOL * float(np.max(np.abs(jl))), \
+            f"step {step}: max |port - reference| {err}"
+
+
+def test_gemma2_bf16_engine_serves_end_to_end(gemma_bf16):
+    api, params = gemma_bf16[2], gemma_bf16[3]
+    jobs = _jobs(api.cfg.vocab, 1)[:4]
+    eng = ServeEngine(api, params, n_slots=2, page_size=PAGE, max_len=BUF)
+    eng.warmup()
+    reqs = [eng.submit(p, m) for p, m in jobs]
+    eng.run()
+    for r, (_, m) in zip(reqs, jobs):
+        assert r.done and len(r.generated) == m
+        assert all(0 <= t < api.cfg.vocab for t in r.generated)
+    assert eng.alloc.free_pages == eng.n_pages - 1
