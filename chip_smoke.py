@@ -13,9 +13,13 @@ Phases (any failure raises and the script exits non-zero):
      slots up to 8,192 tokens: the global and local layers, a length-0
      and a length-1 slot, windows that start inside a split) and at phase
      3b's shape (40 pages, slots up to 576 tokens and either side of its
-     split boundaries, q scaled so the softcap binds), each element within
-     2^-7 |plain| + 1e-3 rms(plain), timed at the serve shape and at
-     gemma2's global and local decode layers; the gossip
+     split boundaries, q scaled so the softcap binds) and at granite-20b's
+     (MQA: H 48 on KV 1, hd 128, 8 slots up to 8,192 tokens, a length-0
+     and a length-1 slot), each element within 2^-7 |plain| + 1e-3
+     rms(plain), timed at the serve shape, at gemma2's global and local
+     decode layers and at granite's (bound: the bytes, or the arithmetic
+     of the kernel that runs: granite's bf16 pools take the tensor-core
+     kernel); the gossip
      update at the training shape (n=4, T=1,056,920, K=1, momentum), on a
      ring with weight decay and an inactive NaN row, in AD-PSGD publish
      mode, and as a mixing-only round (K=3); the reorthogonalization
@@ -41,6 +45,9 @@ Phases (any failure raises and the script exits non-zero):
      logits within 2e-2 (relative, Frobenius) of the port on the CPU, and
      the decode kernel, on the inputs both layers gave it at steps 256,
      512 and 768, within the bf16 tier of its plain version;
+  3c. granite-20b served as in 3b at full width, depth cut from 52 to 2
+     layers (1.67 B bf16 parameters; 48 query heads on one kv head), with
+     the same requests and checks;
   4. full-width training: transformer-100m trained with DPSGD by
      ``MultiLearnerTrainer`` (4 learners, random_pair, the
      ``examples/train_100m.py`` recipe: sgd(0.5, momentum 0.9) under a
@@ -71,13 +78,15 @@ Phases (any failure raises and the script exits non-zero):
      MQA (bf16, S = 1,024), non-causal float32 (S = 256, hd 32), rows with
      no live key (Sq 256 > Sk 128 + window 64), gemma2's heads and masks in
      float32 with q scaled so the softcap binds, ragged bf16 lengths (Sq =
-     Sk = 100; Sq 100, Sk 37) and bf16 at hd 64 — float32 within the
-     reference's tiers, bf16 within one bf16 ulp of each value — then, at
-     gemma2's prefill shapes (S = 8,192, global and local) and the
-     training shape, the same comparison, its time, the plain version's,
-     SDPA's where one call computes the same function and the bound (bf16
-     inputs: q.k once and P.V twice at the tensor cores' bf16 rate;
-     float32: both at the float32 rate);
+     Sk = 100; Sq 100, Sk 37) and bf16 at hd 64, ragged float32 lengths
+     at hd 32, 64 and 128 (the same two masks) and ragged bf16 at hd 32 —
+     float32 within the reference's tiers, bf16 within one bf16 ulp of
+     each value — then, at gemma2's prefill shapes (S = 8,192, global and
+     local) and the training shape, the same comparison, its time, the
+     plain version's, SDPA's where one call computes the same function
+     and the bound (the tensor-core kernel: q.k once and P.V twice at the
+     bf16 rate; the float32 kernel: the slower of q.k in float32 FMAs and
+     P.V three times at the TF32 rate, beside both at the float32 rate);
   2e. the single-learner gossip kernel through ``ops.dpsgd_fused_update``
      on transformer-100m's full parameter tree with 2 neighbour trees,
      bitwise equal to ``backend="ref"``, then its time;
@@ -93,10 +102,10 @@ Phases (any failure raises and the script exits non-zero):
      relative, step time, idle share and kernels per step beside phase
      4's.
 Each path runs with every kernel's launch count set to 0 just before it
-and read just after.  The last lines are the serve (100m, gemma2), train,
-probe, FC, Table-1, gemma2 and flash-training numbers, the card, the
-kernels record and ``{"ok": true, "device": {...}}``.  Without CUDA the script exits 1
-before printing any result.
+and read just after.  The last lines are the serve (100m, gemma2,
+granite), train, probe, FC, Table-1, gemma2 and flash-training numbers,
+the card, the kernels record and ``{"ok": true, "device": {...}}``.
+Without CUDA the script exits 1 before printing any result.
 """
 from __future__ import annotations
 
@@ -121,6 +130,7 @@ KERNEL_ATOL = 1e-5
 LOGIT_TOL = 1e-3
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12                  # float32 outside the tensor cores
+TF32_FLOPS = 495e12                # TF32 in the tensor cores, dense
 BF16_FLOPS = 989e12                # bf16 in the tensor cores, dense
 L2_BYTES = 50 * 2 ** 20
 # training (examples/train_100m.py's recipe at full width)
@@ -175,6 +185,22 @@ FLASH_CASES = [   # (name, B, H, KV, hd, Sq, dtype, mask, Sk or None, q scale)
      1.0),
     ("i_hd64_bf16", 1, 8, 4, 64, 512, _BF16,
      dict(causal=True, attn_softcap=50.0), None, 1.0),
+    # the float32 kernel's ragged tiles at each head width (Sq = Sk = 100
+    # with window and softcap; Sq 100 against Sk 37), and bf16 at hd 32
+    ("j_ragged_f32_hd32", 1, 4, 2, 32, 100, _F32,
+     dict(causal=True, window=32, attn_softcap=50.0), None, 1.0),
+    ("k_ragged_f32_hd64", 1, 4, 2, 64, 100, _F32,
+     dict(causal=True, window=32, attn_softcap=50.0), None, 1.0),
+    ("l_ragged_f32_hd128", 1, 4, 2, 128, 100, _F32,
+     dict(causal=True, window=32, attn_softcap=50.0), None, 1.0),
+    ("m_ragged_sk_f32_hd32", 1, 4, 2, 32, 100, _F32, dict(causal=False),
+     37, 1.0),
+    ("n_ragged_sk_f32_hd64", 1, 4, 2, 64, 100, _F32, dict(causal=False),
+     37, 1.0),
+    ("o_ragged_sk_f32_hd128", 1, 4, 2, 128, 100, _F32, dict(causal=False),
+     37, 1.0),
+    ("p_ragged_bf16_hd32", 1, 4, 2, 32, 100, _BF16,
+     dict(causal=True, window=32, attn_softcap=50.0), None, 1.0),
 ]
 # the cap's effect on case f's plain output, in units of its tolerance
 FLASH_CAP_EFFECT_MIN = 100.0
@@ -195,6 +221,11 @@ GEMMA_DECODE_LEN = 8192
 GEMMA_SERVE_MAX_LEN, GEMMA_SERVE_REQUESTS = 640, 16
 GEMMA_SERVE_PROMPT, GEMMA_SERVE_NEW = (32, 512), (16, 64)
 GEMMA_SERVE_KEEP_STEPS = (256, 512, 768)    # of 1,040 engine steps
+# granite-20b (arXiv:2405.04324: MQA, 48 query heads on one kv head, hd
+# 128): its decode shape in phase 2 (8 slots up to 8,192 tokens, bf16
+# pools) and phase 3c, served at full width with 2 of its 52 layers, as
+# phase 3b serves gemma2
+GRANITE_LAYERS = 2
 FLASH_TIMED = {   # (B, H, KV, hd, S, dtype, mask, library call or None)
     "gemma2_prefill_global": (1, 32, 16, 128, GEMMA_PREFILL_SEQ, _BF16,
                               dict(causal=True, attn_softcap=50.0), None),
@@ -316,10 +347,12 @@ def decode_error(got, want, live):
 
 def decode_timed(kernel, label, shape, lengths, dtype, kw, seed):
     """Kernel (events and device), plain and SDPA ms at one shape, on pool
-    copies that together exceed the L2, with the byte bound in the pool's
-    dtype."""
+    copies that together exceed the L2, with the bound: the larger of the
+    live rows' bytes in the pool's dtype and the arithmetic of the kernel
+    that runs (float32 FMAs, or q.k once and P.V twice on the tensor
+    cores in bf16)."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.decode_attention import split_plan
+    from repro_torch.kernels.decode_attention import kernel_for, launch_plan
 
     q, kp, vp, table, ln = paged_operands(lengths=lengths, dtype=dtype,
                                           seed=seed, **shape)
@@ -363,24 +396,30 @@ def decode_timed(kernel, label, shape, lengths, dtype, kw, seed):
     nbytes = (kp.element_size() * (2 * q.numel() + 2 * live * KV * hd)
               + 4 * (table.numel() + ln.numel()))
     flops = 4 * live * H * hd
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+    gtiles, splits, pages = launch_plan(
+        S, H, KV, hd, kp.element_size(), page, table.shape[1],
+        torch.cuda.get_device_properties(0).multi_processor_count)
+    route = kernel_for(dtype, H // KV, hd, gtiles)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = (1.5 * flops / BF16_FLOPS if route == "tc"
+             else flops / F32_FLOPS)
     bound_ms = 1e3 * max(t_bytes, t_ops)
-    splits, pages = split_plan(table.shape[1], page, S, KV,
-                               torch.cuda.get_device_properties(0)
-                               .multi_processor_count)
     del sets
     torch.cuda.empty_cache()
     return {
         "shape": {"S": S, "H": H, "KV": KV, "hd": hd, "page": page,
                   "max_pages": W // page, "dtype": str(dtype)[6:],
                   "lengths": lengths, **kw},
+        "kernel": f"paged_decode_{route}",
         "splits": splits, "split_tokens": pages * page,
+        "head_tiles": gtiles, "heads_per_block": -(-(H // KV) // gtiles),
         "max_abs_err": err, "max_err_over_tier": ratio,
         "ms": kernel_ms, "kernel_ms": kernel_ms, "device_ms": device_ms,
         "device_events": n_ev, "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "bound_bytes": nbytes,
+        "bound_bytes": nbytes, "bound_bytes_ms": 1e3 * t_bytes,
+        "bound_flops": flops, "bound_ops_ms": 1e3 * t_ops,
         "share_of_bound": bound_ms / device_ms if device_ms else None,
         "library_ms": library_ms,
     }
@@ -390,7 +429,7 @@ def decode_attention_phase():
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import \
         paged_decode_attention_fwd as kernel
-    from repro_torch.kernels.decode_attention import split_plan
+    from repro_torch.kernels.decode_attention import launch_plan, split_plan
 
     lengths = np.linspace(1, MAX_LEN, N_SLOTS).astype(int).tolist()
     g_shape = dict(S=N_SLOTS, H=32, KV=16, hd=128, page=PAGE,
@@ -415,6 +454,16 @@ def decode_attention_phase():
     s_lengths = np.linspace(1, s_max, N_SLOTS).astype(int).tolist()
     s_edge = [0, 1, s_tok - 1, s_tok, s_tok + 1, 2 * s_tok + 1, s_max,
               GEMMA_SERVE_MAX_LEN]
+    # granite-20b's decode shape: one kv head for 48 query heads, all in
+    # one block (the tensor-core kernel: bf16, 16 <= G <= 128); a
+    # length-0 and a length-1 slot and one token either side of its split
+    # boundaries
+    gr_shape = dict(g_shape, H=48, KV=1)
+    _, _, pages = launch_plan(N_SLOTS, 48, 1, 128, 2, PAGE,
+                              gr_shape["max_pages"], n_sm)
+    gr_tok = pages * PAGE
+    gr_edge = [0, 1, gr_tok - 1, gr_tok + 1, 5 * gr_tok, 2 * tok + 1,
+               GEMMA_DECODE_LEN - 3, GEMMA_DECODE_LEN]
     cases = [   # (name, shape, lengths, dtype, mask, q scale)
         ("serve", dict(S=N_SLOTS, H=12, KV=12, hd=64, page=PAGE,
                        max_pages=MAX_LEN // PAGE), lengths, _F32, {}, 1.0),
@@ -440,6 +489,8 @@ def decode_attention_phase():
          dict(attn_softcap=50.0), 8.0),
         ("gemma2_serve_edges_local_bf16", s_shape, s_edge, _BF16,
          dict(window=4096, attn_softcap=50.0), 8.0),
+        ("granite_mqa_bf16", gr_shape, g_lengths, _BF16, {}, 1.0),
+        ("granite_mqa_edges_bf16", gr_shape, gr_edge, _BF16, {}, 1.0),
     ]
     errs = {}
     for i, (name, shape, lens, dt, kw, q_scale) in enumerate(cases):
@@ -480,6 +531,8 @@ def decode_attention_phase():
         "gemma2_local_bf16": decode_timed(
             kernel, "gemma2 local", g_shape, g_lengths, _BF16,
             dict(window=4096, attn_softcap=50.0), SEED + 21),
+        "granite_mqa_bf16": decode_timed(
+            kernel, "granite", gr_shape, g_lengths, _BF16, {}, SEED + 22),
     }
     main = timed["serve_100m_f32"]
     return {
@@ -569,7 +622,7 @@ def serve_model(cfg, jobs, n_slots, page, max_len, compare, n_prof,
     from repro_torch.kernels import ops
     from repro_torch.kernels.decode_attention import \
         paged_decode_attention_fwd as kernel
-    from repro_torch.kernels.decode_attention import split_plan
+    from repro_torch.kernels.decode_attention import launch_plan
     from repro_torch.models import attention, build_model
     from repro_torch.serve import ServeEngine
 
@@ -637,10 +690,11 @@ def serve_model(cfg, jobs, n_slots, page, max_len, compare, n_prof,
                               "max_err_over_tier": ratio, **kw})
     kernel.launches = launches
     if decode_checks:
-        q, k_pool = cap.kept[0][0][:2]
-        _, pages = split_plan(cap.kept[0][0][3].shape[1], page, q.shape[0],
-                              k_pool.shape[2], torch.cuda
-                              .get_device_properties(0).multi_processor_count)
+        q, k_pool, _, table, _ = cap.kept[0][0]
+        _, _, pages = launch_plan(
+            q.shape[0], q.shape[1], k_pool.shape[2], q.shape[2],
+            q.element_size(), page, table.shape[1],
+            torch.cuda.get_device_properties(0).multi_processor_count)
         check(max(c["max_length"] for c in decode_checks) > 2 * pages * page,
               f"{cfg.name}: no kept call fills three splits of "
               f"{pages * page} tokens")
@@ -738,30 +792,34 @@ def serve_phase():
                        compare, n_prof=20)
 
 
-def gemma2_serve_phase():
-    """Phase 3b: gemma2-27b at full width, 2 layers, bf16 pools."""
+def cut_serve_phase(name, n_layers, why):
+    """Phases 3b and 3c: ``name`` at full width, depth cut to
+    ``n_layers``, served from pools in its own dtype (bf16) with phase
+    3b's requests; card logits held to the CPU's in the Frobenius norm,
+    and the decode kernel on the inputs of both layers at three steps
+    spread over the run."""
     from repro_torch.configs import get_config
 
     def compare(i, g, c):
         rel = _rel(g, c)
         check(rel <= GEMMA_BF16_RTOL,
-              f"gemma2 serve step {i}: card logits differ from the CPU's by "
-              f"{rel} relative (Frobenius)")
+              f"{name} serve step {i}: card logits differ from the CPU's "
+              f"by {rel} relative (Frobenius)")
         return rel
 
-    full = get_config("gemma2-27b")
-    cfg = dataclasses.replace(full, n_layers=GEMMA_LAYERS)
+    full = get_config(name)
+    cfg = dataclasses.replace(full, n_layers=n_layers)
     jobs = requests(cfg.vocab, GEMMA_SERVE_REQUESTS, GEMMA_SERVE_PROMPT,
                     GEMMA_SERVE_NEW)
-    # both layers' decode calls at three steps spread over the run
-    at = [GEMMA_LAYERS * step + layer for step in GEMMA_SERVE_KEEP_STEPS
-          for layer in range(GEMMA_LAYERS)]
+    at = [n_layers * step + layer for step in GEMMA_SERVE_KEEP_STEPS
+          for layer in range(n_layers)]
     record, launches = serve_model(cfg, jobs, N_SLOTS, PAGE,
                                    GEMMA_SERVE_MAX_LEN, compare, n_prof=10,
                                    capture_at=at)
-    record["reduced"] = {"n_layers": f"{full.n_layers} -> {GEMMA_LAYERS} "
-                                     "(one local/global period; every "
-                                     "width kept)"}
+    record["reduced"] = {"n_layers": f"{full.n_layers} -> {n_layers} "
+                                     f"({why}; every width kept)"}
+    record["heads"] = {"n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+                       "head_dim": cfg.head_dim_}
     record["window"] = cfg.window
     record["logit_tier"] = ("||card - cpu|| / ||cpu|| <= "
                             f"{GEMMA_BF16_RTOL}")
@@ -1521,6 +1579,7 @@ def flash_phase():
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import \
         flash_attention_fwd as kernel
+    from repro_torch.kernels.flash_attention import kernel_for
 
     errs = {}
     for i, (name, B, H, KV, hd, Sq, dt, kw, Sk, q_scale) in enumerate(
@@ -1538,7 +1597,7 @@ def flash_phase():
         errs[name] = {"max_abs_err": err, "max_err_over_tol": ratio}
         check(ratio <= 1.0, f"{name}: |kernel - plain| reaches {ratio} x "
               f"its tolerance (max abs {err})")
-        if kw.get("attn_softcap") and dt == _F32:
+        if kw.get("attn_softcap") and dt == _F32 and q_scale != 1.0:
             uncapped = ref.flash_attention_ref(
                 q, k, v, **{**kw, "attn_softcap": 0.0})
             effect = float((uncapped - want).abs().max()) / (
@@ -1578,15 +1637,23 @@ def flash_phase():
             lambda: [kernel(*sets[i % len(sets)], **kw) for i in range(10)])
         device_ms, n_ev = per_event_ms(times, "flash_attention")
         pairs = live_pairs(S, S, kw.get("causal", True), kw.get("window", 0))
-        # bf16 inputs (the tensor-core kernel): q.k one bf16 pass, P.V two
-        # (P = hi + lo in bf16), all at the tensor cores' bf16 rate; float32
-        # inputs (the FMA kernel): both halves at the float32 rate
+        # the tensor-core kernel (bf16 at hd 64 / 128): q.k one bf16 pass,
+        # P.V two (P = hi + lo in bf16), all at the tensor cores' bf16
+        # rate; the float32 kernel: q.k in float32 FMAs, P.V in three TF32
+        # passes (two for bf16 V), on the tensor cores at the same time as
+        # the FMAs, so the slower of the two; beside it, both halves at
+        # the float32 rate (the bound of the FMA kernel it replaced)
         half = 2 * hd * pairs * B * H
         flops = 2 * half
         nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
         t_bytes = nbytes / HBM_BYTES_PER_S
-        t_ops = (3 * half / BF16_FLOPS if dt == _BF16
-                 else 2 * half / F32_FLOPS)
+        route = kernel_for(dt, hd)
+        parts = ({"qk_pv_bf16_tensor_cores": 3 * half / BF16_FLOPS}
+                 if route == "tc" else
+                 {"qk_f32_fma": half / F32_FLOPS,
+                  "pv_tf32_tensor_cores":
+                      (2 if dt == _BF16 else 3) * half / TF32_FLOPS})
+        t_ops = max(parts.values())
         timed[label] = {
             "shape": {"B": B, "H": H, "KV": KV, "hd": hd, "S": S,
                       "dtype": str(dt).replace("torch.", ""), **kw},
@@ -1595,8 +1662,10 @@ def flash_phase():
             "bound_ms": 1e3 * max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "flops": flops, "live_pairs_per_head": pairs,
-            "kernel": "flash_attention_tc_kernel" if dt == _BF16 and hd in
-                      (64, 128) else "flash_attention_kernel",
+            "bound_parts_ms": {"bytes": 1e3 * t_bytes,
+                               **{k: 1e3 * t for k, t in parts.items()}},
+            "bound_f32_rate_ms": 1e3 * max(t_bytes, 2 * half / F32_FLOPS),
+            "kernel": f"flash_attention_{route}_kernel",
             "share_of_bound": 1e3 * max(t_bytes, t_ops) / kernel_ms,
             "library_ms": library_ms,
             "library": ("torch.nn.functional.scaled_dot_product_attention("
@@ -1937,21 +2006,26 @@ def main() -> int:
           f"{serve['kernel_launches']}")
     print(json.dumps({"serve": serve}), flush=True)
 
-    for k in kernels:
-        k.launches = 0
-    serve_gemma, _ = gemma2_serve_phase()
-    serve_gemma["kernel_launches"] = {k.__name__: k.launches
-                                      for k in kernels}
-    check(all(v == 0 for k, v in serve_gemma["kernel_launches"].items()
-              if k != "paged_decode_attention_fwd"),
-          f"the gemma2 serving path launched another path's kernel: "
-          f"{serve_gemma['kernel_launches']}")
-    print(json.dumps({"serve_gemma2": serve_gemma}), flush=True)
-    serve_launches = {
-        "transformer_100m_serving": serve["kernel_launches"][
-            "paged_decode_attention_fwd"],
-        "gemma2_27b_serving": serve_gemma["kernel_launches"][
-            "paged_decode_attention_fwd"]}
+    serve_launches = {"transformer_100m_serving": serve["kernel_launches"][
+        "paged_decode_attention_fwd"]}
+    for key, name, layers, why in (
+            ("serve_gemma2", "gemma2-27b", GEMMA_LAYERS,
+             "one local/global period"),
+            ("serve_granite", "granite-20b", GRANITE_LAYERS,
+             "phase 3b's depth")):
+        for k in kernels:
+            k.launches = 0
+        record, _ = cut_serve_phase(name, layers, why)
+        record["kernel_launches"] = {k.__name__: k.launches for k in kernels}
+        check(all(v == 0 for k, v in record["kernel_launches"].items()
+                  if k != "paged_decode_attention_fwd"),
+              f"the {name} serving path launched another path's kernel: "
+              f"{record['kernel_launches']}")
+        print(json.dumps({key: record}), flush=True)
+        serve_launches[name.replace("-", "_") + "_serving"] = record[
+            "kernel_launches"]["paged_decode_attention_fwd"]
+        del record
+        torch.cuda.empty_cache()
     decode_record["launches"] = sum(serve_launches.values())
     decode_record["launches_by_path"] = serve_launches
 

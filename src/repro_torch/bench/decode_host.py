@@ -168,7 +168,12 @@ def wrapper(pieces: bool):
     _, page, KV, _ = kp.shape
     max_pages = table.shape[1]
     n_sm = mod._sm_count(q.device.index)
-    splits, n_pages = mod.split_plan(max_pages, page, S, KV, n_sm)
+    if hasattr(mod, "launch_plan"):
+        gtiles, splits, n_pages = mod.launch_plan(
+            S, H, KV, hd, q.element_size(), page, max_pages, n_sm)
+    else:
+        gtiles = 1
+        splits, n_pages = mod.split_plan(max_pages, page, S, KV, n_sm)
     lib = mod.load_library(mod.SOURCE, mod.SIGNATURES)
     real = lib.paged_decode_attention
     seen = []
@@ -190,6 +195,9 @@ def wrapper(pieces: bool):
         "_check": lambda: mod._check(q, kp, vp, table, ln),
         "_sm_count": lambda: mod._sm_count(q.device.index),
         "split_plan": lambda: mod.split_plan(max_pages, page, S, KV, n_sm),
+        **({"launch_plan": lambda: mod.launch_plan(
+            S, H, KV, hd, q.element_size(), page, max_pages, n_sm)}
+           if hasattr(mod, "launch_plan") else {}),
         "load_library": lambda: mod.load_library(mod.SOURCE,
                                                  mod.SIGNATURES),
         "current_stream": lambda: torch.cuda.current_stream(
@@ -206,7 +214,7 @@ def wrapper(pieces: bool):
     if hasattr(mod, "_scratch_for"):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         steps["_scratch_for (kept scratch)"] = lambda: mod._scratch_for(
-            q.device, stream, part_n, S * KV)
+            q.device, stream, part_n, S * KV * gtiles)
     out["pieces_host_us"] = {k: host_us(f) for k, f in steps.items()}
     out["launch_arguments"] = len(launch_args)
     return out

@@ -19,8 +19,8 @@
 //
 // Two kernels, chosen by the wrapper from (dtype, hd) alone:
 // flash_attention_tc_kernel for bf16 q, k, v at hd 64 or 128 (every
-// dense config of the registry), flash_attention_kernel (float32 FMAs)
-// for float32 inputs and for hd 32.
+// dense config of the registry), flash_attention_mma_kernel (FMA scores,
+// P.V on the tensor cores in 3xTF32) for float32 inputs and for hd 32.
 //
 // Design of the tensor-core kernel (flash_attention_tc_kernel).  The TPU
 // kernel ran a sequential (B, KV, G, nq, nk) grid and carried m, l and
@@ -58,27 +58,51 @@
 // and k tiles: rows past Sq or Sk lie outside the tensor maps and load
 // as zeros; q rows past Sq are not written, keys past Sk score -inf, so
 // they weigh 0 even in a row that no key reaches.  Fully-masked tiles are
-// skipped as in the FFMA kernel below.  161 KB of shared memory at hd 128
+// skipped as in the float32 kernel below.  161 KB of shared memory at hd 128
 // (one block of 384 threads per SM), 81 KB at hd 64.
 //
-// Design of the FFMA kernel (flash_attention_kernel).  One block owns
-// one (q tile of 64 rows, head, batch) and loops over the k tiles itself:
-// Q, K, V and the 64 x 64 score tile are staged in dynamic shared memory
-// as float32 (above 48 KB at hd = 128, hence the opt-in), m and l live in
-// registers of the four threads that share a row in the softmax stage,
-// and each thread keeps a 4-row slice of acc in registers.  The TPU
-// kernel paid one predicated vector op for a fully-masked tile; this one
-// skips it, which gives the same result for every row that has a live key
-// (a skipped tile would have had p = 0 there, or p = 1 wiped later by corr
-// = 0).  A row with no live key at all (only with a window and Sq >= Sk +
-// window) would come out 0 where the TPU kernel and the plain version
-// give the uniform average of V: a block that holds such a row skips
-// nothing.  Products are float32 FMAs out of shared memory; the loads are
-// 16 bytes wide (8 for bf16) on coalesced rows, and the shared layouts
-// are padded to keep every access conflict-free.  Sq and Sk must be
-// multiples of 64.  Both kernels read q, k, v and write out through
-// strides (head dim contiguous), so the model's (B, S, H, hd) layout
-// needs no transpose.
+// Design of the float32 kernel (flash_attention_mma_kernel).  One block
+// owns one (head, batch, 64-row q tile), the heaviest causal tiles of the
+// whole grid launched first, and loops over the 64-key tiles that the
+// masks leave live for some row.  Its warps hold 16 MT rows each (MT m16
+// tiles) in KG key groups: at hd 32 and 64, MT = 2 and KG = 4 over
+// 32-key tiles (eight warps: two row halves, each in four groups that
+// take every fourth tile, whose softmax states merge at the end); at hd
+// 128, MT = 1 and KG = 1 over 64-key tiles (four warps of 16 rows), since
+// O alone takes 64 registers a thread there.  K and V come through a
+// two-stage ring of 16-byte cp.async copies, KG tiles a round (rows past
+// Sk zero-filled), so the next round loads while this one computes; Q is
+// staged once.  Per tile, each thread:
+//   - scores its 2 MT rows against a quarter of the keys in float32
+//     FMAs, d in order,
+//     the order in which the plain version's float32 product sums: three
+//     TF32 terms on the tensor cores hold each product to 2^-22 but sum
+//     it in another order, which at scores of tens (gemma2's heads with
+//     q x 8, where the softcap binds) leaves 2.5 x the 1e-5 tier between
+//     the two (tests/test_torch_flash_attention.py emulates both);
+//   - runs the scale, the softcap (tanhf), the masks (only on tiles
+//     partly masked for its warp) and the online softmax in registers,
+//     rows reduced across the quad: no score tile in shared memory, no
+//     barrier between S and P V;
+//   - adds P V on the tensor cores (mma.sync m16n8k8, TF32), P and V each
+//     split as hi + lo in TF32 and summed as lo.hi + hi.lo + hi.hi: 2^-22
+//     of each product, within the tiers (bf16 V at hd 32 is exact in TF32
+//     and drops its lo term).  The tensor cores round their sums toward
+//     zero, so a tile's P V sums in fresh accumulators, added to O in
+//     float32: one accumulator over a whole row of 4,608 keys drifted to
+//     5.8 x the tier.  The scores' accumulator layout (keys 2 t,
+//     2 t + 1 of each 8-key step) is P V's A fragment when the step's k
+//     index t stands for key 2 t and t + 4 for key 2 t + 1: V's fragment
+//     reads those rows, and P needs no shuffle.
+// A fully-masked tile is skipped, which gives the same result for every
+// row that has a live key (a skipped tile would have had p = 0 there, or
+// p = 1 wiped later by corr = 0).  A row with no live key at all (only
+// with a window and Sq >= Sk + window) gives the uniform average of V, as
+// the TPU kernel and the plain version do: a block that holds such a row
+// skips nothing.  The ragged last tiles: keys past Sk score -inf, q rows
+// past Sq are not written, so every Sq, Sk >= 1 is taken.  Both kernels
+// read q, k, v and write out through strides (head dim contiguous), so
+// the model's (B, S, H, hd) layout needs no transpose.
 //
 // Bound.  Arithmetic: 4 hd flops per live (q, k) pair and head, half in
 // q.k and half in P.V.  The tensor-core kernel runs q.k once and P.V
@@ -87,8 +111,12 @@
 // 0.834 ms, and 412 GFLOP on a local one, 0.625 ms; the bytes (q, k, v
 // and out once) are ~0.1 ms.  The expf and tanhf over the ~1.07 G live
 // (q, k, head) pairs of a global layer cost on the order of 1 ms of their
-// own, so the softcapped layers do not reach the matmul bound.  The FFMA
-// kernel's float32 inputs run at 67 TFLOP/s.
+// own, so the softcapped layers do not reach the matmul bound.  The
+// float32 kernel runs q.k at the float32 FMA rate (67 TFLOP/s) and P.V
+// three times at the TF32 rate (495): at transformer-100m's training shape
+// (B 2, H 12, S 512, hd 64, causal: 403 MFLOP a half) that is 6.0 us of
+// FMAs and 2.4 us of tensor cores, which can overlap, against 3.8 us of
+// bytes; the old float32-rate bound for both halves is 12.0 us.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -96,11 +124,10 @@
 
 namespace {
 
-constexpr int kBQ = 64;        // q rows per block
-constexpr int kBK = 64;        // k rows per tile
-constexpr int kThreads = 256;  // 16 x 16
 constexpr float kNegInf = -1e30f;
+constexpr float kMinusInf = -__builtin_huge_valf();
 
+// four consecutive elements of T as float32 (exact for bf16)
 template <typename T>
 struct Load4;
 
@@ -123,262 +150,435 @@ struct Load4<__nv_bfloat16> {
   }
 };
 
-__device__ __forceinline__ void store_out(float* p, const float* v, int n) {
-  for (int e = 0; e < n; ++e) p[e] = v[e];
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
 }
 
-__device__ __forceinline__ void store_out(__nv_bfloat16* p, const float* v,
-                                          int n) {
-  for (int e = 0; e < n; ++e) p[e] = __float2bfloat16_rn(v[e]);
+// ---------------------------------------------------------------------------
+// float32 q, k, v (hd 32, 64, 128) and bf16 at hd 32: FMA scores, P.V on
+// the tensor cores in three TF32 terms
+// ---------------------------------------------------------------------------
+
+namespace mma {
+
+constexpr int kRows = 64;         // q rows per block
+constexpr int kStages = 2;        // ring depth, in rounds of KG tiles:
+                                  // round r + 1 loads under round r
+
+// A block's warps: kRowWarps of 16 MT rows each (MT m16 tiles), times KG
+// key groups.  Key group k takes tiles k, k + KG, ... of the block's live
+// range, so KG tiles are in flight per round, and the groups' softmax
+// states merge at the end.
+template <int MT, int KG>
+struct Warps {
+  static constexpr int kRowWarps = kRows / (16 * MT);
+  static constexpr int kThreads = 32 * kRowWarps * KG;
+};
+
+// Q, then kStages x KG K tiles of KK keys, then as many V tiles, each
+// row padded by 16 bytes: the 16-byte cp.async rows stay aligned and the
+// fragment loads below fall on distinct banks
+template <typename T, int HD, int KG, int KK>
+struct Layout {
+  static constexpr int kLd = HD + 16 / (int)sizeof(T);   // elements a row
+  static constexpr int kQ = kRows * kLd;
+  static constexpr int kT = KK * kLd;
+  static constexpr int kBytes =
+      (int)sizeof(T) * (kQ + 2 * kStages * KG * kT);
+};
+
+// 16-byte copy global -> shared; src_bytes 0 fills the 16 bytes with zeros
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// rows x HD tile from global (row stride `rs` elements) into shared memory
-// as float32 (row stride `ld` floats)
-template <typename T, int HD>
-__device__ __forceinline__ void load_tile(float* dst, int ld, const T* src,
-                                          long long rs, int rows) {
-  constexpr int kChunks = HD / 4;
-  for (int idx = threadIdx.x; idx < rows * kChunks; idx += kThreads) {
-    const int r = idx / kChunks, c = (idx % kChunks) * 4;
-    *reinterpret_cast<float4*>(dst + r * ld + c) =
-        Load4<T>::load(src + r * rs + c);
+// rows [row0, row0 + R) of a (rows, HD) view with row stride `rs`
+// elements into a padded shared tile; rows at or past `n_rows` are zeros
+template <typename T, int HD, int R, int kThreads>
+__device__ __forceinline__ void stage_rows(T* dst, const T* src,
+                                           long long rs, int row0,
+                                           int n_rows) {
+  constexpr int kE = 16 / (int)sizeof(T);   // elements a 16-byte chunk
+  constexpr int kC = HD / kE;               // chunks a row
+  constexpr int kLd = HD + kE;
+  for (int idx = threadIdx.x; idx < R * kC; idx += kThreads) {
+    const int r = idx / kC, c = idx % kC;
+    const bool in = row0 + r < n_rows;
+    const T* p = in ? src + (long long)(row0 + r) * rs + c * kE : src;
+    cp_async16(dst + r * kLd + c * kE, p, in ? 16 : 0);
   }
 }
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out,
-                       int H, int G, int Sq, int Sk,
-                       long long qb, long long qh, long long qs,
-                       long long kb, long long kh, long long ks,
-                       long long vb, long long vh, long long vs,
-                       long long ob, long long oh, long long os,
-                       int causal, int window, float softcap, float scale) {
-  constexpr int LDQ = HD + 4;            // padded: conflict-free float4 rows
-  constexpr int LDP = kBK + 4;
-  constexpr int VEC = HD >= 64 ? 4 : 2;  // acc columns per contiguous group
-  constexpr int NJ = HD / (16 * VEC);    // groups per thread
-  constexpr int CPT = VEC * NJ;          // acc columns per thread (HD / 16)
+// x = hi + lo, both TF32 (10 mantissa bits): hi rounds x to nearest
+// (ties away), lo rounds the exact remainder x - hi the same way, so
+// hi + lo holds x to 2^-22 of its value
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
 
-  extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);
-  float* Ks = Qs + kBQ * LDQ;
-  float* Vs = Ks + kBK * LDQ;
-  float* Ps = Vs + kBK * HD;
-  float* corr_s = Ps + kBQ * LDP;
-  float* l_s = corr_s + kBQ;
+// D (16 x 8, f32) += A (16 x 8, tf32, row) * B (8 x 8, tf32, col)
+__device__ __forceinline__ void mma_tf32(float (&d)[4],
+                                         const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// One block per (head, batch, 64-row q tile), the heaviest q tiles of a
+// causal mask first over the whole grid.  Thread (row warp w, lane = 4 g
+// + t) holds rows 16 (MT w + i) + g and that + 8 of S and O for each of
+// its MT m16 tiles i.  Its scores are keys 8 j + 2 t + {0, 1} (j < KK /
+// 8) of each KK-key tile: the m16n8 accumulator layout, which P.V takes as its
+// A fragment unshuffled when the k index of each 8-key step runs over
+// keys 2 t (k = t) and 2 t + 1 (k = t + 4), so V's B fragment reads rows
+// 8 j + 2 t and 8 j + 2 t + 1.  Each K element loaded scores 2 MT rows;
+// each V fragment loaded and split serves MT m16 tiles.
+template <typename T, int HD, int MT, int KG, int KK>
+__global__ void __launch_bounds__(Warps<MT, KG>::kThreads, 1)
+flash_attention_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                           const T* __restrict__ v, T* __restrict__ out,
+                           int G, int Sq, int Sk, long long qb, long long qh,
+                           long long qs, long long kb, long long kh,
+                           long long ks, long long vb, long long vh,
+                           long long vs, long long ob, long long oh,
+                           long long os, int causal, int window,
+                           float softcap, float scale) {
+  using L = Layout<T, HD, KG, KK>;
+  using W = Warps<MT, KG>;
+  constexpr int kLd = L::kLd;
+  constexpr int NT = HD / 8;                  // O's 8-column tiles
+  constexpr int NR = 2 * MT;                  // rows a thread holds
+  constexpr int NK = KK / 4;                  // keys a thread holds a tile
+  // bf16 values are exact in TF32: V needs no lo term
+  constexpr bool kExactV = sizeof(T) == 2;
+  extern __shared__ float4 smem_mma[];
+  T* q_s = reinterpret_cast<T*>(smem_mma);
+  T* k_s = q_s + L::kQ;
+  T* v_s = k_s + kStages * KG * L::kT;
 
   const int tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;
-  const int q0 = blockIdx.x * kBQ;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / G;
-  const T* qp = q + b * qb + h * qh + (long long)q0 * qs;
-  const T* kp = k + b * kb + kvh * kh;
-  const T* vp = v + b * vb + kvh * vh;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int rw = warp % W::kRowWarps, kg = warp / W::kRowWarps;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kRows;
+  const T* qp = q + b * qb + h * qh;
+  const T* kp = k + b * kb + (h / G) * kh;
+  const T* vp = v + b * vb + (h / G) * vh;
 
-  load_tile<T, HD>(Qs, LDQ, qp, qs, kBQ);
-
-  // softmax stage: four threads per row, columns part + 4 m
-  const int srow = tid >> 2, part = tid & 3;
-  float m_run = kNegInf, l_run = 0.f;
-
-  float acc[4][CPT];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) acc[i][c] = 0.f;
-
-  const int qmax = q0 + kBQ - 1;
-  // a row with no live key in the whole sequence needs every tile
+  // the tiles with a live key for some row of the block: a row with no
+  // live key at all (a window and Sq >= Sk + window) needs every tile
+  const int nk = (Sk + KK - 1) / KK;
+  const int qmax = min(q0 + kRows - 1, Sq - 1);
   const bool dead_rows = window > 0 && qmax - (Sk - 1) >= window;
-  const int nk = Sk / kBK;
-  for (int it = 0; it < nk; ++it) {
-    const int k0 = it * kBK;
-    if (!dead_rows && ((causal && k0 > qmax) ||
-                       (window > 0 && q0 - (k0 + kBK - 1) >= window))) {
-      continue;                           // no live pair in this tile
+  int t_lo = 0, t_hi = nk;
+  if (!dead_rows) {
+    if (causal) t_hi = min(nk, qmax / KK + 1);
+    if (window > 0 && q0 - window - (KK - 1) >= 0) {
+      t_lo = (q0 - window - (KK - 1)) / KK + 1;
     }
-    __syncthreads();                      // the last tile's readers are done
-    load_tile<T, HD>(Ks, LDQ, kp + (long long)k0 * ks, ks, kBK);
-    load_tile<T, HD>(Vs, HD, vp + (long long)k0 * vs, vs, kBK);
-    __syncthreads();
+  }
+  const int n_rounds = (t_hi - t_lo + KG - 1) / KG;
+  // round r brings tiles t_lo + r KG + [0, KG) into ring slot r % kStages
+  auto stage_round = [&](int r) {
+#pragma unroll
+    for (int k2 = 0; k2 < KG; ++k2) {
+      const int t = t_lo + r * KG + k2;
+      const int slot = (r % kStages) * KG + k2;
+      if (t < t_hi) {
+        stage_rows<T, HD, KK, W::kThreads>(k_s + slot * L::kT, kp, ks,
+                                           t * KK, Sk);
+        stage_rows<T, HD, KK, W::kThreads>(v_s + slot * L::kT, vp, vs,
+                                           t * KK, Sk);
+      }
+    }
+  };
+  stage_rows<T, HD, kRows, W::kThreads>(q_s, qp, qs, q0, Sq);
+  if (n_rounds > 0) stage_round(0);
+  cp_async_commit();
 
-    // scores: rows ty*4 + i, columns tx + 16 j
-    float s[4][4];
+  const int wr0 = 16 * MT * rw;               // the warp's first row
+  const int wq0 = q0 + wr0;
+  float o[MT][NT][4];
+  float m[NR], l[NR];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < MT; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < HD; d += 4) {
-      float4 qv[4], kv[4];
+    for (int n = 0; n < NT; ++n) o[i][n][0] = o[i][n][1] = o[i][n][2] =
+        o[i][n][3] = 0.f;
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qv[i] = *reinterpret_cast<const float4*>(Qs + (ty * 4 + i) * LDQ + d);
+  for (int r = 0; r < NR; ++r) {
+    m[r] = kNegInf;
+    l[r] = 0.f;
+  }
+
+  for (int r = 0; r < n_rounds; ++r) {
+    if (r + 1 < n_rounds) stage_round(r + 1);  // loads under this round
+    cp_async_commit();
+    cp_async_wait<1>();                       // this thread's round-r copies
+    __syncthreads();                          // everyone's
+    const int t = t_lo + r * KG + kg;
+    if (t < t_hi) {
+      const int slot = (r % kStages) * KG + kg;
+      const T* kt = k_s + slot * L::kT;
+      const T* vt = v_s + slot * L::kT;
+      const int k0 = t * KK;
+
+      // S = Q K^T in float32 FMAs, d in order as the plain version sums:
+      // s[2 i + e] holds row 16 (MT w + i) + g + 8 e, entry 2 j + c key
+      // 8 j + 2 t + c
+      float s[NR][NK];
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        kv[j] = *reinterpret_cast<const float4*>(Ks + (tx + 16 * j) * LDQ + d);
+      for (int r2 = 0; r2 < NR; ++r2)
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int n = 0; n < NK; ++n) s[r2][n] = 0.f;
+#pragma unroll 1
+      for (int d = 0; d < HD; d += 4) {
+        float4 a[NR];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qv[i].x, kv[j].x, s[i][j]);
-          s[i][j] = fmaf(qv[i].y, kv[j].y, s[i][j]);
-          s[i][j] = fmaf(qv[i].z, kv[j].z, s[i][j]);
-          s[i][j] = fmaf(qv[i].w, kv[j].w, s[i][j]);
+        for (int r2 = 0; r2 < NR; ++r2) {
+          a[r2] = Load4<T>::load(q_s + (wr0 + 8 * r2 + g) * kLd + d);
         }
-    }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + ty * 4 + i;
+        for (int n = 0; n < NK; ++n) {
+          const float4 kv = Load4<T>::load(
+              kt + (8 * (n >> 1) + 2 * t4 + (n & 1)) * kLd + d);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kpos = k0 + tx + 16 * j;
-        float x = s[i][j] * scale;
-        if (softcap != 0.f) x = softcap * tanhf(x / softcap);
-        const bool live = (!causal || qpos >= kpos) &&
-                          (window <= 0 || qpos - kpos < window);
-        Ps[(ty * 4 + i) * LDP + tx + 16 * j] = live ? x : kNegInf;
+          for (int r2 = 0; r2 < NR; ++r2) {
+            s[r2][n] = fmaf(a[r2].x, kv.x, s[r2][n]);
+            s[r2][n] = fmaf(a[r2].y, kv.y, s[r2][n]);
+            s[r2][n] = fmaf(a[r2].z, kv.z, s[r2][n]);
+            s[r2][n] = fmaf(a[r2].w, kv.w, s[r2][n]);
+          }
+        }
       }
-    }
-    __syncthreads();
 
-    // online softmax, one row per four threads
-    {
-      float* prow = Ps + srow * LDP;
-      float mt = kNegInf;
+      // scale, softcap, masks (only where the tile is partly masked for
+      // this warp: keys past Sk score -inf, masked ones NEG_INF) and the
+      // online softmax on the fragment, rows reduced across the quad
+      const bool partial = k0 + KK > Sk ||
+                           (causal && wq0 < k0 + KK - 1) ||
+                           (window > 0 && wq0 + 16 * MT - 1 - k0 >= window);
 #pragma unroll
-      for (int m = 0; m < kBK / 4; ++m) mt = fmaxf(mt, prow[part + 4 * m]);
-      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
-      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
-      const float m_new = fmaxf(m_run, mt);
-      float rs = 0.f;
+      for (int r2 = 0; r2 < NR; ++r2) {
+        const int qpos = wq0 + 8 * r2 + g;
+        float mx = kNegInf;
 #pragma unroll
-      for (int m = 0; m < kBK / 4; ++m) {
-        const float p = expf(prow[part + 4 * m] - m_new);
-        prow[part + 4 * m] = p;
-        rs += p;
+        for (int n = 0; n < NK; ++n) {
+          float x = s[r2][n] * scale;
+          if (softcap != 0.f) x = softcap * tanhf(x / softcap);
+          if (partial) {
+            const int kpos = k0 + 8 * (n >> 1) + 2 * t4 + (n & 1);
+            const bool live = (!causal || qpos >= kpos) &&
+                              (window <= 0 || qpos - kpos < window);
+            x = kpos >= Sk ? kMinusInf : (live ? x : kNegInf);
+          }
+          s[r2][n] = x;
+          mx = fmaxf(mx, x);
+        }
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float mn = fmaxf(m[r2], mx);
+        const float c = expf(m[r2] - mn);
+        m[r2] = mn;
+        float sum = 0.f;
+#pragma unroll
+        for (int n = 0; n < NK; ++n) {
+          s[r2][n] = expf(s[r2][n] - mn);
+          sum += s[r2][n];
+        }
+        l[r2] = l[r2] * c + sum;   // this thread's columns; the quad's
+                                   // are added at the end
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          o[r2 >> 1][n][2 * (r2 & 1)] *= c;
+          o[r2 >> 1][n][2 * (r2 & 1) + 1] *= c;
+        }
       }
-      rs += __shfl_xor_sync(0xffffffffu, rs, 1);
-      rs += __shfl_xor_sync(0xffffffffu, rs, 2);
-      const float corr = expf(m_run - m_new);
-      l_run = l_run * corr + rs;
-      m_run = m_new;
-      if (part == 0) corr_s[srow] = corr;
-    }
-    __syncthreads();
 
-    // acc = acc * corr + P V: rows ty*4 + i, columns jj*16*VEC + tx*VEC + e
-    float pv[4][CPT];
+      // O += P V on the tensor cores, P and V each as hi + lo in TF32:
+      // lo.hi and hi.lo first, then hi.hi (lo.lo, 2^-22 of the product,
+      // dropped).  The tensor cores round each sum toward zero, so one
+      // accumulator fed every tile of a long row would drift by an ulp
+      // of O a product (S 4,608: ~1,700 of them, 5.8 x the float32 tier):
+      // each 8-column slice of the tile sums in a fresh accumulator of
+      // KK / 8 x 3 products, added to O in float32
+      uint32_t ph[KK / 8][MT][4], pl[KK / 8][MT][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int j = 0; j < KK / 8; ++j) {
 #pragma unroll
-      for (int c = 0; c < CPT; ++c) pv[i][c] = 0.f;
-#pragma unroll 2
-    for (int j = 0; j < kBK; j += 4) {
-      float4 pr[4];
+        for (int i = 0; i < MT; ++i) {
+          split_tf32(s[2 * i][2 * j], ph[j][i][0], pl[j][i][0]);
+          split_tf32(s[2 * i + 1][2 * j], ph[j][i][1], pl[j][i][1]);
+          split_tf32(s[2 * i][2 * j + 1], ph[j][i][2], pl[j][i][2]);
+          split_tf32(s[2 * i + 1][2 * j + 1], ph[j][i][3], pl[j][i][3]);
+        }
+      }
+      const T* v0 = vt + 2 * t4 * kLd + g;
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        pr[i] = *reinterpret_cast<const float4*>(Ps + (ty * 4 + i) * LDP + j);
+      for (int n = 0; n < NT; ++n) {
+        float pv[MT][4];
 #pragma unroll
-      for (int jj4 = 0; jj4 < 4; ++jj4) {
-        const float* vrow = Vs + (j + jj4) * HD;
-        float vv[CPT];
+        for (int i = 0; i < MT; ++i) pv[i][0] = pv[i][1] = pv[i][2] =
+            pv[i][3] = 0.f;
 #pragma unroll
-        for (int g = 0; g < NJ; ++g) {
-          const float* src = vrow + g * 16 * VEC + tx * VEC;
-          if constexpr (VEC == 4) {
-            const float4 t = *reinterpret_cast<const float4*>(src);
-            vv[g * VEC + 0] = t.x;
-            vv[g * VEC + 1] = t.y;
-            vv[g * VEC + 2] = t.z;
-            vv[g * VEC + 3] = t.w;
+        for (int j = 0; j < KK / 8; ++j) {
+          const float x0 = to_float(v0[8 * j * kLd + 8 * n]);
+          const float x1 = to_float(v0[(8 * j + 1) * kLd + 8 * n]);
+          if constexpr (kExactV) {
+            const uint32_t b0 = __float_as_uint(x0);
+            const uint32_t b1 = __float_as_uint(x1);
+#pragma unroll
+            for (int i = 0; i < MT; ++i) {
+              mma_tf32(pv[i], pl[j][i], b0, b1);
+              mma_tf32(pv[i], ph[j][i], b0, b1);
+            }
           } else {
-            const float2 t = *reinterpret_cast<const float2*>(src);
-            vv[g * VEC + 0] = t.x;
-            vv[g * VEC + 1] = t.y;
+            uint32_t bh0, bl0, bh1, bl1;
+            split_tf32(x0, bh0, bl0);
+            split_tf32(x1, bh1, bl1);
+#pragma unroll
+            for (int i = 0; i < MT; ++i) {
+              mma_tf32(pv[i], pl[j][i], bh0, bh1);
+              mma_tf32(pv[i], ph[j][i], bl0, bl1);
+              mma_tf32(pv[i], ph[j][i], bh0, bh1);
+            }
           }
         }
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float p = jj4 == 0 ? pr[i].x : jj4 == 1 ? pr[i].y
-                        : jj4 == 2 ? pr[i].z : pr[i].w;
+        for (int i = 0; i < MT; ++i)
 #pragma unroll
-          for (int c = 0; c < CPT; ++c) pv[i][c] = fmaf(p, vv[c], pv[i][c]);
+          for (int e = 0; e < 4; ++e) o[i][n][e] += pv[i][e];
+      }
+    }
+    __syncthreads();               // the round's slots free for round r + 2
+  }
+  cp_async_wait<0>();              // no copy outlives the block
+#pragma unroll
+  for (int r2 = 0; r2 < NR; ++r2) {
+    l[r2] += __shfl_xor_sync(0xffffffffu, l[r2], 1);
+    l[r2] += __shfl_xor_sync(0xffffffffu, l[r2], 2);
+  }
+
+  if constexpr (KG > 1) {
+    // key groups 1.. hand (m, l, O) to group 0 through shared memory (the
+    // ring, free now), in order: m = max, each side rescaled by e^(m_k - m)
+    constexpr int kState = 2 * NR + MT * NT * 4;
+    float* x_s = reinterpret_cast<float*>(smem_mma) +
+                 (size_t)(rw * 32 + lane) * kState;
+    __syncthreads();               // every copy landed, every read done
+    for (int k2 = 1; k2 < KG; ++k2) {
+      if (kg == k2) {
+#pragma unroll
+        for (int r2 = 0; r2 < NR; ++r2) {
+          x_s[2 * r2] = m[r2];
+          x_s[2 * r2 + 1] = l[r2];
+        }
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+#pragma unroll
+          for (int n = 0; n < NT; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              x_s[2 * NR + (i * NT + n) * 4 + e] = o[i][n][e];
+      }
+      __syncthreads();
+      if (kg == 0) {
+#pragma unroll
+        for (int r2 = 0; r2 < NR; ++r2) {
+          const float mb = x_s[2 * r2];
+          const float mn = fmaxf(m[r2], mb);
+          const float ca = expf(m[r2] - mn), cb = expf(mb - mn);
+          m[r2] = mn;
+          l[r2] = l[r2] * ca + x_s[2 * r2 + 1] * cb;
+#pragma unroll
+          for (int n = 0; n < NT; ++n)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int idx = 2 * (r2 & 1) + e;
+              o[r2 >> 1][n][idx] =
+                  o[r2 >> 1][n][idx] * ca +
+                  x_s[2 * NR + ((r2 >> 1) * NT + n) * 4 + idx] * cb;
+            }
+        }
+      }
+      __syncthreads();
+    }
+    if (kg != 0) return;
+  }
+
+  // out = O / max(l, 1e-30) (one reciprocal a row), rows past Sq not
+  // written
+  T* op = out + b * ob + h * oh + 2 * t4;
+#pragma unroll
+  for (int r2 = 0; r2 < NR; ++r2) {
+    const int qpos = wq0 + 8 * r2 + g;
+    if (qpos < Sq) {
+      T* orow = op + (long long)qpos * os;
+      const float inv = 1.f / fmaxf(l[r2], 1e-30f);
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const float x = o[r2 >> 1][n][2 * (r2 & 1)] * inv;
+        const float y = o[r2 >> 1][n][2 * (r2 & 1) + 1] * inv;
+        if constexpr (sizeof(T) == 4) {
+          *reinterpret_cast<float2*>(orow + 8 * n) = make_float2(x, y);
+        } else {
+          *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n) =
+              __floats2bfloat162_rn(x, y);
         }
       }
     }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float corr = corr_s[ty * 4 + i];
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) acc[i][c] = acc[i][c] * corr + pv[i][c];
-    }
-  }
-
-  if (part == 0) l_s[srow] = l_run;
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty * 4 + i;
-    const float l = fmaxf(l_s[r], 1e-30f);
-    T* orow = out + b * ob + h * oh + (long long)(q0 + r) * os;
-#pragma unroll
-    for (int g = 0; g < NJ; ++g) {
-      float o[VEC];
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) o[e] = acc[i][g * VEC + e] / l;
-      store_out(orow + g * 16 * VEC + tx * VEC, o, VEC);
-    }
   }
 }
 
-template <int HD>
-constexpr size_t smem_bytes() {
-  return sizeof(float) *
-         (size_t)(2 * kBQ * (HD + 4) + kBK * HD + kBQ * (kBK + 4) + 2 * kBQ);
-}
-
+// hd 32 and 64: two m16 tiles a warp (each K element loaded scores four
+// rows), four key groups of 32-key tiles (2 x 4 warps, two a scheduler;
+// 157 KB of shared memory at hd 64); hd 128: one m16 tile, one key group
+// of 64-key tiles (4 warps), since O alone is 64 registers a thread there
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
            int H, int KV, int Sq, int Sk, const long long* st, int causal,
            int window, float softcap, float scale, cudaStream_t stream) {
-  constexpr size_t bytes = smem_bytes<HD>();
+  constexpr int MT = HD == 128 ? 1 : 2;
+  constexpr int KG = HD == 128 ? 1 : 4;
+  constexpr int KK = HD == 128 ? 64 : 32;
+  constexpr int bytes = Layout<T, HD, KG, KK>::kBytes;
+  auto kern = flash_attention_mma_kernel<T, HD, MT, KG, KK>;
   // above 48 KB only after the opt-in (set on the current device: cheap,
   // so every launch asks rather than caching per process)
   const cudaError_t e = cudaFuncSetAttribute(
-      flash_attention_kernel<T, HD>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid(Sq / kBQ, H, B);
-  flash_attention_kernel<T, HD><<<grid, kThreads, bytes, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)out, H, H / KV, Sq, Sk,
-      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9],
-      st[10], st[11], causal, window, softcap, scale);
+  const dim3 grid(H, B, (Sq + kRows - 1) / kRows);
+  kern<<<grid, Warps<MT, KG>::kThreads, bytes, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (T*)out, H / KV, Sq, Sk, st[0],
+      st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10],
+      st[11], causal, window, softcap, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch(int hd, const void* q, const void* k, const void* v, void* out,
-             int B, int H, int KV, int Sq, int Sk, const long long* st,
-             int causal, int window, float softcap, float scale,
-             cudaStream_t s) {
-  switch (hd) {
-    case 32:
-      return launch<T, 32>(q, k, v, out, B, H, KV, Sq, Sk, st, causal,
-                           window, softcap, scale, s);
-    case 64:
-      return launch<T, 64>(q, k, v, out, B, H, KV, Sq, Sk, st, causal,
-                           window, softcap, scale, s);
-    case 128:
-      return launch<T, 128>(q, k, v, out, B, H, KV, Sq, Sk, st, causal,
-                            window, softcap, scale, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-}
+}  // namespace mma
 
 // ---------------------------------------------------------------------------
 // bf16 q, k, v at hd 64 / 128: the tensor-core kernel
@@ -390,7 +590,6 @@ constexpr int kRows = 128;        // q rows per block: two warpgroups of 64
 constexpr int kKeys = 64;         // keys per K/V tile
 constexpr int kStages = 4;        // K/V ring depth
 constexpr int kThreads = 384;     // a producer warpgroup + 2 consumers
-constexpr float kMinusInf = -__builtin_huge_valf();
 
 template <int HD>
 struct Layout {
@@ -903,26 +1102,40 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 
 extern "C" {
 
-// The FMA kernel.  Launches on `stream` and returns cudaGetLastError()
-// (0 on success).  dtype 0 = float32 (hd 32, 64 or 128), 1 = bf16 (hd 32:
-// the tensor-core kernel takes bf16 at 64 and 128); q, k, v and out
-// alike.  strides: 12 element strides, (batch, head, row) for q, k, v and
-// out in that order; the head dim is contiguous.  The caller has checked
-// devices, dtypes, shapes (H % KV == 0, Sq and Sk multiples of 64) and
-// 16-byte alignment of the pointers and of every stride.
+// The float32 kernel (FMA scores, 3xTF32 P.V).  Launches on `stream` and
+// returns cudaGetLastError() (0 on success).  dtype 0 = float32 (hd 32,
+// 64 or 128), 1 = bf16 (hd 32: the tensor-core kernel takes bf16 at 64
+// and 128); q, k, v and out alike.  strides: 12 element strides, (batch,
+// head, row) for q, k, v and out in that order; the head dim is
+// contiguous.  Any Sq, Sk >= 1.  The caller has checked devices, dtypes,
+// shapes (H % KV == 0) and 16-byte alignment of the pointers and of every
+// stride.
 int flash_attention_fwd(const void* q, const void* k, const void* v,
                         void* out, int dtype, int B, int H, int KV, int Sq,
                         int Sk, int hd, const long long* strides, int causal,
                         int window, float softcap, float scale,
                         void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) {
-    return dispatch<float>(hd, q, k, v, out, B, H, KV, Sq, Sk, strides,
-                           causal, window, softcap, scale, s);
+  if (dtype == 1) {
+    if (hd != 32) return (int)cudaErrorInvalidValue;
+    return mma::launch<__nv_bfloat16, 32>(q, k, v, out, B, H, KV, Sq, Sk,
+                                          strides, causal, window, softcap,
+                                          scale, s);
   }
-  if (hd != 32) return (int)cudaErrorInvalidValue;
-  return launch<__nv_bfloat16, 32>(q, k, v, out, B, H, KV, Sq, Sk, strides,
-                                   causal, window, softcap, scale, s);
+  switch (hd) {
+    case 32:
+      return mma::launch<float, 32>(q, k, v, out, B, H, KV, Sq, Sk, strides,
+                                    causal, window, softcap, scale, s);
+    case 64:
+      return mma::launch<float, 64>(q, k, v, out, B, H, KV, Sq, Sk, strides,
+                                    causal, window, softcap, scale, s);
+    case 128:
+      return mma::launch<float, 128>(q, k, v, out, B, H, KV, Sq, Sk,
+                                     strides, causal, window, softcap, scale,
+                                     s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 // The tensor-core kernel for bf16 q, k, v at hd 64 or 128; any Sq, Sk >= 1

@@ -11,11 +11,11 @@ stream.
 
 Two kernels in one source, chosen statically by (dtype, hd)
 (``kernel_for``): bf16 at hd 64 or 128 runs the tensor-core kernel
-(``wgmma``: q.k and P.V in bf16, P as hi + lo, float32 sums), which masks
-ragged tiles and so takes every Sq and Sk >= 1 — every length the
-reference takes; float32 at any hd, and bf16 at hd 32, run the
-float32-FMA kernel, which needs Sq and Sk to be multiples of its 64-row
-tile (``check_shapes``).
+(``wgmma``: q.k and P.V in bf16, P as hi + lo, float32 sums); float32 at
+any hd, and bf16 at hd 32, run the float32 kernel (q.k in float32 FMAs,
+P.V on the tensor cores with P and V each in two TF32 terms).  Both mask
+their ragged tiles and so take every Sq and Sk >= 1 — every length the
+reference takes.
 
 Layout: q (B, H, Sq, hd), k and v (B, KV, Sk, hd), as the reference's
 kernel takes them.  Each may be a strided view — the model's (B, S, H, hd)
@@ -37,7 +37,6 @@ import torch
 from ..cuda_build import load_library
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
-TILE = 64                    # the FFMA kernel's q rows per block and k tile
 HEAD_DIMS = (32, 64, 128)
 TC_HEAD_DIMS = (64, 128)     # the tensor-core kernel's, for bf16 inputs
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -61,9 +60,10 @@ SIGNATURES = {
 
 
 def kernel_for(dtype, hd: int) -> str:
-    """Which kernel runs (dtype, hd): ``"tc"`` (tensor cores) for bf16 at
-    hd 64 or 128, ``"ffma"`` otherwise.  Static: never a fallback."""
-    return "tc" if dtype == torch.bfloat16 and hd in TC_HEAD_DIMS else "ffma"
+    """Which kernel runs (dtype, hd): ``"tc"`` (``wgmma`` in bf16) for bf16
+    at hd 64 or 128, ``"mma"`` (float32 FMA scores, 3xTF32 ``mma.sync``
+    P.V) otherwise.  Static: never a fallback."""
+    return "tc" if dtype == torch.bfloat16 and hd in TC_HEAD_DIMS else "mma"
 
 
 def check_shapes(q_shape, k_shape, v_shape, dtype):
@@ -85,12 +85,7 @@ def check_shapes(q_shape, k_shape, v_shape, dtype):
         raise ValueError(f"head_dim {hd}: the kernel takes {HEAD_DIMS}")
     if Sq < 1 or Sk < 1:
         raise ValueError(f"Sq={Sq}, Sk={Sk}: need at least one row each")
-    route = kernel_for(dtype, hd)
-    if route == "ffma" and (Sq % TILE or Sk % TILE):
-        raise ValueError(f"Sq={Sq}, Sk={Sk}: the float32-FMA kernel "
-                         f"({dtype}, hd {hd}) needs multiples of its "
-                         f"{TILE}-row tile")
-    return route
+    return kernel_for(dtype, hd)
 
 
 def _check(q, k, v):

@@ -10,10 +10,14 @@ softcap, window).  bf16 is held per element to one bf16 ulp of the value,
 rounds its result to bf16 once, so a value near a rounding boundary may
 land one ulp apart and no further.  The split plan that cuts a slot's
 history for the CUDA kernel is checked on the CPU: it covers every token
-once, in page-aligned ranges, from integers alone.  The CUDA kernel itself
+once, in page-aligned ranges, from integers alone; so is the plan that
+keeps every query head of a kv head in one block (MQA's G = 48 of
+granite-20b included) and cuts them into tiles only past a block's
+registers or shared memory.  The CUDA kernel itself
 runs only on a card (``cuda`` marker, skipped here): float32 within 1e-5
 of its plain version, bf16 within the bf16 tier, at split boundaries,
-lengths 0 / 1 / max and windows that start inside a split, and with its
+lengths 0 / 1 / max and windows that start inside a split, at G = 24
+and 48 (256 threads a block), and with its
 scratch (the partials and the merge's ticket counters) shared by calls of
 other shapes and kept per stream; how the wrapper keeps that scratch is
 checked on the CPU.
@@ -30,7 +34,10 @@ from repro.kernels.decode_attention import \
     paged_decode_attention_fwd as jax_kernel  # noqa: E402
 from repro_torch.kernels import decode_attention, ops, ref  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
-    MAX_SPLIT_TOKENS, paged_decode_attention_fwd, split_plan)
+    BLOCKS_PER_SM, MAX_BLOCK_ELEMS, MAX_SPLIT_TOKENS, SMEM_LIMIT,
+    check_shapes, kernel_for,
+    group_tiles, launch_plan, paged_decode_attention_fwd, smem_bytes,
+    split_plan)
 
 GRID_LENGTHS = [1, 5, 12, 0]              # ragged; slot 3 is length-0
 KW = [dict(), dict(attn_softcap=30.0), dict(window=6)]
@@ -69,7 +76,9 @@ def _assert_bf16_tier(got, want):
     assert ratio <= 1.0, f"|got - want| reaches {ratio} x the bf16 tier"
 
 
-@pytest.mark.parametrize("H,KV", [(4, 4), (4, 2), (4, 1)])
+# the last two: G = 48 (granite-20b's MQA) and 24, whole in the
+# reference's block
+@pytest.mark.parametrize("H,KV", [(4, 4), (4, 2), (4, 1), (48, 1), (48, 2)])
 @pytest.mark.parametrize("kw", KW, ids=["plain", "softcap", "window"])
 def test_plain_version_matches_pallas_interpret_and_oracle(H, KV, kw):
     arrays = _operands(len(GRID_LENGTHS), 16, H, KV, 4, 4, GRID_LENGTHS)
@@ -109,6 +118,61 @@ def test_bf16_pools_match_pallas_interpret_and_oracle(kw):
     # and the bf16 result is the float32 one, rounded once
     f32 = ref.paged_decode_attention_ref(*_torch(arrays), **kw).numpy()
     _assert_bf16_tier(port, f32)
+
+
+@pytest.mark.parametrize("H,KV,hd,dtype,gtiles", [
+    (12, 12, 64, torch.float32, 1),       # transformer-100m
+    (32, 16, 128, torch.bfloat16, 1),     # gemma2-27b
+    (48, 1, 128, torch.bfloat16, 1),      # granite-20b: one block, 48 heads
+    (96, 8, 128, torch.bfloat16, 1),      # mistral-large-123b
+    (56, 8, 128, torch.bfloat16, 1),      # yi-34b
+    (128, 1, 128, torch.float32, 2),      # 16,384 accumulators: 2 tiles
+    (32, 1, 256, torch.float32, 2),       # hd 256 float32: shared memory
+    (512, 1, 16, torch.bfloat16, 1),
+    (1024, 1, 16, torch.float32, 2),
+])
+def test_every_group_is_taken_and_tiled_only_past_a_block(H, KV, hd, dtype,
+                                                          gtiles):
+    check_shapes((8, H, hd), (65, 16, KV, hd), dtype)
+    size = torch.tensor([], dtype=dtype).element_size()
+    tiles, splits, pages = launch_plan(8, H, KV, hd, size, 16, 512, 132)
+    assert tiles == gtiles
+    heads = -(-(H // KV) // tiles)
+    assert heads * hd <= MAX_BLOCK_ELEMS
+    assert smem_bytes(heads, hd, size, pages * 16) <= SMEM_LIMIT
+    # blocks of 256 threads (past 4,096 accumulators) aim at half as many
+    # blocks an SM
+    per_sm = BLOCKS_PER_SM // (2 if heads * hd > MAX_BLOCK_ELEMS // 2 else 1)
+    assert (splits, pages) == split_plan(512, 16, 8, KV * tiles, 132,
+                                         per_sm)
+    assert group_tiles(H // KV, hd, size, pages * 16) <= tiles
+
+
+def test_bf16_pools_at_large_groups_route_to_the_tensor_cores():
+    bf, f32 = torch.bfloat16, torch.float32
+    assert kernel_for(bf, 48, 128) == "tc"            # granite-20b
+    assert kernel_for(bf, 16, 64) == kernel_for(bf, 128, 128) == "tc"
+    assert kernel_for(f32, 48, 128) == "fma"          # float32 pools
+    assert kernel_for(bf, 2, 128) == "fma"            # gemma2-27b
+    assert kernel_for(bf, 12, 128) == "fma"           # mistral-large
+    assert kernel_for(bf, 48, 256) == "fma"
+    assert kernel_for(bf, 256, 64) == "fma"
+    assert kernel_for(bf, 48, 128, gtiles=2) == "fma"
+
+
+def test_decode_shape_rule_refuses_what_the_kernel_does_not_take():
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        check_shapes((8, 4, 64), (9, 16, 2, 64), torch.float64)
+    with pytest.raises(ValueError, match="H % KV"):
+        check_shapes((8, 6, 64), (9, 16, 4, 64), torch.float32)
+    with pytest.raises(ValueError, match="head_dim"):
+        check_shapes((8, 4, 24), (9, 16, 2, 24), torch.float32)
+    with pytest.raises(ValueError, match="head_dim"):
+        check_shapes((8, 4, 272), (9, 16, 2, 272), torch.float32)
+    with pytest.raises(ValueError, match="fit"):
+        check_shapes((8, 4, 64), (9, 16, 2, 128), torch.float32)
+    with pytest.raises(ValueError, match="S, H, hd"):
+        check_shapes((8, 64), (9, 16, 2, 64), torch.float32)
 
 
 SPLIT_SHAPES = [
@@ -217,6 +281,12 @@ def cuda_device():
     (4, 1, 16, 4, 4, GRID_LENGTHS),
     (12, 12, 64, 16, 16, [1, 37, 73, 110, 146, 183, 219, 256]),
     (32, 2, 256, 16, 8, [128, 3, 77]),       # G=16, hd=256: >48 KB smem
+    (24, 1, 64, 16, 16, [1, 37, 73, 110, 146, 183, 219, 256]),   # G = 24
+    (48, 1, 128, 16, 16, [1, 37, 73, 110, 146, 183, 219, 256]),  # G = 48
+    (48, 2, 32, 4, 4, GRID_LENGTHS),                             # G = 24
+    # two head tiles: past 8,192 accumulators, and past the shared memory
+    (160, 1, 64, 16, 8, [128, 3, 77, 1]),
+    (32, 1, 256, 16, 8, [128, 3, 77]),
 ])
 @pytest.mark.parametrize("kw", KW, ids=["plain", "softcap", "window"])
 def test_cuda_kernel_matches_plain_version(cuda_device, H, KV, hd, page,
@@ -249,6 +319,32 @@ def test_cuda_kernel_wrapper_rejects_unsupported_shapes(cuda_device):
         paged_decode_attention_fwd(q, kp.bfloat16(), vp, table, ln)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,KV,hd", [(16, 1, 64), (40, 1, 64), (48, 1, 128),
+                                     (96, 2, 64), (128, 1, 128)])
+@pytest.mark.parametrize("kw", [dict(), dict(attn_softcap=50.0),
+                                dict(window=40)],
+                         ids=["plain", "softcap", "window"])
+def test_cuda_tensor_core_path_for_bf16_pools_at_large_groups(cuda_device,
+                                                             H, KV, hd, kw):
+    """bf16 pools at 16 <= G <= 128 (hd 64, 128) take the tensor-core
+    kernel: rows past G in its last 16-head tile, lengths 0 and 1, one
+    split and several, and a window, within the bf16 tier."""
+    assert kernel_for(torch.bfloat16, H // KV, hd) == "tc"
+    lengths = [0, 1, 37, 300, 700, 1024]
+    args = _torch(_operands(len(lengths), hd, H, KV, 16, 64, lengths,
+                            seed=H + hd, dtype="bfloat16"), cuda_device,
+                  "bfloat16")
+    got = ops.paged_decode_attention(*args, **kw)
+    want = ops.paged_decode_attention(*args, backend="ref", **kw)
+    torch.cuda.synchronize()
+    live = args[4] > 0
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
+    assert bool((got[~live] == 0).all())
+    _assert_bf16_tier(got[live].float().cpu().numpy(),
+                      want[live].float().cpu().numpy())
+
+
 def _split_tokens(max_pages, page, S, KV):
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     splits, pages = split_plan(max_pages, page, S, KV, n_sm)
@@ -256,16 +352,19 @@ def _split_tokens(max_pages, page, S, KV):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("heads", [(8, 4), (48, 1), (24, 1)],
+                         ids=["G2", "G48", "G24"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("kw", [dict(), dict(attn_softcap=50.0),
                                 dict(window=40), dict(window=37,
                                                       attn_softcap=50.0)],
                          ids=["plain", "softcap", "window", "local"])
 def test_cuda_kernel_at_split_boundaries_and_edge_lengths(cuda_device,
-                                                          dtype, kw):
-    """gemma2's heads (G = 2, hd 128); lengths 0, 1, max, and one token
-    either side of each split boundary; the windows start inside splits."""
-    H, KV, hd, page, max_pages = 8, 4, 128, 16, 64
+                                                          dtype, kw, heads):
+    """gemma2's heads (G = 2, hd 128) and granite-20b's (G = 48, KV 1);
+    lengths 0, 1, max, and one token either side of each split boundary;
+    the windows start inside splits."""
+    H, KV, hd, page, max_pages = heads + (128, 16, 64)
     S_probe = 12
     _, tok = _split_tokens(max_pages, page, S_probe, KV)
     W = max_pages * page

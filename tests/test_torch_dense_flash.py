@@ -167,3 +167,44 @@ def test_dpsgd_step_with_flash_route_equals_chunked_route():
     (p0, l0), (p1, l1) = out[False], out[True]
     assert np.isfinite(l1) and abs(l1 - l0) <= 1e-6 * abs(l0)
     torch.testing.assert_close(p1, p0, atol=1e-6, rtol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_float32_flash_training_step_at_a_ragged_length():
+    """S 100 (no multiple of the float32 kernel's 64-row tile), float32,
+    ``use_pallas``: one DPSGD step through the flash and gossip kernels on
+    the card equals the step through the plain versions (the chunked
+    route, ``kernel_backend="ref"``) within 1e-5, with one flash launch
+    per layer and learner."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernel has no CPU mode)")
+    from repro_torch.core import AlgoConfig, MultiLearnerTrainer
+    from repro_torch.data import ShardedLoader, SyntheticTokenStream
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.optim import sgd
+    # the chunked route's block must divide the length: 2 x 50
+    base = dataclasses.replace(
+        get_config("transformer-100m").smoke_config(), attn_chunk=50)
+    loader = ShardedLoader(SyntheticTokenStream(vocab=base.vocab),
+                           n_learners=4, local_batch=2, extra_args=(100,),
+                           seed=0, device="cuda")
+    batch = loader.batch(0)
+    tree = build_model(base).param_tree(build_model(base).init(0))
+    out = {}
+    for use_pallas, backend in ((True, "auto"), (False, "ref")):
+        api = build_model(dataclasses.replace(base, use_pallas=use_pallas))
+        tr = MultiLearnerTrainer(api.loss_fn, sgd(0.5, momentum=0.9),
+                                 AlgoConfig(algo="dpsgd",
+                                            topology="random_pair",
+                                            n_learners=4),
+                                 params_from_tree=api.params_from_tree,
+                                 kernel_backend=backend)
+        before = flash_attention_fwd.launches
+        state, m = tr.train_step(tr.init(0, tree), batch)
+        torch.cuda.synchronize()
+        out[use_pallas] = (state.params.clone(), float(m.loss),
+                           flash_attention_fwd.launches - before)
+    (p0, l0, n0), (p1, l1, n1) = out[False], out[True]
+    assert (n0, n1) == (0, 4 * base.n_layers)
+    assert np.isfinite(l1) and abs(l1 - l0) <= 1e-5 * abs(l0)
+    torch.testing.assert_close(p1, p0, atol=1e-5, rtol=0)

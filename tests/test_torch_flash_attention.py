@@ -22,11 +22,15 @@ through the CPU dispatch (the plain version with autograd) and through
 ``FlashAttention`` itself with a CPU stand-in for the kernel forward.
 
 The CUDA kernels must agree with their plain version on the card within
-the same tiers (``cuda`` marker, skipped here): the float32-FMA kernel
-for float32 inputs and hd 32, and the tensor-core kernel for bf16 at hd
-64 and 128, which masks ragged tiles and so takes every length the
-reference takes.  The wrapper's shape rule and its choice between the two
-kernels are checked on the CPU.
+the same tiers (``cuda`` marker, skipped here): the float32 kernel (FMA
+scores, P.V in three TF32 terms on the tensor cores) for float32 inputs
+and hd 32, and the tensor-core kernel for bf16 at hd 64 and 128; both
+mask ragged tiles and so take every length the reference takes.  The
+wrapper's shape rule and its choice between the two kernels are checked
+on the CPU, and so are the float32 kernel's numerics: an emulation of
+its tile order, its float32 FMA scores and its TF32 splits of P and V
+holds the float32 tiers at the float32 shapes of ``chip_smoke.py``,
+where scores in three TF32 terms, or P.V in one, would not.
 """
 import pytest
 
@@ -51,6 +55,8 @@ MASKS = [dict(causal=True), dict(causal=True, window=64),
 ATOL_F32 = 2e-6
 BF16_ULP, BF16_RMS = 2.0 ** -7, 1e-3
 GRAD_ATOL = 1e-5
+RAGGED_MASKS = [dict(causal=True, window=32, attn_softcap=50.0),
+                dict(causal=False)]
 INTERPRET_CASES = [((128, 64, 4, 4), "float32", MASKS[0]),
                    ((256, 64, 4, 2), "float32", MASKS[1]),
                    ((256, 128, 2, 1), "bfloat16", MASKS[3]),
@@ -137,6 +143,20 @@ def test_plain_version_matches_pallas_interpret_mode(shape, dtype, kw):
                       interpret=True, **kw)
     got = ref.flash_attention_ref(*_torch(arrs, dtype), **kw)
     _assert_within_tier(got, want, dtype)
+
+
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("Sk,kw", [(100, RAGGED_MASKS[0]),
+                                   (37, RAGGED_MASKS[1])],
+                         ids=["Sk100_window_softcap", "Sk37_full"])
+def test_plain_version_matches_pallas_interpret_mode_at_ragged_lengths(
+        hd, Sk, kw):
+    """float32 at Sq 100 (the reference's block is then the whole length)
+    against Sk 100 with a window and the softcap, and against Sk 37."""
+    arrs = _operands(100, hd, 4, 2, "float32", seed=hd + Sk, Sk=Sk)
+    want = jax_kernel(*_jax(arrs, "float32"), interpret=True, **kw)
+    got = ref.flash_attention_ref(*_torch(arrs, "float32"), **kw)
+    _assert_within_tier(got, want, "float32")
 
 
 def _model_layout_operands():
@@ -276,6 +296,18 @@ def test_wrapper_takes_every_length_the_reference_takes_in_bf16(Sq, Sk,
         _assert_within_tier(got, want, "bfloat16")
 
 
+@pytest.mark.parametrize("dtype,hd", [(torch.float32, 32),
+                                      (torch.float32, 64),
+                                      (torch.float32, 128),
+                                      (torch.bfloat16, 32)])
+@pytest.mark.parametrize("Sq,Sk", [(100, 100), (100, 37), (1, 1), (65, 130),
+                                   (513, 512)])
+def test_wrapper_takes_every_length_in_float32_and_bf16_at_hd_32(Sq, Sk,
+                                                                dtype, hd):
+    assert check_shapes((2, 4, Sq, hd), (2, 2, Sk, hd), (2, 2, Sk, hd),
+                        dtype) == "mma"
+
+
 def test_wrapper_shape_rule_refuses_what_no_kernel_takes():
     bf = torch.bfloat16
     with pytest.raises(ValueError, match="head_dim"):
@@ -286,18 +318,20 @@ def test_wrapper_shape_rule_refuses_what_no_kernel_takes():
     with pytest.raises(ValueError, match="fit"):
         check_shapes((1, 4, 128, 128), (1, 2, 128, 128), (1, 2, 64, 128),
                      bf)
-    # the float32-FMA kernel keeps its 64-row tile: float32 at any hd, and
-    # bf16 at hd 32, route there by (dtype, hd) alone
-    assert kernel_for(torch.float32, 128) == "ffma"
-    assert kernel_for(torch.float32, 64) == "ffma"
-    assert kernel_for(bf, 32) == "ffma"
-    assert check_shapes((1, 4, 128, 64), (1, 2, 192, 64), (1, 2, 192, 64),
-                        torch.float32) == "ffma"
-    with pytest.raises(ValueError, match="multiples"):
-        check_shapes((1, 4, 100, 64), (1, 2, 100, 64), (1, 2, 100, 64),
+    with pytest.raises(ValueError, match="at least one row"):
+        check_shapes((1, 4, 0, 64), (1, 2, 64, 64), (1, 2, 64, 64),
                      torch.float32)
-    with pytest.raises(ValueError, match="multiples"):
-        check_shapes((1, 4, 100, 32), (1, 2, 100, 32), (1, 2, 100, 32), bf)
+    # float32 at any hd, and bf16 at hd 32, route to the float32 kernel by
+    # (dtype, hd) alone, which masks its ragged tiles: every length
+    assert kernel_for(torch.float32, 128) == "mma"
+    assert kernel_for(torch.float32, 64) == "mma"
+    assert kernel_for(bf, 32) == "mma"
+    assert check_shapes((1, 4, 128, 64), (1, 2, 192, 64), (1, 2, 192, 64),
+                        torch.float32) == "mma"
+    assert check_shapes((1, 4, 100, 64), (1, 2, 100, 64), (1, 2, 100, 64),
+                        torch.float32) == "mma"
+    assert check_shapes((1, 4, 100, 32), (1, 2, 100, 32), (1, 2, 100, 32),
+                        bf) == "mma"
 
 
 # ---------------------------------------------------------------------------
@@ -326,6 +360,17 @@ CUDA_CASES = [
     (128, 64, 4, 2, "float32", MASKS[0], 256, 1.0),             # Sq < Sk
     (512, 128, 32, 16, "float32",                       # the cap binds
      dict(causal=True, window=128, attn_softcap=50.0), None, 8.0),
+    # ragged lengths: the float32 kernel's last q and key tiles
+    (100, 32, 4, 2, "float32", RAGGED_MASKS[0], None, 1.0),
+    (100, 64, 4, 2, "float32", RAGGED_MASKS[0], None, 1.0),
+    (100, 128, 4, 2, "float32", RAGGED_MASKS[0], None, 1.0),
+    (100, 32, 4, 2, "float32", RAGGED_MASKS[1], 37, 1.0),
+    (100, 64, 4, 2, "float32", RAGGED_MASKS[1], 37, 1.0),
+    (100, 128, 4, 2, "float32", RAGGED_MASKS[1], 37, 1.0),
+    (300, 64, 12, 12, "float32", dict(causal=True), None, 1.0),
+    (37, 64, 4, 2, "float32", dict(causal=True), 200, 1.0),     # Sq < Sk
+    (100, 32, 4, 2, "bfloat16", RAGGED_MASKS[0], None, 1.0),
+    (1, 128, 4, 1, "float32", dict(causal=True), 1, 1.0),
 ]
 
 
@@ -383,17 +428,21 @@ def test_cuda_tensor_core_kernel_matches_plain_version(cuda_device, S, hd, H,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,hd,name", [
-    ("float32", 128, "flash_attention_kernel"),
-    ("float32", 64, "flash_attention_kernel"),
-    ("bfloat16", 32, "flash_attention_kernel"),
+    ("float32", 128, "flash_attention_mma_kernel"),
+    ("float32", 64, "flash_attention_mma_kernel"),
+    ("float32", 32, "flash_attention_mma_kernel"),
+    ("bfloat16", 32, "flash_attention_mma_kernel"),
     ("bfloat16", 128, "flash_attention_tc_kernel"),
     ("bfloat16", 64, "flash_attention_tc_kernel")])
 def test_cuda_inputs_reach_the_kernel_their_dtype_and_width_name(
         cuda_device, dtype, hd, name):
     from torch.profiler import ProfilerActivity, profile
     q, k, v = _torch(_operands(128, hd, 4, 2, dtype), dtype, cuda_device)
+    flash_attention_fwd(q, k, v)          # loaded before the window
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        flash_attention_fwd(q, k, v)
+        for _ in range(3):   # the profiler may drop a short window's events
+            flash_attention_fwd(q, k, v)
         torch.cuda.synchronize()
     names = [e.name for e in prof.events() if "flash_attention" in e.name]
     assert names and all(name in n for n in names), names
@@ -427,8 +476,8 @@ def test_cuda_function_reads_the_model_layout_and_matches_gradients(
 def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
     q, k, v = _torch(_operands(128, 64, 4, 2, "float32"), "float32",
                      cuda_device)
-    with pytest.raises(ValueError, match="multiples"):
-        flash_attention_fwd(q[:, :, :96], k, v)
+    with pytest.raises(ValueError, match="at least one row"):
+        flash_attention_fwd(q[:, :, :0], k, v)
     with pytest.raises(ValueError, match="head_dim"):
         flash_attention_fwd(q[..., :48].contiguous(),
                             k[..., :48].contiguous(),
@@ -475,3 +524,184 @@ def test_one_rounding_of_p_misses_the_bf16_tier_and_two_bf16_terms_do_not():
     assert ratio(hi) > 1.0
     assert ratio(_round_tf32(p)) > 1.0
     assert ratio(hi + (p - hi).bfloat16().float()) <= 1.0
+
+
+# ---------------------------------------------------------------------------
+# the float32 kernel's numerics, emulated on the CPU
+# ---------------------------------------------------------------------------
+
+# chip_smoke.py's float32 flash cases (the 100m training shape, hd 32 full
+# and no-live-key rows, gemma2's heads with q x 8 so the cap binds) with S
+# cut to 512, and its ragged float32 cases:
+# (name, B, H, KV, hd, Sq, mask, Sk or None, q scale)
+EMU_CASES = [
+    ("train_100m", 2, 12, 12, 64, 512, dict(causal=True), None, 1.0),
+    ("full_hd32", 1, 4, 2, 32, 256, dict(causal=False), None, 1.0),
+    ("no_live_key_rows", 1, 4, 2, 32, 256, dict(causal=False, window=64),
+     128, 1.0),
+    ("softcap_binds", 1, 32, 16, 128, 512,
+     dict(causal=True, window=4096, attn_softcap=50.0), None, 8.0),
+    ("ragged_hd32", 1, 4, 2, 32, 100, RAGGED_MASKS[0], None, 1.0),
+    ("ragged_hd64", 1, 4, 2, 64, 100, RAGGED_MASKS[0], None, 1.0),
+    ("ragged_hd128", 1, 4, 2, 128, 100, RAGGED_MASKS[0], None, 1.0),
+    ("ragged_sk37", 1, 4, 2, 128, 100, RAGGED_MASKS[1], 37, 1.0),
+]
+KERNEL_ROWS = 64                    # the float32 kernel's q tile
+
+
+def _kernel_tiles(hd):
+    """(keys a tile, key groups) of the float32 kernel at head width hd."""
+    return (64, 1) if hd == 128 else (32, 4)
+
+
+def _emu_operands(case):
+    _, B, H, KV, hd, Sq, _, Sk, q_scale = case
+    rng = np.random.default_rng(hd + Sq + H)
+    Sk = Sq if Sk is None else Sk
+    return [torch.from_numpy(c * rng.standard_normal(s, dtype=np.float32))
+            for s, c in (((B, H, Sq, hd), q_scale), ((B, KV, Sk, hd), 1.0),
+                         ((B, KV, Sk, hd), 1.0))]
+
+
+def _split_tf32(x):
+    """x = hi + lo in TF32, each rounded to nearest (ties away)."""
+    hi = _round_tf32(x)
+    return hi, _round_tf32(x - hi)
+
+
+def _fma_scores(q, k):
+    """q k^T as float32 FMAs, d in order: each step's product and sum
+    exact in float64, rounded once to float32."""
+    s = torch.zeros(q.shape[:-1] + (k.shape[-2],), dtype=torch.float32)
+    for d in range(q.shape[-1]):
+        s = (s.double() + q[..., d, None].double()
+             * k[..., None, :, d].double()).float()
+    return s
+
+
+def _emulate_f32_kernel(q, k, v, *, causal=True, window=0,
+                        attn_softcap=0.0, scores="fma", pv="3xtf32"):
+    """The float32 kernel's arithmetic on float32 CPU tensors: scores
+    ``"fma"`` (the kernel), ``"3xtf32"`` (lo.hi + hi.lo + hi.hi) or
+    ``"tf32"`` (one TF32 pass); per 64-row block, the key tiles it visits
+    (the fully masked ones skipped unless a row has no live key), dealt in
+    turn to its key groups (four of 32-key tiles at hd 32 and 64, one of
+    64-key tiles at 128), each group's online softmax over its tiles in
+    order, P.V with P and V as hi + lo TF32 terms (``pv="3xtf32"``, the
+    kernel) or in one TF32 pass, and the groups' states merged in group
+    order."""
+    B, H, Sq, hd = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    k, v = (t.repeat_interleave(H // KV, 1) for t in (k, v))
+    if scores == "fma":
+        s_all = _fma_scores(q, k)
+    elif scores == "3xtf32":
+        (qh, ql), (kh, kl) = _split_tf32(q), _split_tf32(k)
+        s_all = (ql @ kh.mT + qh @ kl.mT) + qh @ kh.mT
+    else:
+        s_all = _round_tf32(q) @ _round_tf32(k).mT
+    vh, vl = _split_tf32(v)
+    out = torch.empty_like(q)
+    keys_per_tile, groups = _kernel_tiles(hd)
+    nk = -(-Sk // keys_per_tile)
+    for q0 in range(0, Sq, KERNEL_ROWS):
+        rows = torch.arange(q0, min(q0 + KERNEL_ROWS, Sq))
+        qmax = int(rows[-1])
+        t_lo, t_hi = 0, nk
+        if not (window and qmax - (Sk - 1) >= window):
+            if causal:
+                t_hi = min(nk, qmax // keys_per_tile + 1)
+            if window and q0 - window - (keys_per_tile - 1) >= 0:
+                t_lo = (q0 - window - (keys_per_tile - 1)) // keys_per_tile + 1
+        states = []
+        for grp in range(groups):
+            states.append(_emulate_group(
+                s_all, v, vh, vl, rows,
+                [range(t * keys_per_tile, min((t + 1) * keys_per_tile, Sk))
+                 for t in range(t_lo + grp, t_hi, groups)],
+                hd, causal, window, attn_softcap, pv))
+        m, l, acc = states[0]
+        for mb, lb, accb in states[1:]:
+            m_new = torch.maximum(m, mb)
+            ca, cb = torch.exp(m - m_new), torch.exp(mb - m_new)
+            m, l, acc = m_new, l * ca + lb * cb, acc * ca + accb * cb
+        out[:, :, rows] = acc / torch.clamp(l, min=1e-30)
+    return out
+
+
+def _emulate_group(s_all, v, vh, vl, rows, tiles, hd, causal, window,
+                   attn_softcap, pv):
+    """One key group's (m, l, acc) over ``tiles`` (ranges of keys) in
+    order."""
+    B, H = s_all.shape[:2]
+    m = torch.full((B, H, len(rows), 1), ref.NEG_INF)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((B, H, len(rows), hd))
+    for tile in tiles:
+        keys = torch.tensor(tile)
+        x = s_all[:, :, rows][..., keys] * hd ** -0.5
+        if attn_softcap:
+            x = attn_softcap * torch.tanh(x / attn_softcap)
+        live = torch.ones((len(rows), len(keys)), dtype=torch.bool)
+        if causal:
+            live &= rows[:, None] >= keys[None]
+        if window:
+            live &= rows[:, None] - keys[None] < window
+        x = torch.where(live, x, ref.NEG_INF)
+        m_new = torch.maximum(m, x.amax(-1, keepdim=True))
+        p = torch.exp(x - m_new)
+        corr = torch.exp(m - m_new)
+        l, m = l * corr + p.sum(-1, keepdim=True), m_new
+        vt_h, vt_l = vh[:, :, keys], vl[:, :, keys]
+        if pv == "3xtf32":
+            ph, pl = _split_tf32(p)
+            pv_t = (pl @ vt_h + ph @ vt_l) + ph @ vt_h
+        else:
+            pv_t = _round_tf32(p) @ _round_tf32(v[:, :, keys])
+        acc = acc * corr + pv_t
+    return m, l, acc
+
+
+def _f32_tier(Sq):
+    return ATOL_F32 if Sq <= 256 else 1e-5
+
+
+@pytest.mark.parametrize("case", EMU_CASES, ids=[c[0] for c in EMU_CASES])
+def test_float32_kernel_numerics_hold_the_float32_tiers(case):
+    """FMA scores and P.V in three TF32 terms stay within the tier of the
+    plain version (measured 0.07-0.48 x); P.V in one TF32 pass, with the
+    same scores, misses it (95-471 x)."""
+    q, k, v = _emu_operands(case)
+    kw = case[6]
+    want = ref.flash_attention_ref(q, k, v, **kw)
+    tol = _f32_tier(q.shape[2])
+    got = _emulate_f32_kernel(q, k, v, **kw)
+    err = float((got - want).abs().max())
+    assert err <= tol, f"{err} = {err / tol} x the tier"
+    one_pass = _emulate_f32_kernel(q, k, v, pv="tf32", **kw)
+    assert float((one_pass - want).abs().max()) > tol
+
+
+@pytest.mark.parametrize("case", [EMU_CASES[0], EMU_CASES[3]],
+                         ids=["train_100m", "softcap_binds"])
+def test_scores_in_three_tf32_terms_miss_the_tier_where_the_cap_binds(case):
+    """Why the float32 kernel scores in FMAs: three TF32 terms hold each
+    product to 2^-22 but sum it in another order than the plain version,
+    which at scores of tens (q x 8) leaves the two 2.5 x the tier apart
+    (measured; the FMA scores 0.26 x); at the training shape's scores of
+    ~1 they would pass (0.12 x), and one TF32 pass misses both (80 x and
+    940 x)."""
+    q, k, v = _emu_operands(case)
+    kw = case[6]
+    want = ref.flash_attention_ref(q, k, v, **kw)
+    tol = _f32_tier(q.shape[2])
+
+    def ratio(scores):
+        got = _emulate_f32_kernel(q, k, v, scores=scores, **kw)
+        return float((got - want).abs().max()) / tol
+
+    assert ratio("tf32") > 10
+    if kw.get("attn_softcap"):
+        assert ratio("3xtf32") > 1.5
+    else:
+        assert ratio("3xtf32") < 0.5

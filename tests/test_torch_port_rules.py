@@ -83,6 +83,33 @@ def test_config_matches_reference_field_for_field(smoke, name):
         ref.head_dim_, ref.padded_vocab, ref.q_per_kv)
 
 
+@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("smoke", [False, True])
+def test_every_registry_config_passes_both_attention_kernels_shape_rules(
+        smoke, name):
+    """Each attention config, at its own heads, kv heads and head width in
+    its own dtype, is taken by the decode kernel (serving, from pools in
+    the parameters' dtype) and by the flash kernel (``use_pallas``, in the
+    compute dtype, at a ragged length): a limit like a cap on the query
+    heads per kv head cannot hide behind a cut-down smoke config."""
+    from repro_torch.kernels import decode_attention, flash_attention
+    from repro_torch.models.layers import dtype_of
+    cfg = get_config(name)
+    if smoke:
+        cfg = cfg.smoke_config()
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    pools = dtype_of(cfg.param_dtype)
+    decode_attention.check_shapes((8, H, hd), (65, 16, KV, hd), pools)
+    size = torch.tensor([], dtype=pools).element_size()
+    tiles, _, _ = decode_attention.launch_plan(8, H, KV, hd, size, 16, 512,
+                                               132)
+    assert tiles == 1, f"{name}: {H // KV} heads a kv head in {tiles} tiles"
+    act = dtype_of(cfg.compute_dtype)
+    for S in (100, 4096):
+        flash_attention.check_shapes((1, H, S, hd), (1, KV, S, hd),
+                                     (1, KV, S, hd), act)
+
+
 def test_unported_architectures_raise_naming_their_slice():
     # the dense family resolves (gemma2 since the flash-attention route)
     assert get_config("gemma2-27b").name == "gemma2-27b"

@@ -363,3 +363,46 @@ def test_gemma2_bf16_engine_serves_end_to_end(gemma_bf16):
         assert r.done and len(r.generated) == m
         assert all(0 <= t < api.cfg.vocab for t in r.generated)
     assert eng.alloc.free_pages == eng.n_pages - 1
+
+
+# -- (f) MQA with many query heads per kv head ---------------------------------
+
+# 24 query heads on one kv head (G = 24, as granite-20b's G = 48 is): the
+# decode kernel holds every query head of a kv head in one block
+MQA_WIDE = dict(n_heads=24, n_kv_heads=1, head_dim=16)
+
+
+@pytest.fixture(scope="module")
+def mqa_models():
+    return _models(**MQA_WIDE)
+
+
+def test_mqa_wide_group_paged_decode_step_matches_reference(mqa_models):
+    vocab, B = mqa_models[2].cfg.vocab, 3
+    assert mqa_models[2].cfg.q_per_kv == 24
+    rng = np.random.default_rng(5)
+    feeds = [(rng.integers(0, vocab, (B, 1)).astype(np.int32),
+              np.array([pos + 5, pos + 2, pos], np.int32))
+             for pos in range(6)]
+    for pos, (jl, tl, _, _) in enumerate(
+            _steps_both(mqa_models, B, feeds, _shuffled_table(B, seed=4))):
+        np.testing.assert_allclose(tl[..., :vocab], jl[..., :vocab],
+                                   err_msg=f"step={pos}", **TOL)
+
+
+def test_mqa_wide_group_engine_generates_the_reference_tokens(mqa_models):
+    japi, jparams, api, params = mqa_models
+    jobs = _jobs(api.cfg.vocab, ENGINE_SEED)[:4]
+    jeng = JaxServeEngine(japi, jparams, n_slots=2, page_size=PAGE,
+                          max_len=BUF)
+    jreqs = [jeng.submit(p, m) for p, m in jobs]
+    jeng.run()
+    eng = ServeEngine(api, params, n_slots=2, page_size=PAGE, max_len=BUF)
+    eng.warmup()
+    reqs = [eng.submit(p, m) for p, m in jobs]
+    eng.run()
+    want = [list(r.generated) for r in jreqs]
+    assert [list(r.generated) for r in reqs] == want
+    for (prompt, _), gen in zip(jobs, want):
+        gaps = _jax_top_gaps(mqa_models, prompt, gen)
+        assert min(gaps) > 1e-3, gaps
