@@ -100,11 +100,33 @@ Phases (any failure raises and the script exits non-zero):
   8. transformer-100m trained as in phase 4 with ``use_pallas``: 48 flash
      launches per step, the first 2 losses equal to phase 4's within 1e-5
      relative, step time, idle share and kernels per step beside phase
-     4's.
+     4's;
+  9. the pytree engine at full width, transformer-100m with phase 4's
+     recipe: (a) SSGD* (noise 0.01) on the pytree engine, 2 warm-up, 4
+     timed and 1 profiled steps, finite losses, no kernel launched, step
+     time, idle share and peak memory; (b) DPSGD on ``engine="pytree"``
+     against ``engine="flat"`` from the same seed: after 2 steps the
+     parameters agree within the reference's flat-against-pytree tier
+     (2e-5 absolute + 2e-5 relative), the flat run launching the gossip
+     kernel once a step and the pytree run none; (c) bf16 leaves on the
+     flat engine (cast into persistent bf16 leaves, gradients written
+     back into the float32 store): the gossip kernel once a round, the
+     first 2 steps equal to ``kernel_backend="ref"`` within 1e-5, its step
+     time beside phase 4's and the cast and write passes' share of the
+     step's device time;
+ 10. the paper's experiments on the FC net through the bench twins
+     (``repro_torch.bench``): Fig. 2 (SSGD, DPSGD and SSGD* with
+     diagnostics and probes every 20 of 140 steps, then the SSGD* noise
+     sweep) — DPSGD must end below SSGD and every probe run through the
+     reorth kernels (16 + 16 launches a probe); the topology ablation (9
+     topologies, n = 8, 130 steps each) — every scheduled topology fused,
+     the gossip kernel launched rounds x steps times, ``measured_gap >=
+     gap_bound``; Table 4 and Fig. 4, each printing its ``derived`` line.
 Each path runs with every kernel's launch count set to 0 just before it
 and read just after.  The last lines are the serve (100m, gemma2,
-granite), train, probe, FC, Table-1, gemma2 and flash-training numbers,
-the card, the kernels record and ``{"ok": true, "device": {...}}``.
+granite), train, probe, FC, Table-1, gemma2, flash-training, pytree-engine
+and paper-experiment numbers, the card, the kernels record and ``{"ok":
+true, "device": {...}}``.
 Without CUDA the script exits 1 before printing any result.
 """
 from __future__ import annotations
@@ -138,6 +160,14 @@ TRAIN_LEARNERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 4, 2, 512, 0.5
 TRAIN_ROWS = 1_056_920      # T of transformer-100m's flat store (checked)
 CASE_ROWS = 131_072         # T of the other gossip cases: 64 MB per learner
 WARM_STEPS, TIMED_STEPS, PROF_STEPS, REF_STEPS = 2, 6, 2, 2
+# phase 9: the pytree engine (SSGD*), pytree against flat, bf16 leaves
+SSGD_STAR_NOISE = 0.01
+PYTREE_WARM, PYTREE_TIMED, PYTREE_PROF = 2, 4, 1
+ENGINE_STEPS = 2
+# the flat engine against the pytree engine: the reference's own tier for
+# that comparison (tests/test_flat_engine.py), |a - b| <= 2e-5 + 2e-5 |b|
+ENGINE_ATOL = ENGINE_RTOL = 2e-5
+BF16_WARM, BF16_TIMED, BF16_PROF = 2, 4, 1
 # the gossip kernel rounds every operation as its plain version does, so
 # the two agree bitwise; a training step recomputes its gradients, and
 # cuBLAS or the embedding backward may sum in another order run to run
@@ -1143,26 +1173,28 @@ def reorth_phase():
 # phase 4: full-width training
 # ---------------------------------------------------------------------------
 
-def _train_100m_trainer(api, backend):
+def _train_100m_trainer(api, backend, algo="dpsgd", engine="auto"):
     from repro_torch.core import AlgoConfig, MultiLearnerTrainer
     from repro_torch.optim import scale_by_schedule, sgd, warmup_linear_scale
     opt = scale_by_schedule(sgd(TRAIN_LR, momentum=0.9),
                             warmup_linear_scale(10, 1.0))
     return MultiLearnerTrainer(
         api.loss_fn, opt,
-        AlgoConfig(algo="dpsgd", topology="random_pair",
-                   n_learners=TRAIN_LEARNERS),
-        alpha_for_diag=TRAIN_LR, kernel_backend=backend,
+        AlgoConfig(algo=algo, topology="random_pair",
+                   n_learners=TRAIN_LEARNERS, noise_std=SSGD_STAR_NOISE),
+        alpha_for_diag=TRAIN_LR, kernel_backend=backend, engine=engine,
         params_from_tree=api.params_from_tree)
 
 
 def train_100m(kernels, warm, timed, prof, use_pallas=False,
-               keep_after_warm=False):
-    """Train transformer-100m with phase 4's recipe for ``warm`` warm-up,
-    ``timed`` timed and ``prof`` profiled steps, every launch count set to
-    0 just before the first; checks that every loss is finite and that the
-    gossip kernel launched once per round.  Returns the run's pieces, with
-    a copy of the store after the warm-up when ``keep_after_warm``."""
+               keep_after_warm=False, algo="dpsgd", dtype="float32"):
+    """Train transformer-100m with phase 4's recipe (``algo`` on the engine
+    ``auto`` routes it to, parameters and compute in ``dtype``) for
+    ``warm`` warm-up, ``timed`` timed and ``prof`` profiled steps, every
+    launch count set to 0 just before the first; checks that every loss is
+    finite and that the gossip kernel launched once per round on the
+    fused flat engine (and never elsewhere).  Returns the run's pieces,
+    with a copy of the store after the warm-up when ``keep_after_warm``."""
     from types import SimpleNamespace
 
     from repro_torch.configs import get_config
@@ -1170,7 +1202,8 @@ def train_100m(kernels, warm, timed, prof, use_pallas=False,
     from repro_torch.models import build_model
 
     cfg = dataclasses.replace(get_config("transformer-100m"),
-                              use_pallas=use_pallas)
+                              use_pallas=use_pallas, param_dtype=dtype,
+                              compute_dtype=dtype)
     api = build_model(cfg)
     tree = api.param_tree(api.init(SEED))
     steps = warm + timed + prof
@@ -1183,11 +1216,12 @@ def train_100m(kernels, warm, timed, prof, use_pallas=False,
     torch.cuda.synchronize()
     data_s = time.perf_counter() - t0
 
-    trainer = _train_100m_trainer(api, "auto")
+    trainer = _train_100m_trainer(api, "auto", algo=algo)
     state = trainer.init(SEED, tree)
-    check(state.params.shape[1] == TRAIN_ROWS,
-          f"the flat store has {state.params.shape[1]} rows, the gossip "
-          f"check ran at {TRAIN_ROWS}")
+    if trainer.is_flat:
+        check(state.params.shape[1] == TRAIN_ROWS,
+              f"the flat store has {state.params.shape[1]} rows, the "
+              f"gossip check ran at {TRAIN_ROWS}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for k in kernels:
@@ -1213,10 +1247,11 @@ def train_100m(kernels, warm, timed, prof, use_pallas=False,
 
     losses = torch.stack([m.loss for m in metrics]).tolist()
     check(all(np.isfinite(losses)), f"non-finite training loss: {losses}")
-    check(launches["gossip_mix_update_flat"] == steps
-          * trainer.rounds_per_step,
+    want = steps * trainer.rounds_per_step if trainer.is_fused else 0
+    check(launches["gossip_mix_update_flat"] == want,
           f"gossip kernel launches {launches['gossip_mix_update_flat']} != "
-          f"{steps} steps x {trainer.rounds_per_step} rounds")
+          f"{want} ({steps} steps x {trainer.rounds_per_step} rounds, "
+          f"fused: {trainer.is_fused})")
     tokens = TRAIN_LEARNERS * TRAIN_BATCH * TRAIN_SEQ
     return SimpleNamespace(
         cfg=cfg, api=api, tree=tree, loader=loader, batches=batches,
@@ -1960,6 +1995,263 @@ def flash_train_phase(kernels, chunked_train):
     }, launches["flash_attention_fwd"]
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the pytree engine at full width (SSGD*, pytree vs flat, bf16)
+# ---------------------------------------------------------------------------
+
+def _cast_leaves(meta):
+    """Indices (in the flat store's order) of the leaves that are not
+    float32: the ones the flat engine casts around each forward and
+    backward."""
+    return [j for j, dt in enumerate(meta.dtypes) if dt != torch.float32]
+
+
+def _cast_passes_ms(meta, state, iters=5):
+    """Event ms of one step's bf16 cast pass and of its gradient write
+    pass, run alone: the trainer's copies, on tensors of this script's own.
+    The cast pass copies every learner's row of each cast leaf from the
+    float32 store into a bf16 leaf; the write pass copies a bf16 gradient
+    into a float32 store of the same layout."""
+    cast = _cast_leaves(meta)
+    src = meta.views(state.params)
+    dst = meta.views(torch.empty_like(state.params))
+    one = [torch.zeros(meta.shapes[i], dtype=meta.dtypes[i],
+                       device=state.params.device) for i in cast]
+    n = state.params.shape[0]
+    passes = {
+        "cast": lambda: [c.copy_(src[i][j]) for j in range(n)
+                         for c, i in zip(one, cast)],
+        "write": lambda: [dst[i][j].copy_(c) for j in range(n)
+                          for c, i in zip(one, cast)]}
+    out = {}
+    with torch.no_grad():
+        for name, fn in passes.items():
+            out[name] = time_ms(fn, [()], iters=iters)
+    return out
+
+
+def pytree_phase(kernels, chunked_train):
+    """(a) SSGD* on the pytree engine; (b) DPSGD on the pytree engine
+    against the flat engine (kernel #2) from the same seed; (c) bf16 leaves
+    on the flat engine against ``kernel_backend="ref"``.  Returns (record,
+    gossip launches by path)."""
+    from repro_torch.core import flat_meta
+
+    names = [k.__name__ for k in kernels]
+    out, gossip = {}, {}
+
+    # (a) SSGD*: the pytree engine at full width, no kernel on its path
+    run = train_100m(kernels, PYTREE_WARM, PYTREE_TIMED, PYTREE_PROF,
+                     algo="ssgd_star")
+    check(not run.trainer.is_flat, "SSGD* did not take the pytree engine")
+    check(sum(run.launches.values()) == 0,
+          f"the SSGD* path launched a kernel: {run.launches}")
+    out["a_ssgd_star"] = {
+        "engine": "pytree", "noise_std": SSGD_STAR_NOISE,
+        "steps": run.steps, "timed_steps": PYTREE_TIMED,
+        "ms_per_step": run.step_ms, "tokens_per_s": run.tokens_per_s,
+        "profile": run.profile,
+        "max_memory_allocated_gb": run.peak_gb, "losses": run.losses,
+        "sigma_w_sq_last": float(run.metrics[-1].sigma_w_sq),
+        "kernel_launches": run.launches}
+    api, tree, batches = run.api, run.tree, run.batches
+    del run
+    torch.cuda.empty_cache()
+
+    # (b) DPSGD on random_pair, pytree against flat (the gossip kernel)
+    params, losses = {}, {}
+    for engine in ("pytree", "flat"):
+        for k in kernels:
+            k.launches = 0
+        tr = _train_100m_trainer(api, "auto", engine=engine)
+        st = tr.init(SEED, tree)
+        ls = []
+        for i in range(ENGINE_STEPS):
+            st, m = tr.train_step(st, batches[i])
+            ls.append(m.loss)
+        torch.cuda.synchronize()
+        launches = {n: k.launches for n, k in zip(names, kernels)}
+        want = ENGINE_STEPS if engine == "flat" else 0
+        check(launches["gossip_mix_update_flat"] == want
+              and sum(launches.values()) == want,
+              f"{engine} DPSGD launches {launches}, want {want} gossip")
+        gossip[f"transformer_100m_dpsgd_{engine}_engine"] = launches[
+            "gossip_mix_update_flat"]
+        params[engine] = [x.clone() for x in _leaves(tr.params_tree(st))]
+        losses[engine] = torch.stack(ls).tolist()
+        del tr, st
+        torch.cuda.empty_cache()
+    excess = max(float(((a - b).abs() - ENGINE_RTOL * b.abs()).max())
+                 for a, b in zip(params["flat"], params["pytree"]))
+    diff = max(float((a - b).abs().max())
+               for a, b in zip(params["flat"], params["pytree"]))
+    check(excess <= ENGINE_ATOL,
+          f"flat and pytree DPSGD differ by {diff} after {ENGINE_STEPS} "
+          f"steps (|a-b| - {ENGINE_RTOL}|b| = {excess} > {ENGINE_ATOL})")
+    out["b_dpsgd_pytree_vs_flat"] = {
+        "steps": ENGINE_STEPS, "max_abs_diff": diff,
+        "max_excess_over_rtol": excess, "atol": ENGINE_ATOL,
+        "rtol": ENGINE_RTOL, "losses": losses}
+    del params, api, tree, batches
+    torch.cuda.empty_cache()
+
+    # (c) bf16 leaves on the flat engine: cast in, write back, kernel #2
+    run = train_100m(kernels, BF16_WARM, BF16_TIMED, BF16_PROF,
+                     keep_after_warm=True, dtype="bfloat16")
+    tr = run.trainer
+    meta = flat_meta(run.tree)
+    cast = _cast_leaves(meta)
+    check(tr.is_flat and len(cast) > 0
+          and run.state.params.dtype == torch.float32,
+          "the bf16 run did not cast on the flat engine")
+    check(sum(v for n, v in run.launches.items()
+              if n != "gossip_mix_update_flat") == 0,
+          f"the bf16 path launched another path's kernel: {run.launches}")
+    gossip["transformer_100m_bf16_flat"] = run.launches[
+        "gossip_mix_update_flat"]
+    passes = _cast_passes_ms(meta, run.state)
+    busy = run.profile["device_busy_ms_per_step"]
+    n_cast = sum(meta.sizes[i] for i in cast)
+    record = {
+        "dtype": "bfloat16", "engine": "flat", "steps": run.steps,
+        "timed_steps": BF16_TIMED, "ms_per_step": run.step_ms,
+        "tokens_per_s": run.tokens_per_s,
+        "float32_phase4_ms_per_step": chunked_train["ms_per_step"],
+        "profile": run.profile, "max_memory_allocated_gb": run.peak_gb,
+        "losses": run.losses, "cast_leaves": len(cast),
+        "cast_elements_per_learner": n_cast,
+        "cast_pass_ms_per_step": passes["cast"],
+        "write_pass_ms_per_step": passes["write"],
+        "cast_and_write_share_of_device": (
+            (passes["cast"] + passes["write"]) / busy if busy else None),
+        "kernel_launches": run.launches}
+    after_warm, batches, api, tree = (run.after_warm, run.batches, run.api,
+                                      run.tree)
+    del run, tr
+    torch.cuda.empty_cache()
+    ref = _train_100m_trainer(api, "ref")
+    ref_state = ref.init(SEED, tree)
+    for i in range(REF_STEPS):
+        ref_state, _ = ref.train_step(ref_state, batches[i])
+    ref_err = float((ref_state.params - after_warm).abs().max())
+    check(ref_err <= TRAIN_REF_ATOL,
+          f"bf16: kernel and plain training differ by {ref_err} after "
+          f"{REF_STEPS} steps")
+    record["ref_backend_max_abs_diff_after_2_steps"] = ref_err
+    out["c_bf16_flat"] = record
+    del ref, ref_state, after_warm
+    torch.cuda.empty_cache()
+    return out, gossip
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the paper's experiments on the FC net (the bench twins)
+# ---------------------------------------------------------------------------
+
+def paper_phase(kernels):
+    """The Fig. 2, topology-ablation, Table 4 and Fig. 4 twins, each with
+    the launch counts zeroed just before it and read just after.  Returns
+    (record, gossip launches by path, reorth launches)."""
+    from repro_torch.bench import (ablation_topology, fig2_effective_lr,
+                                   fig4_noise_decomp, table4_lr_tuning)
+    from repro_torch.bench.common import final_loss
+
+    names = [k.__name__ for k in kernels]
+
+    def zero():
+        for k in kernels:
+            k.launches = 0
+
+    def read():
+        return {n: k.launches for n, k in zip(names, kernels)}
+
+    def only(launches, allowed, what):
+        others = {n: v for n, v in launches.items() if n not in allowed}
+        check(sum(others.values()) == 0,
+              f"{what} launched another path's kernel: {others}")
+
+    out, gossip = {}, {}
+    zero()
+    t0 = time.perf_counter()
+    fig2 = fig2_effective_lr.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read()
+    final = {a: final_loss(r["losses"]) for a, r in fig2["runs"].items()}
+    check(np.isfinite(final["dpsgd"]) and final["dpsgd"] < final["ssgd"],
+          f"Fig. 2: DPSGD {final['dpsgd']} did not end below SSGD "
+          f"{final['ssgd']}")
+    n_probes = sum(len(r["probes"]) for r in fig2["runs"].values())
+    want = 2 * 8 * n_probes
+    check(n_probes > 0 and launches["reorth_dots"] == want
+          == launches["reorth_axpy"],
+          f"Fig. 2 reorth launches {launches}, want {want} each for "
+          f"{n_probes} probes")
+    want_g = fig2_effective_lr.STEPS        # the DPSGD run, one round a step
+    check(launches["gossip_mix_update_flat"] == want_g,
+          f"Fig. 2 gossip launches {launches['gossip_mix_update_flat']} != "
+          f"{want_g}")
+    only(launches, ("reorth_dots", "reorth_axpy", "gossip_mix_update_flat"),
+         "Fig. 2")
+    gossip["fig2_dpsgd"] = launches["gossip_mix_update_flat"]
+    reorth = {k: launches[k] for k in ("reorth_dots", "reorth_axpy")}
+    derived = fig2_effective_lr.derived(fig2)
+    print(f"fig2_effective_lr,{fig2['us_per_step']:.0f},{derived}",
+          flush=True)
+    out["fig2"] = {"final_loss": final, "ssgd_star_sweep": fig2["sweep"],
+                   "eq4_mean_abs_err_over_alpha": fig2["eq4"],
+                   "probes": n_probes, "us_per_step": fig2["us_per_step"],
+                   "wall_s": wall, "kernel_launches": launches,
+                   "derived": derived, "rows": fig2["rows"]}
+    del fig2
+
+    rows, t0 = [], time.perf_counter()
+    for name in ablation_topology.TOPOLOGIES:
+        zero()
+        r = ablation_topology.run_topology(name)
+        launches = read()
+        want = r["rounds_per_step"] * r["steps"]
+        check(launches["gossip_mix_update_flat"] == want,
+              f"ablation {name}: gossip launches "
+              f"{launches['gossip_mix_update_flat']} != {want} "
+              f"({r['rounds_per_step']} rounds x {r['steps']} steps)")
+        only(launches, ("gossip_mix_update_flat",), f"ablation {name}")
+        gossip[f"ablation_{name}"] = launches["gossip_mix_update_flat"]
+        r["kernel_launches"] = launches["gossip_mix_update_flat"]
+        rows.append(r)
+    ablation_topology.check(rows)
+    derived = ablation_topology.derived(rows)
+    us = sum(r["us_per_step"] for r in rows) / len(rows)
+    print(f"ablation_topology,{us:.0f},{derived}", flush=True)
+    out["ablation"] = {"rows": rows, "derived": derived,
+                       "wall_s": time.perf_counter() - t0}
+
+    for key, mod, runs in (("table4", table4_lr_tuning,
+                            len(table4_lr_tuning.LRS)),
+                           ("fig4", fig4_noise_decomp, 1)):
+        zero()
+        t0 = time.perf_counter()
+        res = mod.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read()
+        want = 120 * runs               # 120 DPSGD steps a run
+        check(launches["gossip_mix_update_flat"] == want,
+              f"{key}: gossip launches {launches} != {want}")
+        only(launches, ("gossip_mix_update_flat",), key)
+        gossip[f"{key}_dpsgd"] = launches["gossip_mix_update_flat"]
+        rows = res["rows"]
+        check(all(np.isfinite(x) for r in rows for x in r[1:]
+                  if isinstance(x, float)), f"{key}: non-finite {rows}")
+        derived = mod.derived(rows)
+        print(f"{mod.__name__.rsplit('.', 1)[1]},{res['us_per_step']:.0f},"
+              f"{derived}", flush=True)
+        out[key] = {"rows": rows, "derived": derived, "wall_s": wall,
+                    "us_per_step": res["us_per_step"],
+                    "kernel_launches": launches}
+    return out, gossip, reorth
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
@@ -2047,6 +2339,21 @@ def main() -> int:
     flash_record["launches_by_path"] = {
         "gemma2_prefill_and_loss_backward": gemma_launches,
         "transformer_100m_use_pallas_training": train_launches}
+    pytree, pytree_gossip = pytree_phase(kernels, train)
+    print(json.dumps({"pytree_engine": pytree}), flush=True)
+    paper, paper_gossip, fig2_reorth = paper_phase(kernels)
+    print(json.dumps({"paper_fc": paper}), flush=True)
+    gossip_record["launches_by_path"] = {
+        "transformer_100m_dpsgd_training": gossip_record["launches"],
+        **pytree_gossip, **paper_gossip}
+    gossip_record["launches"] = sum(
+        gossip_record["launches_by_path"].values())
+    for record in (dots_record, axpy_record):
+        name = record["name"]
+        record["launches_by_path"] = {
+            "transformer_100m_probe": record["launches"],
+            "fig2_probes": fig2_reorth[name]}
+        record["launches"] += fig2_reorth[name]
 
     print(card, flush=True)
     print(json.dumps({"kernels": [decode_record, gossip_record, dots_record,

@@ -1,8 +1,20 @@
 """The port's paper benchmarks (ROADMAP: port benchmarks live here, not in
 ``benchmarks/``).  ``common.train_fc`` is the twin of
-``benchmarks/common.py::train_fc``; ``table1_large_batch`` the twin of
-``benchmarks/table1_large_batch.py``:
+``benchmarks/common.py::train_fc``; each other module is the twin of the
+reference script of its name, with the same columns and the same summary
+row ``name,us_per_call,derived``:
 
-    PYTHONPATH=src python -m repro_torch.bench.table1_large_batch
-    PYTHONPATH=src python -m repro_torch.bench.table1_large_batch --device cpu
+  * ``table1_large_batch`` — Table 1, with the ``ssgd_autolr`` column;
+  * ``fig2_effective_lr`` — Fig. 2: SSGD, DPSGD and SSGD*, diagnostics and
+    probes, SSGD*'s noise sweep;
+  * ``ablation_topology`` — every gossip schedule, fused, against its
+    spectral-gap bound;
+  * ``table4_lr_tuning`` — Table 4: SSGD and DPSGD over four lrs;
+  * ``fig4_noise_decomp`` — Fig. 4: Delta_S against Delta2;
+  * ``theorem1_smoothing`` — Theorem 1's 2G/sigma smoothing bound.
+
+Each runs on the card unless told otherwise, and takes ``--smoke``:
+
+    PYTHONPATH=src python -m repro_torch.bench.<name>
+    PYTHONPATH=src python -m repro_torch.bench.<name> --device cpu --smoke
 """

@@ -10,10 +10,11 @@ carry a leading learner axis of size n.  One DPSGD step (paper Eq. 2,
     w_j   <- w_s,j - alpha * g_j
 
 SSGD (Eq. 1): g_j = grad L^{mu_j}(w_a); w_a <- w_a - alpha * mean_j g_j.
-AD-PSGD averages with a partner's possibly stale published weights (see
-``core/trainer.py``).  The collective (multi-GPU) gossip helpers arrive
-with the launch slice (ROADMAP slice 7); ``member_active_mask`` and
-``perturb_weights`` (SSGD*) with slices 4 and 2.
+SSGD* takes SSGD's gradients at w_a + delta_j, delta_j ~ N(0, sigma0^2 I)
+(``perturb_weights``).  AD-PSGD averages with a partner's possibly stale
+published weights (see ``core/trainer.py``).  The collective (multi-GPU)
+gossip helpers arrive with the launch slice (ROADMAP slice 7) and
+``member_active_mask`` with elastic membership (slice 6).
 """
 from __future__ import annotations
 
@@ -22,10 +23,10 @@ import dataclasses
 import torch
 
 from ..tree import tree_leaves, tree_map
-from .util import learner_mean
+from .util import learner_mean, tree_add, tree_gaussian_like
 
 __all__ = ["AlgoConfig", "mix_einsum", "mix_pair_gather",
-           "straggler_active_mask", "mean_broadcast"]
+           "straggler_active_mask", "perturb_weights", "mean_broadcast"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,6 +110,12 @@ def straggler_active_mask(step: int, n: int, slow_learner: int,
         return torch.ones((n,), dtype=torch.bool, device=device)
     idx = torch.arange(n, device=device)
     return (idx != slow_learner) | (step % slow_factor == 0)
+
+
+def perturb_weights(gen: torch.Generator, params, std: float):
+    """SSGD*: w + delta, delta ~ N(0, std^2 I) drawn leaf by leaf from
+    ``gen`` (the reference's law; its ``jax.random`` draws differ)."""
+    return tree_add(params, tree_gaussian_like(gen, params, std))
 
 
 def mean_broadcast(stacked):

@@ -8,15 +8,23 @@ row count T (rounded up to ``ROW_ALIGN``).  So the port's ``(n, T, 128)``
 store equals the reference's element for element.
 
   * ``flatten`` builds the buffer; the trainer calls it once, at init.
+    The buffer is float32 whatever the leaves' dtypes, as the reference's
+    ``flatten(dtype=float32)``.
   * ``unflatten`` returns per-leaf VIEWS into a buffer (no copy) for
     float32 leaves; a leaf of another dtype comes back as a cast copy, as
     the reference's ``astype`` does.
+  * ``views`` returns every leaf as a float32 view of the buffer, whatever
+    its recorded dtype: what the trainer binds and casts from.
 
 Gradients reach one flat grad buffer without a parameter-sized ``cat``
-through the trainer's binding (``core/trainer.py``): every leaf view is
-made its own autograd leaf and its ``.grad`` is preset to the matching view
-of the grad buffer, so autograd's accumulation adds into that buffer in
-place.  (Differentiating through slices of one big leaf instead would make
+through the trainer's binding (``core/trainer.py``): every float32 leaf
+view is made its own autograd leaf and its ``.grad`` is preset to the
+matching view of the grad buffer, so autograd's accumulation adds into
+that buffer in place.  A leaf of another dtype (bf16) cannot be a view of
+the float32 store: the trainer casts it into a persistent leaf of its own
+dtype before each forward and writes its gradient back into the float32
+grad buffer after the backward, as the reference's custom VJP scatters
+``ct.astype(float32)``.  (Differentiating through slices of one big leaf instead would make
 PyTorch's slice backward allocate a buffer-sized zero tensor per leaf — the
 torch form of the pad-and-add transpose the reference's custom VJP avoids.)
 
@@ -26,7 +34,7 @@ The pad region is written as zeros by ``flatten`` and never escapes:
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Tuple
+from typing import Any, List, Tuple
 
 import torch
 
@@ -74,16 +82,20 @@ class FlatMeta:
             out[..., off:off + sz] = leaf.reshape(lead + (sz,))
         return out.view(lead + (self.rows, LANE))
 
+    def views(self, flat: torch.Tensor) -> List[torch.Tensor]:
+        """``lead + (T, 128)`` buffer -> its leaves, in order, as views in
+        the buffer's own dtype (no cast, no copy)."""
+        lead = tuple(flat.shape[:-2])
+        v = flat.reshape(lead + (self.padded,))
+        return [v[..., off:off + sz].view(lead + shape)
+                for off, sz, shape in zip(self.offsets, self.sizes,
+                                          self.shapes)]
+
     def unflatten(self, flat: torch.Tensor):
         """``lead + (T, 128)`` buffer -> tree of per-leaf views (float32
         leaves) or cast copies (other dtypes)."""
-        lead = tuple(flat.shape[:-2])
-        v = flat.reshape(lead + (self.padded,))
-        leaves = []
-        for off, sz, shape, dt in zip(self.offsets, self.sizes, self.shapes,
-                                      self.dtypes):
-            leaf = v[..., off:off + sz].view(lead + shape)
-            leaves.append(leaf if dt == flat.dtype else leaf.to(dt))
+        leaves = [leaf if dt == flat.dtype else leaf.to(dt)
+                  for leaf, dt in zip(self.views(flat), self.dtypes)]
         return tree_unflatten(self.treedef, leaves)
 
 

@@ -1,48 +1,62 @@
-"""MultiLearnerTrainer — SSGD / DPSGD / AD-PSGD on the flat engine; the port
-of ``repro/core/trainer.py``.
+"""MultiLearnerTrainer — SSGD / SSGD* / DPSGD / AD-PSGD; the port of
+``repro/core/trainer.py``.
 
 Semantics (paper Sec. 2; Lian et al. 2018 for the async variant):
   SSGD   : g_j = grad L^{mu_j}(w_a);          w_a <- w_a + opt(mean_j g_j)
+  SSGD*  : g_j = grad L^{mu_j}(w_a + delta_j) with delta_j ~ N(0, sigma0^2 I)
   DPSGD  : g_j = grad L^{mu_j}(w_j);          w_j <- mix(w)_j + opt_j(g_j)
   AD-PSGD: like DPSGD with pairwise gossip, but the partner's contribution is
            its last *published* weights (stale by up to ``max_staleness``
            ticks), and an injected straggler only completes a step every
            ``slow_factor`` ticks.
 
-The flat engine (DESIGN §11) keeps the stacked parameters as ONE persistent
-(n, T, 128) float32 buffer (``core/flatstate.py``), flattened once at init.
-Each learner's parameters are views into it, bound once at init: every view
-is its own autograd leaf whose ``.grad`` is the matching view of one
-(n, T, 128) grad buffer, so a backward pass adds the gradients straight
-into that buffer (no parameter-sized ``cat``).  The gossip + momentum-SGD
-update then runs as the hand-written kernel (``kernels/ops``), once per
-gossip round; ``kernel_backend="ref"`` runs its plain version instead.
+Two engines (DESIGN §11), routed as the reference routes them:
 
-Two (n, T, 128) weight buffers alternate: a kernel pass reads one and
-writes the other (another learner may still read a row a block would
-overwrite), and each buffer carries its own bound views.  So a state is
-consumed by ``train_step`` — as the reference donates it — and the trainer
-holds one live state at a time.  AD-PSGD's published buffer alternates the
-same way; the momentum is updated in place.
+  * ``engine="flat"`` (the default for DPSGD and AD-PSGD) keeps the stacked
+    parameters as ONE persistent (n, T, 128) float32 buffer
+    (``core/flatstate.py``), flattened once at init.  Each learner's
+    parameters are views into it, bound once at init: every view is its
+    own autograd leaf whose ``.grad`` is the matching view of one
+    (n, T, 128) grad buffer, so a backward pass adds the gradients straight
+    into that buffer (no parameter-sized ``cat``).  A leaf of another
+    dtype (bf16) is cast from its row into a persistent leaf of its own
+    dtype before each learner's forward, and its gradient written back
+    into the float32 grad buffer after the backward.  The gossip +
+    momentum-SGD update then runs as the hand-written kernel
+    (``kernels/ops``), once per gossip round; ``kernel_backend="ref"``
+    runs its plain version instead.
+  * ``engine="pytree"`` (the default for SSGD, SSGD* and a
+    ``layout_sensitive`` optimizer such as lamb) keeps stacked parameter
+    trees (leaves (n, ...)) and runs the unfused tree updates, the paper's
+    form.  Its gradients land in a stacked grad tree through the same
+    binding, leaf by leaf: each learner's row of every stacked leaf is its
+    own autograd leaf whose ``.grad`` is the matching row of the grad tree.
+
+The flat engine keeps two alternating parameter stores, since its kernel
+writes out of place: a step reads one and writes the other, and each store
+carries its own bound views.  The pytree engine's updates build new trees,
+so it keeps one bound store and copies each step's result into it.  Either
+way a state is consumed by ``train_step`` — as the reference donates it —
+and the trainer holds one live state at a time: ``train_step`` raises on a
+state whose parameters are not its store (``state_from_view`` restores a
+saved one).  AD-PSGD's published buffer on the flat engine alternates like
+its parameters; the momentum is updated in place.
 
 The probe seam (DESIGN §10): ``add_probe`` registers a measurement under
 a schedule (``landscape.ProbeSchedule``), ``run_probes`` runs the due ones
 between steps — each receives the tree view ``state_view(state)``, and its
-optional ``on_result`` receives the real flat state, so a controller
+optional ``on_result`` receives the real state, so a controller
 (``landscape.AutoLRController`` through ``optim.set_controller_scale``)
 writes the live optimizer state.  ``diagnostics`` measures the paper's
 alpha_e, sigma_w^2 and Delta split (``core/diagnostics.py``).
 
-What the reference has and this port does not yet (each raises
-``NotImplementedError`` naming its ROADMAP slice): the pytree engine and
-SSGD* (the rest of slice 2); elastic membership (slice 6).
-``engine="auto"`` sends every algorithm, SSGD included, to the flat
-engine, since the pytree engine is not ported.
+Elastic membership (ROADMAP slice 6) raises ``NotImplementedError``.
 
-``train_step`` makes no host sync: gossip tables are drawn on the device,
-masks are built there from host integers, and the metrics stay device
-tensors.  Nor do ``run_probes`` and ``diagnostics`` (``state.step`` is a
-host integer); a controller's reads of a probe result are its own.
+``train_step`` makes no host sync: gossip tables and SSGD*'s noise are
+drawn on the device, masks are built there from host integers, and the
+metrics stay device tensors.  Nor do ``run_probes`` and ``diagnostics``
+(``state.step`` is a host integer); a controller's reads of a probe
+result are its own.
 
 # lint: hot-path
 """
@@ -56,24 +70,28 @@ import torch
 from ..device import resolve_device
 from ..kernels import ops as kops
 from ..optim import Optimizer, apply_updates
+from ..tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 from . import schedule as gsched
 from .diagnostics import DiagStats, compute_diagnostics
 from .dpsgd import (AlgoConfig, mean_broadcast, mix_einsum,
                     mix_pair_gather, straggler_active_mask)
 from .flatstate import LANE, FlatMeta, flat_meta
-from ..tree import tree_leaves, tree_map
+from .util import (learner_mean, learner_var, tree_gaussian_like,
+                   tree_norm_sq)
 
-_PYTREE = ("the pytree engine is not ported yet: it arrives with the rest "
-           "of ROADMAP slice 2")
+# the SSGD* noise stream's seeds: the matchings' seeds XOR this, so the
+# two streams differ at every (seed, step)
+_NOISE_STREAM = 0x5DEECE66D2B7E151
 
 
 class TrainState(NamedTuple):
-    params: Any           # (n, T, 128) flat store (one of two alternating)
+    params: Any           # flat: (n, T, 128) store; pytree: stacked tree
     opt_state: Any        # stacked per-learner
     step: int             # a host integer: no device read to branch on it
-    seed: int             # matchings at step t come from (seed, t)
+    seed: int             # matchings (and SSGD*'s noise) at step t come
+    #                       from (seed, t)
     # -- adpsgd only (None otherwise) --------------------------------------
-    buffer: Any = None    # last-published weights, (n, T, 128)
+    buffer: Any = None    # last-published weights, laid out like params
     age: Any = None       # (n,) int32 ticks since each learner published
     clock: Any = None     # (n,) int32 completed local steps per learner
     members: Any = None   # elastic membership: ROADMAP slice 6
@@ -89,6 +107,14 @@ class StepMetrics(NamedTuple):
     grad_sq_mean: torch.Tensor  # mean_i ||g_i||^2
 
 
+class _Bound(NamedTuple):
+    """One learner's parameters bound to one store: the object ``loss_fn``
+    takes, and per cast leaf (store view, cast leaf, cast grad, grad
+    view)."""
+    params: Any
+    casts: tuple
+
+
 def _param_leaves(params) -> List[torch.Tensor]:
     if isinstance(params, torch.nn.Module):
         return list(params.parameters())
@@ -97,6 +123,31 @@ def _param_leaves(params) -> List[torch.Tensor]:
 
 def _step_seed(seed: int, step: int) -> int:
     return (seed * 1_000_003 + step) % (2 ** 63)
+
+
+def _noise_seed(seed: int, step: int) -> int:
+    return _step_seed(seed, step) ^ _NOISE_STREAM
+
+
+def _select(mask, new, old):
+    """Per-learner select: leaf[j] = new[j] if mask[j] else old[j]."""
+    def _sel(a, b):
+        return torch.where(mask.reshape((-1,) + (1,) * (a.dim() - 1)), a, b)
+    return tree_map(_sel, new, old)
+
+
+def _copy_tree(dst, src):
+    """Write ``src``'s leaves into ``dst``'s (a store) in place."""
+    for d, s in zip(tree_leaves(dst), tree_leaves(src)):
+        d.copy_(s)
+    return dst
+
+
+def _per_learner_grad_sq(grads) -> torch.Tensor:
+    """(n,) float32: ||g_i||^2 per learner, summed leaf by leaf."""
+    return sum(torch.sum(torch.square(g.float()),
+                         dim=tuple(range(1, g.dim())))
+               for g in tree_leaves(grads))
 
 
 @dataclasses.dataclass
@@ -121,7 +172,7 @@ class MultiLearnerTrainer:
     algo: AlgoConfig
     alpha_for_diag: float = 1.0   # alpha of the alpha_e instrument
     hooks: list = dataclasses.field(default_factory=list)  # [ProbeHook]
-    engine: str = "auto"       # auto | flat (pytree: not ported yet)
+    engine: str = "auto"       # auto | flat | pytree (DESIGN §11)
     kernel_backend: str = "auto"   # auto | cuda | ref (flat-engine dispatch)
     # tree of views (the reference's layout) -> the params object loss_fn
     # takes; identity for dict-of-tensor models such as the FC net
@@ -134,40 +185,71 @@ class MultiLearnerTrainer:
             self.algo.topology, self.algo.n_learners,
             rounds=self.algo.gossip_rounds)
         opt = self.optimizer
-        if (getattr(opt, "wants_mixed", False)
-                and self.algo.gossip_order != "mix_then_descend"):
+        wants_mixed = getattr(opt, "wants_mixed", False)
+        if wants_mixed and self.algo.gossip_order != "mix_then_descend":
             raise ValueError("decentlam-style optimizers need the gossip "
                              "average: use gossip_order='mix_then_descend'")
+        if (wants_mixed and getattr(opt, "static_mixing_only", False)
+                and self._schedule is not None
+                and self._schedule.time_varying):
+            raise ValueError(
+                "this optimizer's correction assumes a STATIC mixing "
+                f"matrix, but topology='{self.algo.topology}' compiles to a "
+                "time-varying GossipSchedule: the exact DecentLaM drift "
+                "diverges under switching matchings (see optim/decentlam.py)."
+                " Use drift_scale=1-momentum, a static topology, or "
+                "unsafe_switching=True to demonstrate the divergence")
         if self.engine not in ("auto", "flat", "pytree"):
             raise ValueError(f"unknown engine {self.engine!r}")
         if self.kernel_backend not in kops.BACKENDS:
             raise ValueError(f"kernel_backend must be one of {kops.BACKENDS}"
                              f", got {self.kernel_backend!r}")
-        if self.engine == "pytree":
-            raise NotImplementedError(f"engine='pytree': {_PYTREE}")
-        if self.algo.algo == "ssgd_star":
-            raise NotImplementedError(
-                f"ssgd_star draws per-leaf weight noise on the pytree "
-                f"engine; {_PYTREE}")
-        if getattr(opt, "layout_sensitive", False):
-            raise ValueError(
-                "this optimizer's update depends on the per-leaf structure; "
-                f"the flat engine would change its semantics, and {_PYTREE}")
+        layout_sensitive = getattr(opt, "layout_sensitive", False)
+        if self.engine == "auto":
+            # the flat fused engine carries the decentralized algorithms;
+            # SSGD / SSGD* keep the reference layout (no gossip to fuse;
+            # SSGD* draws per-leaf noise), and so does a layout-sensitive
+            # optimizer (lamb's layer-wise trust ratio would collapse on
+            # the one flat leaf)
+            self._flat = (self.algo.algo in ("dpsgd", "adpsgd")
+                          and not layout_sensitive)
+        else:
+            if self.engine == "flat" and self.algo.algo == "ssgd_star":
+                raise ValueError("ssgd_star draws per-leaf weight noise; "
+                                 "use engine='pytree'")
+            if self.engine == "flat" and layout_sensitive:
+                raise ValueError(
+                    "this optimizer's update depends on the per-leaf "
+                    "structure (layout_sensitive=True, e.g. lamb's "
+                    "layer-wise trust ratio): the flat engine would change "
+                    "its semantics; use engine='pytree'")
+            self._flat = self.engine == "flat"
         f = getattr(opt, "fused", None)
         self._fused = None
-        if (f is not None and self.algo.algo in ("dpsgd", "adpsgd")
-                and not getattr(opt, "wants_mixed", False)
+        if (self._flat and f is not None
+                and self.algo.algo in ("dpsgd", "adpsgd")
+                and not wants_mixed
                 and self.algo.gossip_order == "mix_then_descend"
                 and self._schedule is not None):
             self._fused = f
         self._meta: Optional[FlatMeta] = None   # set at init()
         self._gen = torch.Generator(device=self.device)
+        self._noise_gen = torch.Generator(device=self.device)
 
     # -- engine helpers -------------------------------------------------------
     @property
+    def is_flat(self) -> bool:
+        return self._flat
+
+    @property
+    def is_fused(self) -> bool:
+        """True if the gossip + update runs as the flat engine's kernel."""
+        return self._fused is not None
+
+    @property
     def rounds_per_step(self) -> int:
-        """Gossip kernel passes per step (0 for ssgd and solo)."""
-        if self.algo.algo == "ssgd" or self._schedule is None:
+        """Gossip passes per step (0 for ssgd, ssgd_star and solo)."""
+        if self.algo.algo in ("ssgd", "ssgd_star") or self._schedule is None:
             return 0
         return self._schedule.rounds_per_step
 
@@ -175,82 +257,165 @@ class MultiLearnerTrainer:
         return tree if self.params_from_tree is None else \
             self.params_from_tree(tree)
 
-    def _bind(self, w_row: torch.Tensor, g_row: torch.Tensor):
-        """The loss_fn's params object for one learner's row of the store:
-        every parameter a view of ``w_row`` and an autograd leaf whose
-        ``.grad`` is the matching view of ``g_row``."""
+    def _bind(self, w_leaves, g_leaves) -> _Bound:
+        """The loss_fn's params object for one learner, from its leaves in
+        a store (``w_leaves``) and in the grad store (``g_leaves``), in
+        tree order.  A leaf in its recorded dtype becomes an autograd leaf
+        sharing the store's memory, its ``.grad`` the matching grad leaf; a
+        leaf of another dtype (a bf16 leaf of the float32 flat store) is
+        bound through the persistent cast leaf and cast grad of its slot
+        (``_casts``), copied in and out around each forward/backward."""
         meta = self._meta
-        pw = self._make_params(tree_map(lambda v: v.detach().requires_grad_(),
-                                        meta.unflatten(w_row)))
-        pg = self._make_params(meta.unflatten(g_row))
+        pw, pg, casts = [], [], []
+        for j, (w, g) in enumerate(zip(w_leaves, g_leaves)):
+            if w.dtype == meta.dtypes[j]:
+                pw.append(w.detach().requires_grad_())
+                pg.append(g)
+            else:
+                cw, cg = self._casts[j]
+                pw.append(cw)
+                pg.append(cg)
+                casts.append((w, cw, cg, g))
+        pw = self._make_params(tree_unflatten(meta.treedef, pw))
+        pg = self._make_params(tree_unflatten(meta.treedef, pg))
         for a, b in zip(_param_leaves(pw), _param_leaves(pg)):
             a.grad = b.detach()
-        return pw
+        return _Bound(pw, tuple(casts))
 
-    def _bound(self, w: torch.Tensor):
-        return self._views[0 if w is self._w[0] else 1]
+    def _bind_all(self, store) -> List[_Bound]:
+        """Every learner's binding to ``store`` (flat or stacked tree)."""
+        if self._flat:
+            gs = self._meta.views(self._g)
+            ws = self._meta.views(store)
+        else:
+            gs, ws = tree_leaves(self._g), tree_leaves(store)
+        return [self._bind([x[i] for x in ws], [x[i] for x in gs])
+                for i in range(self.algo.n_learners)]
 
-    def _other(self, t: torch.Tensor, pair) -> torch.Tensor:
+    def _bound(self, w):
+        """The bindings of the store ``w`` (one of ``self._w``)."""
+        for s, views in zip(self._w, self._views):
+            if w is s:
+                return views
+        raise ValueError(
+            "the state's parameters are not this trainer's live store: "
+            "train the state train_step returned, or restore a saved one "
+            "with state_from_view")
+
+    def _other(self, t, pair):
         return pair[1] if t is pair[0] else pair[0]
 
     def params_tree(self, state_or_params):
-        """The stacked parameter tree view of a state (leaves (n, ...))."""
+        """The stacked parameter tree of a state (leaves (n, ...)): views of
+        a flat store, or the pytree engine's tree itself."""
         p = (state_or_params.params if isinstance(state_or_params, TrainState)
              else state_or_params)
-        return self._meta.unflatten(p)
+        if self._flat and isinstance(p, torch.Tensor):
+            return self._meta.unflatten(p)
+        return p
+
+    def _is_store_leaf(self, x) -> bool:
+        return (isinstance(x, torch.Tensor) and x.dim() >= 2
+                and tuple(x.shape[-2:]) == (self._meta.rows, LANE))
 
     def state_view(self, state: TrainState) -> TrainState:
-        """Tree-layout view of a flat state: parameters, buffer and any
-        (n, T, 128) optimizer leaves (momentum) come back as stacked trees
-        of views; other optimizer leaves pass through."""
+        """Tree-layout view of a state.  A flat state's parameters, buffer
+        and (n, T, 128) optimizer leaves (momentum) come back as stacked
+        trees of views; other optimizer leaves pass through.  A pytree
+        state comes back unchanged."""
+        if not self._flat:
+            return state
         meta = self._meta
-
-        def leafview(x):
-            if (isinstance(x, torch.Tensor) and x.dim() >= 2
-                    and tuple(x.shape[-2:]) == (meta.rows, LANE)):
-                return meta.unflatten(x)
-            return x
-
         return state._replace(
             params=meta.unflatten(state.params),
             buffer=(None if state.buffer is None
                     else meta.unflatten(state.buffer)),
-            opt_state=tree_map(leafview, state.opt_state))
+            opt_state=tree_map(
+                lambda x: meta.unflatten(x) if self._is_store_leaf(x) else x,
+                state.opt_state))
+
+    def state_from_view(self, view: TrainState) -> TrainState:
+        """Inverse of ``state_view``: re-flatten a tree-layout state (e.g. a
+        checkpoint saved as ``state_view(state)``).  Its parameters and
+        buffer are written into this trainer's live stores, and every
+        optimizer subtree with the parameters' structure (momentum) is
+        flattened into a (n, T, 128) buffer; everything else passes
+        through.  A pytree trainer copies the parameters into its store
+        and passes the rest through."""
+        if not self._flat:
+            return view._replace(params=_copy_tree(self._w[0], view.params))
+        meta, dev = self._meta, self.device
+
+        def reflatten(x):
+            if (not isinstance(x, torch.Tensor)
+                    and tree_flatten(x)[1] == meta.treedef):
+                return meta.flatten(x, device=dev)
+            if isinstance(x, dict):
+                return {k: reflatten(v) for k, v in x.items()}
+            if isinstance(x, (list, tuple)):
+                return type(x)(reflatten(v) for v in x)
+            return x
+
+        params = self._w[0].copy_(meta.flatten(view.params, device=dev))
+        buffer = None
+        if view.buffer is not None:
+            buffer = self._buf[0].copy_(meta.flatten(view.buffer,
+                                                     device=dev))
+        return view._replace(params=params, buffer=buffer,
+                             opt_state=reflatten(view.opt_state))
 
     # -- init -----------------------------------------------------------------
     def init(self, seed: int, params_single) -> TrainState:
         """``params_single``: one learner's parameter tree in the
         reference's layout (e.g. ``fcnet.init_params`` or
-        ``api.param_tree(api.init(seed))``), float32 leaves.  Every learner
-        starts from it."""
+        ``api.param_tree(api.init(seed))``).  Every learner starts from it.
+        The flat engine stores every leaf as float32 (bf16 leaves are cast
+        on the way in and out of each forward/backward); the pytree engine
+        keeps each leaf's dtype."""
         n = self.algo.n_learners
-        meta = flat_meta(params_single)
-        bad = [d for d in meta.dtypes if d != torch.float32]
-        if bad:
-            raise ValueError(f"the flat engine trains float32 leaves; got "
-                             f"{sorted(set(map(str, bad)))}")
-        self._meta = meta
-        one = meta.flatten(params_single, device=self.device)
-        shape = (n, meta.rows, LANE)
-        self._w = [torch.empty(shape, device=self.device) for _ in range(2)]
-        self._w[0].copy_(one.expand(shape))
-        del one
-        self._g = torch.zeros(shape, device=self.device)
-        self._views = [[self._bind(w[i], self._g[i]) for i in range(n)]
-                       for w in self._w]
-        self._wa, self._views_wa = None, None
-        if self.algo.algo == "ssgd":
-            self._wa = torch.empty(shape[1:], device=self.device)
-            self._views_wa = [self._bind(self._wa, self._g[i])
-                              for i in range(n)]
+        dev = self.device
+        meta = self._meta = flat_meta(params_single)
+        if self._flat:
+            self._casts = {
+                j: (torch.empty(shape, dtype=dt, device=dev
+                                ).requires_grad_(),
+                    torch.zeros(shape, dtype=dt, device=dev))
+                for j, (shape, dt) in enumerate(zip(meta.shapes,
+                                                    meta.dtypes))
+                if dt != torch.float32}
+            one = meta.flatten(params_single, device=dev)
+            shape = (n, meta.rows, LANE)
+            self._w = [torch.empty(shape, device=dev) for _ in range(2)]
+            self._w[0].copy_(one.expand(shape))
+            del one
+            self._g = torch.zeros(shape, device=dev)
+            self._wa, self._views_wa = None, None
+            if self.algo.algo == "ssgd":
+                self._wa = torch.empty(shape[1:], device=dev)
+                wa, gs = meta.views(self._wa), meta.views(self._g)
+                self._views_wa = [self._bind(wa, [x[i] for x in gs])
+                                  for i in range(n)]
+        else:
+            def stacked():
+                return tree_map(lambda p: torch.empty(
+                    (n,) + tuple(p.shape), dtype=p.dtype, device=dev),
+                    params_single)
+            self._w = [stacked()]
+            _copy_tree(self._w[0], tree_map(
+                lambda p: p.to(dev)[None].expand((n,) + tuple(p.shape)),
+                params_single))
+            self._g = tree_map(torch.zeros_like, self._w[0])
+        self._views = [self._bind_all(w) for w in self._w]
         opt_state = self.optimizer.init(self._w[0])
         buffer = age = clock = None
         if self.algo.algo == "adpsgd":
-            self._buf = [self._w[0].clone(), torch.empty(shape,
-                                                         device=self.device)]
-            buffer = self._buf[0]
-            age = torch.zeros((n,), dtype=torch.int32, device=self.device)
-            clock = torch.zeros((n,), dtype=torch.int32, device=self.device)
+            if self._flat:
+                self._buf = [self._w[0].clone(), torch.empty_like(self._w[0])]
+                buffer = self._buf[0]
+            else:
+                buffer = tree_map(torch.clone, self._w[0])
+            age = torch.zeros((n,), dtype=torch.int32, device=dev)
+            clock = torch.zeros((n,), dtype=torch.int32, device=dev)
         return TrainState(self._w[0], opt_state, 0, seed, buffer=buffer,
                           age=age, clock=clock)
 
@@ -291,16 +456,16 @@ class MultiLearnerTrainer:
         """Per-learner select on the small optimizer leaves (schedule
         counters, scales); (n, T, 128) leaves were selected in the kernel."""
         def _sel(a, b):
-            if a.dim() >= 2 and tuple(a.shape[-2:]) == (self._meta.rows,
-                                                         LANE):
+            if self._is_store_leaf(a):
                 return a
             m = mask.reshape((-1,) + (1,) * (a.dim() - 1))
             return torch.where(m, a, b)
         return tree_map(_sel, new, old)
 
     def _mix_sched(self, stacked, rounds, step: int):
-        """Schedule-driven gossip for the unfused paths: matchings as
-        gathers, deterministic schedules as the step's matrix."""
+        """Schedule-driven gossip for the unfused paths (a flat store or a
+        stacked tree): matchings as gathers, deterministic schedules as
+        the step's matrix."""
         s = self._schedule
         if s is None:
             return stacked
@@ -310,10 +475,10 @@ class MultiLearnerTrainer:
                 out = mix_pair_gather(out, partners[0])
             return out
         return mix_einsum(stacked, s.step_matrix(None, step,
-                                                 device=stacked.device))
+                                                 device=self.device))
 
     def _rounds(self, state: TrainState, rounds):
-        if self._schedule is None or self.algo.algo == "ssgd":
+        if self.rounds_per_step == 0:
             return []
         if rounds is None:
             self._gen.manual_seed(_step_seed(state.seed, state.step))
@@ -323,27 +488,142 @@ class MultiLearnerTrainer:
                  torch.as_tensor(c, dtype=torch.float32, device=self.device))
                 for p, c in rounds]
 
+    def _noise(self, state: TrainState, like, noise):
+        """SSGD*'s weight noise for this step, laid out like ``like``
+        (stacked): ``noise`` when given (a stacked tree, e.g. the
+        reference's draw), else N(0, noise_std^2) drawn on the device from
+        the noise stream of (seed, step)."""
+        if noise is not None:
+            return tree_map(lambda x, d: d.to(device=self.device,
+                                              dtype=x.dtype), like, noise)
+        self._noise_gen.manual_seed(_noise_seed(state.seed, state.step))
+        return tree_gaussian_like(self._noise_gen, like, self.algo.noise_std)
+
     def _grads(self, bound, batch) -> torch.Tensor:
         """Forward + backward per learner, one at a time; gradients land in
-        the grad buffer through the bound views.  Returns the (n,) losses."""
-        self._g.zero_()
+        the grad store through the bound views (a cast leaf's gradient is
+        written into it after its backward).  Returns the (n,) losses."""
+        for g in tree_leaves(self._g):
+            g.zero_()
         losses = []
         with torch.enable_grad():
-            for i, params in enumerate(bound):
-                loss = self.loss_fn(params, tree_map(lambda x: x[i], batch))
+            for i, b in enumerate(bound):
+                with torch.no_grad():
+                    for src, cw, cg, _ in b.casts:
+                        cw.copy_(src)
+                        cg.zero_()
+                loss = self.loss_fn(b.params,
+                                    tree_map(lambda x: x[i], batch))
                 loss.backward()
+                with torch.no_grad():
+                    for _, _, cg, dst in b.casts:
+                        dst.copy_(cg)
                 losses.append(loss.detach())
         return torch.stack(losses)
 
     # -- one training step ----------------------------------------------------
-    def train_step(self, state: TrainState, stacked_batch, rounds=None):
+    def train_step(self, state: TrainState, stacked_batch, rounds=None,
+                   noise=None):
         """stacked_batch leaves: (n, B_local, ...).  ``rounds``: optional
         per-round ``(partners (K, n) int32, coefs (n, K + 1) float32)``
-        tables that replace the schedule's draw for this step (the parity
-        tests inject the reference's).  Returns (new state, StepMetrics)."""
+        tables that replace the schedule's draw for this step; ``noise``:
+        optional SSGD* weight noise (a stacked tree of tensors) that
+        replaces the draw (the parity tests inject the reference's).
+        Returns (new state, StepMetrics)."""
         if state.members is not None:
             raise NotImplementedError(
                 "elastic membership arrives with ROADMAP slice 6")
+        self._bound(state.params)       # raises on a state not its own
+        rounds = self._rounds(state, rounds)
+        if self._flat:
+            return self._train_step_flat(state, stacked_batch, rounds)
+        return self._train_step_tree(state, stacked_batch, rounds, noise)
+
+    def _train_step_tree(self, state: TrainState, stacked_batch, rounds,
+                         noise):
+        """The pytree engine: stacked trees and unfused tree updates (the
+        reference's ``_train_step_tree``)."""
+        algo = self.algo
+        n = algo.n_learners
+        dev = self.device
+        zero = torch.zeros((), device=dev)
+        stale_mean, stale_max = zero, zero
+        buffer, age, clock = state.buffer, state.age, state.clock
+        w = state.params
+        bound = self._bound(w)
+        g = self._g
+
+        def stack(tree):
+            return tree_map(lambda x: x[None].expand((n,) + tuple(x.shape)),
+                            tree)
+
+        if algo.algo in ("ssgd", "ssgd_star"):
+            # every learner's gradient at w_a (SSGD*: at w_a + delta_j),
+            # taken at that point written into the store; the update then
+            # applies to w_a (every learner of an SSGD state holds it)
+            w_a = learner_mean(w)
+            if algo.algo == "ssgd_star":
+                for s, m, d in zip(tree_leaves(w), tree_leaves(w_a),
+                                   tree_leaves(self._noise(state, w, noise))):
+                    torch.add(m, d, out=s)
+            else:
+                _copy_tree(w, stack(w_a))
+            losses = self._grads(bound, stacked_batch)
+            w_b = stack(w_a)
+            updates, opt_state = self._opt_update(
+                stack(learner_mean(g)), state.opt_state, w_b, w_b)
+            new_params = mean_broadcast(apply_updates(w_b, updates))
+
+        elif algo.algo == "dpsgd":
+            losses = self._grads(bound, stacked_batch)
+            if algo.gossip_order == "mix_then_descend":
+                mixed = self._mix_sched(w, rounds, state.step)
+                updates, opt_state = self._opt_update(g, state.opt_state, w,
+                                                      mixed)
+                new_params = apply_updates(mixed, updates)
+            else:                                       # descend_then_mix
+                updates, opt_state = self._opt_update(g, state.opt_state, w,
+                                                      w)
+                new_params = self._mix_sched(apply_updates(w, updates),
+                                             rounds, state.step)
+
+        else:                                           # adpsgd
+            active = straggler_active_mask(state.step, n, algo.slow_learner,
+                                           algo.slow_factor, device=dev)
+            fresh = age >= algo.max_staleness
+            stale_seen = torch.where(fresh, 0, age)
+            stale_mean = torch.mean(stale_seen.to(torch.float32))
+            stale_max = torch.max(stale_seen).to(torch.float32)
+            (partners, _), = rounds
+            losses = self._grads(bound, stacked_batch)
+            mixed = mix_pair_gather(w, partners[0], _select(fresh, w,
+                                                            buffer))
+            updates, opt_state_new = self._opt_update(g, state.opt_state, w,
+                                                      mixed)
+            new_params = _select(active, apply_updates(mixed, updates), w)
+            opt_state = _select(active, opt_state_new, state.opt_state)
+            buffer = _select(active | fresh, new_params, buffer)
+            age = torch.where(active | fresh, 0, age + 1).to(torch.int32)
+            clock = clock + active.to(torch.int32)
+
+        new_params = _copy_tree(w, new_params)
+        g_mean = learner_mean(g)
+        metrics = StepMetrics(
+            loss=torch.mean(losses),
+            grad_norm=torch.sqrt(tree_norm_sq(g_mean)),
+            sigma_w_sq=learner_var(new_params),
+            staleness_mean=stale_mean,
+            staleness_max=stale_max,
+            n_active=torch.full((), float(n), device=dev),
+            grad_sq_mean=torch.mean(_per_learner_grad_sq(g)),
+        )
+        return TrainState(new_params, opt_state, state.step + 1, state.seed,
+                          buffer=buffer, age=age, clock=clock), metrics
+
+    def _train_step_flat(self, state: TrainState, stacked_batch, rounds):
+        """The flat engine: the same algorithms on the (n, T, 128) store,
+        the gossip + update as the fused kernel where the optimizer allows
+        it."""
         algo = self.algo
         n = algo.n_learners
         dev = self.device
@@ -353,7 +633,6 @@ class MultiLearnerTrainer:
         w = state.params
         w_next = self._other(w, self._w)
         g = self._g
-        rounds = self._rounds(state, rounds)
 
         if algo.algo == "ssgd":
             torch.mean(w, dim=0, out=self._wa)
@@ -393,7 +672,7 @@ class MultiLearnerTrainer:
                 new_params = w_next.copy_(self._mix_sched(
                     apply_updates(w, updates), rounds, state.step))
 
-        elif algo.algo == "adpsgd":
+        else:                                           # adpsgd
             active = straggler_active_mask(state.step, n, algo.slow_learner,
                                            algo.slow_factor, device=dev)
             fresh = age >= algo.max_staleness
@@ -419,16 +698,11 @@ class MultiLearnerTrainer:
                 stepped = apply_updates(mixed, updates)
                 new_params = w_next.copy_(
                     torch.where(active[:, None, None], stepped, w))
-                opt_state = tree_map(
-                    lambda a, b: torch.where(
-                        active.reshape((-1,) + (1,) * (a.dim() - 1)), a, b),
-                    opt_state_new, state.opt_state)
+                opt_state = _select(active, opt_state_new, state.opt_state)
                 buffer = buf_next.copy_(torch.where(
                     (active | fresh)[:, None, None], new_params, buffer))
             age = torch.where(active | fresh, 0, age + 1).to(torch.int32)
             clock = clock + active.to(torch.int32)
-        else:
-            raise ValueError(f"the flat engine does not run {algo.algo}")
 
         # centered two-pass variance on the flat buffer (pads contribute 0)
         gsq = torch.sum(torch.square(g), dim=(1, 2))
@@ -505,10 +779,8 @@ class MultiLearnerTrainer:
         (leaves (n, B_local, ...)): alpha_e at ``alpha_for_diag``, sigma_w^2
         and the Delta split.  ``state`` may be the real state or its
         ``state_view`` (what a probe hook receives)."""
-        params = state.params
-        if isinstance(params, torch.Tensor):
-            params = self._meta.unflatten(params)
-        return compute_diagnostics(self.loss_fn, params, stacked_batch,
+        return compute_diagnostics(self.loss_fn, self.params_tree(state),
+                                   stacked_batch,
                                    self.alpha_for_diag, age=state.age,
                                    params_from_tree=self.params_from_tree)
 
@@ -516,5 +788,8 @@ class MultiLearnerTrainer:
     @torch.no_grad()
     def eval_loss(self, state: TrainState, batch):
         """Loss of the average model on a (B, ...) batch (held-out metric)."""
-        w_a = self._meta.unflatten(torch.mean(state.params, dim=0))
+        if self._flat:
+            w_a = self._meta.unflatten(torch.mean(state.params, dim=0))
+        else:
+            w_a = learner_mean(state.params)
         return self.loss_fn(self._make_params(w_a), batch)

@@ -55,8 +55,9 @@ def tree_gaussian_like(gen: torch.Generator, a, std: float):
     """iid N(0, std^2) noise with the structure, shapes and dtypes of
     ``a``, drawn leaf by leaf from ``gen`` on ``gen.device`` (the
     reference's law; its ``jax.random`` draws differ)."""
-    return tree_map(lambda x: std * torch.randn(
-        x.shape, generator=gen, device=gen.device, dtype=x.dtype), a)
+    return tree_map(lambda x: torch.randn(
+        x.shape, generator=gen, device=gen.device, dtype=x.dtype).mul_(std),
+        a)
 
 
 def learner_mean(stacked):

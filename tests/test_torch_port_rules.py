@@ -173,13 +173,30 @@ def test_trainer_entry_points_default_to_cuda():
     assert _fc_trainer(device="cpu").device == torch.device("cpu")
 
 
-@pytest.mark.parametrize("kw,slice_", [
-    (dict(engine="pytree"), "slice 2"),
-    (dict(algo="ssgd_star"), "slice 2"),
-], ids=["pytree", "ssgd_star"])
-def test_unported_trainer_paths_raise_naming_their_slice(kw, slice_):
-    with pytest.raises(NotImplementedError, match=slice_):
-        _fc_trainer(device="cpu", **kw)
+@pytest.mark.parametrize("kw,raises", [
+    (dict(engine="pytree"), None),
+    (dict(algo="ssgd_star"), None),
+    (dict(algo="ssgd_star", engine="flat"), "engine='pytree'"),
+], ids=["pytree", "ssgd_star", "ssgd_star-flat"])
+def test_unported_trainer_paths_raise_naming_their_slice(kw, raises):
+    """The pytree engine and SSGD* were the rest of slice 2 and raised
+    until they were ported: now both train, and the one combination the
+    reference refuses (SSGD*'s per-leaf noise on the flat engine) raises
+    ``ValueError`` naming the engine to use."""
+    from repro_torch.data import ShardedLoader, TemplateImages
+    from repro_torch.models import fcnet
+    if raises is not None:
+        with pytest.raises(ValueError, match=raises):
+            _fc_trainer(device="cpu", **kw)
+        return
+    tr = _fc_trainer(device="cpu", **kw)
+    assert not tr.is_flat
+    state = tr.init(0, fcnet.init_params(torch.Generator().manual_seed(0)))
+    loader = ShardedLoader(TemplateImages(), n_learners=4, local_batch=8,
+                           device="cpu")
+    state, m = tr.train_step(state, loader.batch(0))
+    assert bool(torch.isfinite(m.loss)) and state.step == 1
+    assert isinstance(state.params, dict)
 
 
 def test_unported_trainer_methods_raise_naming_their_slice():

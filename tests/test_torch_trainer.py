@@ -114,7 +114,7 @@ def _compare(jstate, jm, pstate, pm, tol=PARAM_TOL, what=""):
 
 
 def _parity(algo, topology, steps, *, n=8, jopt=None, popt=None,
-            batch=32, **algo_kw):
+            batch=32, engine="auto", **algo_kw):
     jopt = jopt or jax_optim.sgd(0.1, momentum=0.9)
     popt = popt or optim.sgd(0.1, momentum=0.9)
     loader = JaxLoader(JaxImages(), n_learners=n, local_batch=batch, seed=0)
@@ -125,7 +125,7 @@ def _parity(algo, topology, steps, *, n=8, jopt=None, popt=None,
     ptr = MultiLearnerTrainer(fcnet.loss_fn, popt,
                               AlgoConfig(algo=algo, topology=topology,
                                          n_learners=n, **algo_kw),
-                              device="cpu")
+                              engine=engine, device="cpu")
     jstate = jtr.init(jax.random.PRNGKey(0), FC_PARAMS)
     pstate = ptr.init(0, tree_from_jax(_np(FC_PARAMS)))
     assert ptr._fused is None or jtr._fused is not None
@@ -148,7 +148,7 @@ def test_dpsgd_matches_reference_on_every_topology(topology):
 
 
 def test_ssgd_matches_reference_flat_engine():
-    _parity("ssgd", "random_pair", 3)
+    _parity("ssgd", "random_pair", 3, engine="flat")
 
 
 @pytest.mark.parametrize("topology", ["hierarchical", "full",
