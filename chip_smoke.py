@@ -15,11 +15,15 @@ Phases (any failure raises and the script exits non-zero):
      3b's shape (40 pages, slots up to 576 tokens and either side of its
      split boundaries, q scaled so the softcap binds) and at granite-20b's
      (MQA: H 48 on KV 1, hd 128, 8 slots up to 8,192 tokens, a length-0
-     and a length-1 slot), each element within 2^-7 |plain| + 1e-3
+     and a length-1 slot) and at granite-moe-3b-a800m's (H 24 on KV 8, hd
+     64) and jamba-v0.1-52b's (H 32 on KV 8, hd 128, window 4,096: phases
+     11a and 12a), 8 slots up to 8,192 tokens with a length-0 and a
+     length-1 slot and lengths either side of their split boundaries,
+     each element within 2^-7 |plain| + 1e-3
      rms(plain), timed at the serve shape, at gemma2's global and local
-     decode layers and at granite's (bound: the bytes, or the arithmetic
-     of the kernel that runs: granite's bf16 pools take the tensor-core
-     kernel); the gossip
+     decode layers, at granite's and at granite-moe's and jamba's (bound:
+     the bytes, or q.k and P.V once each at the pool dtype's rate; the
+     arithmetic of the kernel that runs is kept beside it); the gossip
      update at the training shape (n=4, T=1,056,920, K=1, momentum), on a
      ring with weight decay and an inactive NaN row, in AD-PSGD publish
      mode, and as a mixing-only round (K=3); the reorthogonalization
@@ -55,7 +59,12 @@ Phases (any failure raises and the script exits non-zero):
      and 6 timed steps, then 2 profiled ones; every loss must be finite,
      the gossip kernel must have launched once per gossip round, and the
      first 2 steps with ``kernel_backend="ref"`` must give the same
-     parameters;
+     parameters; then the consensus bridge: ``ConsensusBridge.snapshot``
+     of the 4 learners (equal to ``learner_mean`` within 1e-6) served to
+     phase 3's 16 requests by a ``ServeEngine``, 2 more training steps,
+     ``staleness`` (2 steps behind, every field finite) and
+     ``served_divergence`` on a 2 x 64 probe (top-1 agreement in [0, 1],
+     every field finite);
   4b. the full-width landscape probe: after the training steps, a
      ``make_trainer_probe`` hook (Lanczos 8, Hutchinson 4) runs once
      through ``trainer.run_probes`` on a 4 x 2 x 512-token superbatch, then
@@ -84,6 +93,8 @@ Phases (any failure raises and the script exits non-zero):
      each value — then, at gemma2's prefill shapes (S = 8,192, global and
      local) and the training shape, the same comparison, its time, the
      plain version's, SDPA's where one call computes the same function
+     (also at granite-moe's 4,096-token and jamba's 8,192-token prefill
+     layers, jamba's SDPA with a causal-window mask)
      and the bound (the tensor-core kernel: q.k once and P.V twice at the
      bf16 rate; the float32 kernel: the slower of q.k in float32 FMAs and
      P.V three times at the TF32 rate, beside both at the float32 rate);
@@ -121,12 +132,33 @@ Phases (any failure raises and the script exits non-zero):
      reorth kernels (16 + 16 launches a probe); the topology ablation (9
      topologies, n = 8, 130 steps each) — every scheduled topology fused,
      the gossip kernel launched rounds x steps times, ``measured_gap >=
-     gap_bound``; Table 4 and Fig. 4, each printing its ``derived`` line.
+     gap_bound``; Table 4, Fig. 4 and Table 5 (the ASR proxy: 100 zipf
+     classes, SSGD against DPSGD at lr 0.25, 0.5 and 1.0, 120 steps; both
+     converge at 0.25, as the reference's own run does), each printing its
+     ``derived`` line and its gossip launches;
+ 11. granite-moe-3b-a800m at full width and full depth (32 layers, 40
+     experts top-8, 3.37 B bf16 parameters from a seeded torch.Generator)
+     served as phase 3b serves gemma2 (32 decode launches a step; the CPU
+     steps replay the card's expert choices, and at most a quarter of the
+     tokens may have picked another set of experts on the CPU; the error
+     layer by layer, and the control one mantissa bit below bf16, beside
+     the logits' error; the MoE layers' device time a step beside the
+     bytes of every expert weight), then ``api.apply`` of
+     4,096 tokens through the flash route against the chunked route
+     (routing shared; the last 64 positions within 2e-2, Frobenius);
+ 12. jamba-v0.1-52b at full width, depth cut to one period (8 layers: 7
+     mamba, 1 attention without RoPE and with a 4,096 window, 4 MoE
+     layers of 16 experts top-2; 13.3 B bf16 parameters), served the same
+     way (1 decode launch a step), plus on the served cache: a step with
+     half the slots not advancing keeps their mamba leaves bitwise and
+     ``reset_slot`` zeroes one slot's leaves and no other's; then the
+     prefill of 8,192 tokens, where the window binds.
 Each path runs with every kernel's launch count set to 0 just before it
 and read just after.  The last lines are the serve (100m, gemma2,
-granite), train, probe, FC, Table-1, gemma2, flash-training, pytree-engine
-and paper-experiment numbers, the card, the kernels record and ``{"ok":
-true, "device": {...}}``.
+granite), train (with the bridge), probe, FC, Table-1, gemma2,
+flash-training, pytree-engine, paper-experiment, granite-moe and jamba
+numbers, the card, the kernels record and ``{"ok": true, "device":
+{...}}``.
 Without CUDA the script exits 1 before printing any result.
 """
 from __future__ import annotations
@@ -242,7 +274,12 @@ GEMMA_LAST = 64             # prefill positions compared with the chunked route
 GEMMA_CHUNK = 512           # the chunked route's block at S = 4,608 (9 x 512)
 # the flash and chunked routes round the attention output to bf16 from
 # float32 sums taken in other orders, and two bf16 layers and the tied head
-# carry the difference on: held as ||a - b|| / ||b||
+# carry the difference on: held as ||a - b|| / ||b||.  The same tier holds
+# a served model's card logits to the CPU's; there the difference grows
+# with depth as sqrt(layers) (granite-moe: 1.3e-3 after one layer, 8.6e-3
+# after 8, 1.67e-2 after all 32, logits 1.76e-2) and the control, the CPU
+# steps one mantissa bit below bf16, lands at 6.6e-2 (granite-moe, 32
+# layers) and 2.9e-2 (jamba, 8) on an H100
 GEMMA_BF16_RTOL = 2e-2
 GEMMA_LOSS_RTOL = 1e-3
 # gemma2-27b's decode shape in phase 2: 8 slots, lengths up to 8,192
@@ -264,10 +301,41 @@ FLASH_TIMED = {   # (B, H, KV, hd, S, dtype, mask, library call or None)
                                   attn_softcap=50.0), None),
     "train_100m": (TRAIN_BATCH, 12, 12, 64, TRAIN_SEQ, _F32,
                    dict(causal=True), "sdpa"),
+    # phases 11c and 12c: granite-moe's and jamba's prefill layers
+    "granite_moe_prefill": (1, 24, 8, 64, 4096, _BF16, dict(causal=True),
+                            "sdpa"),
+    "jamba_prefill": (1, 32, 8, 128, 8192, _BF16,
+                      dict(causal=True, window=4096), "sdpa_window"),
 }
 # transformer-100m with use_pallas against phase 4's chunked route
 FLASH_TRAIN_WARM, FLASH_TRAIN_TIMED, FLASH_TRAIN_PROF = 2, 4, 2
 FLASH_TRAIN_LOSS_RTOL = 1e-5
+# phase 4's bridge: the consensus mean against learner_mean, the steps
+# trained past the snapshot, the probe prompts of served_divergence
+BRIDGE_MEAN_ATOL = 1e-6
+BRIDGE_STEPS = 2
+BRIDGE_PROBE = (2, 64)
+# phases 11-12: granite-moe-3b-a800m at full width and depth (32 layers;
+# 40 experts top-8, 24 query heads on 8 kv heads, hd 64) and
+# jamba-v0.1-52b at full width, depth cut to one period (8 layers: 7
+# mamba, 1 attention with a 4,096 window and no RoPE; 4 MoE layers of 16
+# experts top-2), both bf16, served as phase 3b serves gemma2 and
+# prefilled through the flash route against the chunked route (the last
+# GEMMA_LAST positions within GEMMA_BF16_RTOL)
+ZOO = (   # (record key, config, layers, why, prefill length)
+    ("serve_granite_moe", "granite-moe-3b-a800m", 32, "full depth", 4096),
+    ("serve_jamba", "jamba-v0.1-52b", 8,
+     "one period: 7 mamba + 1 attention layers, 4 of them MoE", 8192),
+)
+# a comparison of two runs of a MoE model shares one run's routing; of the
+# tokens, at most this share may have picked another set of experts on
+# their own (a router fault changes the set of nearly every token: two
+# random top-8 sets of granite-moe's 40 experts agree once in 7.7e7)
+ROUTING_SET_CHANGES = 0.25
+# jamba's decode shape in phase 2 (H 32 on KV 8, hd 128, window 4,096)
+# and granite-moe's (H 24 on KV 8, hd 64), 8 slots up to 8,192 tokens
+ZOO_DECODE = {"granite_moe": (24, 8, 64, {}),
+              "jamba": (32, 8, 128, {"window": 4096})}
 
 
 def check(cond, msg):
@@ -378,9 +446,10 @@ def decode_error(got, want, live):
 def decode_timed(kernel, label, shape, lengths, dtype, kw, seed):
     """Kernel (events and device), plain and SDPA ms at one shape, on pool
     copies that together exceed the L2, with the bound: the larger of the
-    live rows' bytes in the pool's dtype and the arithmetic of the kernel
-    that runs (float32 FMAs, or q.k once and P.V twice on the tensor
-    cores in bf16)."""
+    live rows' bytes in the pool's dtype and q.k and P.V once each at the
+    pool dtype's rate (float32 FMAs, or the bf16 tensor cores); the
+    tensor-core kernel's own arithmetic (P.V twice, P = hi + lo in bf16)
+    is kept beside it."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import kernel_for, launch_plan
 
@@ -431,8 +500,9 @@ def decode_timed(kernel, label, shape, lengths, dtype, kw, seed):
         torch.cuda.get_device_properties(0).multi_processor_count)
     route = kernel_for(dtype, H // KV, hd, gtiles)
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = (1.5 * flops / BF16_FLOPS if route == "tc"
-             else flops / F32_FLOPS)
+    t_ops = flops / (BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS)
+    t_kernel = (1.5 * flops / BF16_FLOPS if route == "tc"
+                else flops / F32_FLOPS)
     bound_ms = 1e3 * max(t_bytes, t_ops)
     del sets
     torch.cuda.empty_cache()
@@ -450,6 +520,7 @@ def decode_timed(kernel, label, shape, lengths, dtype, kw, seed):
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "bound_bytes": nbytes, "bound_bytes_ms": 1e3 * t_bytes,
         "bound_flops": flops, "bound_ops_ms": 1e3 * t_ops,
+        "kernel_ops_ms": 1e3 * t_kernel,
         "share_of_bound": bound_ms / device_ms if device_ms else None,
         "library_ms": library_ms,
     }
@@ -494,6 +565,18 @@ def decode_attention_phase():
     gr_tok = pages * PAGE
     gr_edge = [0, 1, gr_tok - 1, gr_tok + 1, 5 * gr_tok, 2 * tok + 1,
                GEMMA_DECODE_LEN - 3, GEMMA_DECODE_LEN]
+    # granite-moe's and jamba's decode shapes (phases 11a and 12a): a
+    # length-0 and a length-1 slot, one token either side of their split
+    # boundaries, and (jamba) windows that start inside a split
+    zoo = {}
+    for key, (H, KV, hd, kw) in ZOO_DECODE.items():
+        shape = dict(g_shape, H=H, KV=KV, hd=hd)
+        _, _, pages = launch_plan(N_SLOTS, H, KV, hd, 2, PAGE,
+                                  shape["max_pages"], n_sm)
+        t = pages * PAGE
+        zoo[key] = (shape, kw, [0, 1, t - 1, t + 1, 4096 + t // 2,
+                                4096 + t + 3, GEMMA_DECODE_LEN - 3,
+                                GEMMA_DECODE_LEN])
     cases = [   # (name, shape, lengths, dtype, mask, q scale)
         ("serve", dict(S=N_SLOTS, H=12, KV=12, hd=64, page=PAGE,
                        max_pages=MAX_LEN // PAGE), lengths, _F32, {}, 1.0),
@@ -521,7 +604,9 @@ def decode_attention_phase():
          dict(window=4096, attn_softcap=50.0), 8.0),
         ("granite_mqa_bf16", gr_shape, g_lengths, _BF16, {}, 1.0),
         ("granite_mqa_edges_bf16", gr_shape, gr_edge, _BF16, {}, 1.0),
-    ]
+    ] + [(f"{key}_{part}bf16", shape, lens, _BF16, kw, 1.0)
+         for key, (shape, kw, edges) in zoo.items()
+         for part, lens in (("", g_lengths), ("edges_", edges))]
     errs = {}
     for i, (name, shape, lens, dt, kw, q_scale) in enumerate(cases):
         ops = paged_operands(lengths=lens, dtype=dt, seed=SEED + i,
@@ -563,6 +648,9 @@ def decode_attention_phase():
             dict(window=4096, attn_softcap=50.0), SEED + 21),
         "granite_mqa_bf16": decode_timed(
             kernel, "granite", gr_shape, g_lengths, _BF16, {}, SEED + 22),
+        **{f"{key}_bf16": decode_timed(kernel, key, shape, g_lengths, _BF16,
+                                       kw, SEED + 23 + i)
+           for i, (key, (shape, kw, _)) in enumerate(zoo.items())},
     }
     main = timed["serve_100m_f32"]
     return {
@@ -628,6 +716,115 @@ class DecodeCapture:
         return self.fn(q, k_pages, v_pages, page_table, lengths, **kw)
 
 
+class SharedRouting:
+    """Wraps ``models.moe.route``.  Mode "record" keeps the expert ids of
+    the next ``limit`` calls; mode "replay" routes call i to the ids
+    recorded at call i (the gates are this run's own probabilities at those
+    experts, renormalized) and counts the tokens whose own top-k would have
+    picked another set of experts (``set_changes``) or the same set in
+    another order (``order_changes``; the order cannot change the keep
+    mask or the output).  A router input one rounding apart can pick
+    another expert, a discrete jump that no tolerance on the logits
+    absorbs, so a comparison of two runs of a MoE model shares one run's
+    routing; a router fault would change the set of almost every token,
+    rounding only near-ties, so at most ROUTING_SET_CHANGES of the tokens
+    may change their set."""
+
+    def __init__(self, fn, limit=None):
+        self.fn, self.limit = fn, limit
+        self.mode, self.ids = None, []
+        self.replay_from(0)
+
+    def replay_from(self, i):
+        self.replayed, self.tokens = i, 0
+        self.set_changes = self.order_changes = 0
+
+    def __call__(self, logits, top_k):
+        probs, gates, ids = self.fn(logits, top_k)
+        if self.mode == "record" and (self.limit is None
+                                      or len(self.ids) < self.limit):
+            self.ids.append(ids.clone())
+        elif self.mode == "replay":
+            want = self.ids[self.replayed].to(ids.device)
+            self.replayed += 1
+            other_set = (want.sort(-1).values
+                         != ids.sort(-1).values).any(-1)
+            self.set_changes += int(other_set.sum())
+            self.order_changes += int(((want != ids).any(-1)
+                                       & ~other_set).sum())
+            self.tokens += ids.shape[0]
+            gates = probs.gather(1, want)
+            gates = gates / torch.clamp(gates.sum(-1, keepdim=True),
+                                        min=1e-9)
+            ids = want
+        return probs, gates, ids
+
+    def record(self):
+        return {"routings": self.replayed, "tokens": self.tokens,
+                "set_changes": self.set_changes,
+                "order_changes": self.order_changes,
+                "set_changes_max": ROUTING_SET_CHANGES * self.tokens}
+
+    def check(self, what):
+        check(self.set_changes <= ROUTING_SET_CHANGES * self.tokens,
+              f"{what}: {self.set_changes} of {self.tokens} tokens would "
+              f"have picked another set of experts")
+
+
+class LayerOutputs:
+    """Wraps ``transformer._layer_decode_paged``: once ``on``, keeps each
+    layer's output of the first ``keep`` calls (CPU_STEPS steps of every
+    layer), so two runs' difference can be read layer by layer."""
+
+    def __init__(self, fn, keep):
+        self.fn, self.keep, self.on, self.kept = fn, keep, False, []
+
+    def __call__(self, *args, **kw):
+        x = self.fn(*args, **kw)
+        if self.on and len(self.kept) < self.keep:
+            self.kept.append(x.detach().float().cpu())
+        return x
+
+
+class CoarseBF16(torch.overrides.TorchFunctionMode):
+    """Rounds every new bf16 result to one mantissa bit fewer (7
+    significant bits, nearest): a run one bit less precise than bf16
+    throughout, the control that a bf16 tier must reject.  Views and
+    in-place results (storage shared with an argument) pass unchanged, so
+    writes through them still reach their base."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if not (isinstance(out, torch.Tensor)
+                and out.dtype == torch.bfloat16):
+            return out
+        ptr = out.untyped_storage().data_ptr()
+        if any(isinstance(a, torch.Tensor)
+               and a.untyped_storage().data_ptr() == ptr
+               for a in (*args, *(kwargs or {}).values())):
+            return out
+        bits = out.view(torch.int16).to(torch.int32)
+        return ((bits + 1) // 2 * 2).to(torch.int16).view(torch.bfloat16)
+
+
+def module_on(params, device):
+    """A copy of the module ``params`` with every parameter on ``device``,
+    copied leaf by leaf (a deepcopy first would hold a second copy on the
+    card)."""
+    memo = {id(p): torch.nn.Parameter(p.detach().to(device),
+                                      requires_grad=p.requires_grad)
+            for p in params.parameters()}
+    return copy.deepcopy(params, memo)
+
+
+def layer_counts(cfg):
+    """(attention layers, MoE layers) of a model."""
+    from repro_torch.models.transformer import n_periods, period_spec
+    spec, n = period_spec(cfg), n_periods(cfg)
+    return (n * sum(m.startswith("attn") for m, _ in spec),
+            n * sum(f == "moe" for _, f in spec))
+
+
 def requests(vocab, n_requests=N_REQUESTS, prompt=(8, 128), new=(16, 64)):
     """(prompt tokens, max_new_tokens) per request from numpy seed SEED:
     prompt lengths and budgets uniform over the closed ranges given."""
@@ -641,148 +838,213 @@ def requests(vocab, n_requests=N_REQUESTS, prompt=(8, 128), new=(16, 64)):
 
 
 def serve_model(cfg, jobs, n_slots, page, max_len, compare, n_prof,
-                capture_at=()):
+                kernels, capture_at=()):
     """Serve ``jobs`` through ``ServeEngine`` on the card, then the same
     weights and requests for CPU_STEPS steps on the CPU (plain versions);
     ``compare(card logits, cpu logits)`` returns the step's error and
-    raises past its tier.  The decode-attention calls numbered in
+    raises past its tier.  A bf16 model's CPU steps run once more under
+    ``CoarseBF16``, the control; its error is recorded, not checked.  A MoE
+    model's CPU steps replay the card's routing (``SharedRouting``).  Each
+    layer's output at the compared steps is kept on both sides, for the
+    error's growth with depth.  The decode-attention calls numbered in
     ``capture_at`` keep their inputs, on which the kernel is then held
-    against its plain version (decode_error's tier).  Returns (record,
-    decode kernel launches)."""
+    against its plain version (decode_error's tier).  A MoE model adds its
+    MoE layers' device time a step, a model with recurrent state the
+    advance-mask and ``reset_slot`` checks on the served cache.  The
+    counts of ``kernels`` are set to 0 just before the served run and read
+    just after it.  Returns (record, decode kernel launches)."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.decode_attention import \
         paged_decode_attention_fwd as kernel
     from repro_torch.kernels.decode_attention import launch_plan
-    from repro_torch.models import attention, build_model
+    from repro_torch.models import attention, build_model, moe, transformer
+    from repro_torch.models.transformer import PAGED
     from repro_torch.serve import ServeEngine
 
-    api = build_model(cfg)
-    t0 = time.perf_counter()
-    params = api.init(SEED)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    n_params = sum(p.numel() for p in params.parameters())
-    rec = Recorder(api.paged_decode_step, CPU_STEPS)
-    eng = ServeEngine(api._replace(paged_decode_step=rec), params,
-                      n_slots=n_slots, page_size=page, max_len=max_len)
-    t0 = time.perf_counter()
-    eng.warmup()
-    torch.cuda.synchronize()
-    warmup_s = time.perf_counter() - t0
-
-    kernel.launches = 0
-    rec.on = True
-    cap = DecodeCapture(attention.paged_decode_attention, capture_at)
-    attention.paged_decode_attention = cap
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
+    n_attn, n_moe = layer_counts(cfg)
+    pin = SharedRouting(moe.route, limit=CPU_STEPS * n_moe)
+    if n_moe:
+        moe.route = pin
+    layers = LayerOutputs(transformer._layer_decode_paged,
+                          CPU_STEPS * cfg.n_layers)
+    transformer._layer_decode_paged = layers
     try:
-        reqs = [eng.submit(p, m) for p, m in jobs]
-        ends = []               # host clock after each step (ends in a sync)
-        while eng.has_work:
-            eng.step()
-            ends.append(time.perf_counter() - t0)
-            check(len(ends) < 10 * max_len * len(jobs),
-                  "serve engine wedged")
+        api = build_model(cfg)
+        t0 = time.perf_counter()
+        params = api.init(SEED)
         torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in params.parameters())
+        rec = Recorder(api.paged_decode_step, CPU_STEPS)
+        eng = ServeEngine(api._replace(paged_decode_step=rec), params,
+                          n_slots=n_slots, page_size=page, max_len=max_len)
+        t0 = time.perf_counter()
+        eng.warmup()
+        torch.cuda.synchronize()
+        warmup_s = time.perf_counter() - t0
+
+        for k in kernels:
+            k.launches = 0
+        rec.on = layers.on = True
+        pin.mode = "record"
+        cap = DecodeCapture(attention.paged_decode_attention, capture_at)
+        attention.paged_decode_attention = cap
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            reqs = [eng.submit(p, m) for p, m in jobs]
+            ends = []           # host clock after each step (ends in a sync)
+            while eng.has_work:
+                eng.step()
+                ends.append(time.perf_counter() - t0)
+                check(len(ends) < 10 * max_len * len(jobs),
+                      "serve engine wedged")
+            torch.cuda.synchronize()
+        finally:
+            attention.paged_decode_attention = cap.fn
+            pin.mode = None
+            layers.on = False
+        run_s = time.perf_counter() - t0
+        launched = {k.__name__: k.launches for k in kernels}
+        launches = launched[kernel.__name__]
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        step_ms = np.diff([0.0] + ends) * 1e3
+        ttft_ms = sorted(1e3 * ends[r.first_token_step] for r in reqs)
+        steps, generated = eng.real_steps, eng.generated_total
+
+        check(all(r.done and len(r.generated) == m
+                  for r, (_, m) in zip(reqs, jobs)),
+              f"{cfg.name}: a request did not finish with its token budget")
+        check(bool(rec.finite),
+              f"{cfg.name}: non-finite logits in the serve run")
+        check(launches == steps * n_attn,
+              f"{cfg.name}: kernel launches {launches} != {steps} steps x "
+              f"{n_attn} attention layers")
+        check(all(v == 0 for k, v in launched.items()
+                  if k != kernel.__name__),
+              f"the {cfg.name} serving path launched another path's "
+              f"kernel: {launched}")
+
+        # the kernel on the kept inputs of the run: these launches compare
+        check(len(cap.kept) == len(capture_at), f"{cfg.name}: kept "
+              f"{len(cap.kept)} of {len(capture_at)} decode calls")
+        decode_checks = []
+        for inputs, kw in cap.kept:
+            got = kernel(*inputs, **kw)
+            want = ops.paged_decode_attention(*inputs, backend="ref", **kw)
+            err, ratio = decode_error(got, want, inputs[4] > 0)
+            max_len_kept = int(inputs[4].max())
+            check(ratio <= 1.0, f"{cfg.name}: on the inputs of serve call "
+                  f"with lengths up to {max_len_kept}, |kernel - plain| "
+                  f"reaches {ratio} x its tier (max abs {err})")
+            decode_checks.append({"max_length": max_len_kept,
+                                  "max_abs_err": err,
+                                  "max_err_over_tier": ratio, **kw})
+        if decode_checks:
+            q, k_pool, _, table, _ = cap.kept[0][0]
+            _, _, pages = launch_plan(
+                q.shape[0], q.shape[1], k_pool.shape[2], q.shape[2],
+                q.element_size(), page, table.shape[1],
+                torch.cuda.get_device_properties(0).multi_processor_count)
+            check(max(c["max_length"] for c in decode_checks)
+                  > 2 * pages * page,
+                  f"{cfg.name}: no kept call fills three splits of "
+                  f"{pages * page} tokens")
+        del cap
+
+        # the same weights and requests through the port on the CPU,
+        # routed as the card routed (a MoE model); then, for a bf16 model,
+        # once more one mantissa bit below bf16
+        t0 = time.perf_counter()
+        card_layers, layers.kept = layers.kept, []
+        cpu_api = build_model(cfg, device="cpu")
+        cpu_params = module_on(params, "cpu")
+
+        def cpu_steps(collect):
+            cpu_rec = Recorder(cpu_api.paged_decode_step, CPU_STEPS)
+            cpu_eng = ServeEngine(cpu_api._replace(paged_decode_step=cpu_rec),
+                                  cpu_params, n_slots=n_slots,
+                                  page_size=page, max_len=max_len)
+            cpu_rec.on, layers.on = True, collect
+            pin.mode = "replay"
+            pin.replay_from(0)
+            for p, m in jobs:
+                cpu_eng.submit(p, m)
+            for _ in range(CPU_STEPS):
+                cpu_eng.step()
+            pin.mode, layers.on = None, False
+            check(len(cpu_rec.logits) == CPU_STEPS == len(rec.logits),
+                  "fewer recorded steps than compared")
+            check(pin.replayed == len(pin.ids), f"{cfg.name}: replayed "
+                  f"{pin.replayed} of {len(pin.ids)} recorded routings")
+            return cpu_rec.logits
+
+        logit_errs = [compare(i, g.cpu(), c) for i, (g, c) in
+                      enumerate(zip(rec.logits, cpu_steps(True)))]
+        routing = pin.record()
+        if n_moe:
+            pin.check(f"{cfg.name} serve, CPU against the card")
+        depth_errs = [
+            _rel(torch.cat(card_layers[i::cfg.n_layers]),
+                 torch.cat(layers.kept[i::cfg.n_layers]))
+            for i in range(cfg.n_layers)]
+        control_rec = None
+        if cfg.compute_dtype == "bfloat16":
+            with CoarseBF16():
+                coarse = cpu_steps(False)
+            control_rec = {
+                "logit_errs": [_rel(g.cpu(), c)
+                               for g, c in zip(rec.logits, coarse)],
+                "routing": pin.record() if n_moe else None}
+        cpu_s = time.perf_counter() - t0
+        del cpu_params, cpu_api
+
+        # where a steady serve step's time goes: n_prof steps of fresh
+        # requests
+        rec.on = False
+        for p, m in jobs[:n_slots]:
+            eng.submit(p, m)
+        for _ in range(5):
+            eng.step()
+        smi = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+             "--format=csv,noheader,nounits", "-lms", "100"],
+            stdout=subprocess.PIPE, text=True)
+        try:
+            times, api_calls, wall, _ = device_times(
+                lambda: [eng.step() for _ in range(n_prof)])
+        finally:
+            smi.terminate()
+            samples = smi.communicate()[0].split("\n")
+        clocks = sorted(float(x.split(",")[0]) for x in samples if "," in x)
+        busy_us = sum(v[0] for v in times.values())
+        top = sorted(times.items(), key=lambda kv: -kv[1][0])[:8]
+        profile = {
+            "steps": n_prof,
+            "wall_ms_per_step_profiled": 1e3 * wall / n_prof,
+            "device_busy_ms_per_step": busy_us / 1e3 / n_prof,
+            "device_idle_share": ((1 - busy_us / 1e6 / wall) if busy_us
+                                  else None),
+            "attention_kernel_ms_per_step": sum(
+                v[0] for k, v in times.items()
+                if "paged_decode" in k) / 1e3 / n_prof,
+            "host_api_ms_per_step": {
+                k: [v[0] / 1e3 / n_prof, v[1] / n_prof]
+                for k, v in api_calls.items()},
+            "sm_clock_mhz_median": (clocks[len(clocks) // 2] if clocks
+                                    else None),
+            "top_device_ms_per_step": [
+                [k[:90], v[0] / 1e3 / n_prof, v[1] / n_prof]
+                for k, v in top],
+        }
+        extra = {}
+        if n_moe:
+            extra["moe_step"] = moe_profile(api, params, n_slots)
+        if any(name not in PAGED for c in eng.cache.values() for name in c):
+            extra["recurrent_state"] = recurrent_checks(eng, api, params)
     finally:
-        attention.paged_decode_attention = cap.fn
-    run_s = time.perf_counter() - t0
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    step_ms = np.diff([0.0] + ends) * 1e3
-    ttft_ms = sorted(1e3 * ends[r.first_token_step] for r in reqs)
-    launches = kernel.launches
-    steps, generated = eng.real_steps, eng.generated_total
-
-    check(all(r.done and len(r.generated) == m
-              for r, (_, m) in zip(reqs, jobs)),
-          f"{cfg.name}: a request did not finish with its token budget")
-    check(bool(rec.finite), f"{cfg.name}: non-finite logits in the serve run")
-    check(launches == steps * cfg.n_layers,
-          f"{cfg.name}: kernel launches {launches} != {steps} steps x "
-          f"{cfg.n_layers} layers")
-
-    # the kernel on the kept inputs of the run; these launches compare and
-    # do not count
-    check(len(cap.kept) == len(capture_at), f"{cfg.name}: kept "
-          f"{len(cap.kept)} of {len(capture_at)} decode calls")
-    decode_checks = []
-    for inputs, kw in cap.kept:
-        got = kernel(*inputs, **kw)
-        want = ops.paged_decode_attention(*inputs, backend="ref", **kw)
-        err, ratio = decode_error(got, want, inputs[4] > 0)
-        max_len_kept = int(inputs[4].max())
-        check(ratio <= 1.0, f"{cfg.name}: on the inputs of serve call with "
-              f"lengths up to {max_len_kept}, |kernel - plain| reaches "
-              f"{ratio} x its tier (max abs {err})")
-        decode_checks.append({"max_length": max_len_kept,
-                              "max_abs_err": err,
-                              "max_err_over_tier": ratio, **kw})
-    kernel.launches = launches
-    if decode_checks:
-        q, k_pool, _, table, _ = cap.kept[0][0]
-        _, _, pages = launch_plan(
-            q.shape[0], q.shape[1], k_pool.shape[2], q.shape[2],
-            q.element_size(), page, table.shape[1],
-            torch.cuda.get_device_properties(0).multi_processor_count)
-        check(max(c["max_length"] for c in decode_checks) > 2 * pages * page,
-              f"{cfg.name}: no kept call fills three splits of "
-              f"{pages * page} tokens")
-    del cap
-
-    # the same weights and requests through the port on the CPU
-    cpu_api = build_model(cfg, device="cpu")
-    cpu_params = copy.deepcopy(params).to("cpu")
-    cpu_rec = Recorder(cpu_api.paged_decode_step, CPU_STEPS)
-    cpu_eng = ServeEngine(cpu_api._replace(paged_decode_step=cpu_rec),
-                          cpu_params, n_slots=n_slots, page_size=page,
-                          max_len=max_len)
-    cpu_rec.on = True
-    for p, m in jobs:
-        cpu_eng.submit(p, m)
-    for _ in range(CPU_STEPS):
-        cpu_eng.step()
-    check(len(cpu_rec.logits) == CPU_STEPS == len(rec.logits),
-          "fewer recorded steps than compared")
-    logit_err = max(compare(i, g.cpu(), c) for i, (g, c) in
-                    enumerate(zip(rec.logits, cpu_rec.logits)))
-    del cpu_eng, cpu_params, cpu_api, cpu_rec
-
-    # where a steady serve step's time goes: n_prof steps of fresh requests
-    rec.on = False
-    for p, m in jobs[:n_slots]:
-        eng.submit(p, m)
-    for _ in range(5):
-        eng.step()
-    smi = subprocess.Popen(
-        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
-         "--format=csv,noheader,nounits", "-lms", "100"],
-        stdout=subprocess.PIPE, text=True)
-    try:
-        times, api_calls, wall, _ = device_times(
-            lambda: [eng.step() for _ in range(n_prof)])
-    finally:
-        smi.terminate()
-        samples = smi.communicate()[0].split("\n")
-    clocks = sorted(float(x.split(",")[0]) for x in samples if "," in x)
-    busy_us = sum(v[0] for v in times.values())
-    top = sorted(times.items(), key=lambda kv: -kv[1][0])[:8]
-    profile = {
-        "steps": n_prof,
-        "wall_ms_per_step_profiled": 1e3 * wall / n_prof,
-        "device_busy_ms_per_step": busy_us / 1e3 / n_prof,
-        "device_idle_share": (1 - busy_us / 1e6 / wall) if busy_us else None,
-        "attention_kernel_ms_per_step": sum(
-            v[0] for k, v in times.items()
-            if "paged_decode" in k) / 1e3 / n_prof,
-        "host_api_ms_per_step": {
-            k: [v[0] / 1e3 / n_prof, v[1] / n_prof]
-            for k, v in api_calls.items()},
-        "sm_clock_mhz_median": (clocks[len(clocks) // 2] if clocks
-                                else None),
-        "top_device_ms_per_step": [
-            [k[:90], v[0] / 1e3 / n_prof, v[1] / n_prof] for k, v in top],
-    }
+        moe.route = pin.fn
+        transformer._layer_decode_paged = layers.fn
     del eng, params
     torch.cuda.empty_cache()
 
@@ -802,13 +1064,19 @@ def serve_model(cfg, jobs, n_slots, page, max_len, compare, n_prof,
         "tokens_per_s": generated / run_s,
         "fed_tokens_per_s": (prompt_tokens + generated) / run_s,
         "max_memory_allocated_gb": peak_gb,
-        f"cpu_logit_err_first_{CPU_STEPS}_steps": logit_err,
+        "kernel_launches": launched,
+        f"cpu_logit_err_first_{CPU_STEPS}_steps": max(logit_errs),
+        "cpu_logit_err_per_step": logit_errs,
+        "cpu_hidden_rel_err_by_layer": depth_errs,
+        "cpu_control_one_bit_below_bf16": control_rec,
+        "cpu_reference_s": cpu_s,
+        "routing_shared_with_cpu": routing if n_moe else None,
         "decode_kernel_on_kept_serve_calls": decode_checks,
-        "profile": profile,
+        "profile": profile, **extra,
     }, launches
 
 
-def serve_phase():
+def serve_phase(kernels):
     from repro_torch.configs import get_config
 
     def compare(i, g, c):
@@ -819,15 +1087,16 @@ def serve_phase():
 
     cfg = get_config("transformer-100m")
     return serve_model(cfg, requests(cfg.vocab), N_SLOTS, PAGE, MAX_LEN,
-                       compare, n_prof=20)
+                       compare, n_prof=20, kernels=kernels)
 
 
-def cut_serve_phase(name, n_layers, why):
-    """Phases 3b and 3c: ``name`` at full width, depth cut to
+def cut_serve_phase(name, n_layers, why, kernels):
+    """Phases 3b, 3c, 11b and 12b: ``name`` at full width, depth cut to
     ``n_layers``, served from pools in its own dtype (bf16) with phase
-    3b's requests; card logits held to the CPU's in the Frobenius norm,
-    and the decode kernel on the inputs of both layers at three steps
-    spread over the run."""
+    3b's requests; card logits held to the CPU's in the Frobenius norm
+    (beside them the control one mantissa bit below bf16), and the decode
+    kernel on the inputs of every attention layer at three steps spread
+    over the run."""
     from repro_torch.configs import get_config
 
     def compare(i, g, c):
@@ -841,11 +1110,12 @@ def cut_serve_phase(name, n_layers, why):
     cfg = dataclasses.replace(full, n_layers=n_layers)
     jobs = requests(cfg.vocab, GEMMA_SERVE_REQUESTS, GEMMA_SERVE_PROMPT,
                     GEMMA_SERVE_NEW)
-    at = [n_layers * step + layer for step in GEMMA_SERVE_KEEP_STEPS
-          for layer in range(n_layers)]
+    n_attn, _ = layer_counts(cfg)
+    at = [n_attn * step + layer for step in GEMMA_SERVE_KEEP_STEPS
+          for layer in range(n_attn)]
     record, launches = serve_model(cfg, jobs, N_SLOTS, PAGE,
                                    GEMMA_SERVE_MAX_LEN, compare, n_prof=10,
-                                   capture_at=at)
+                                   kernels=kernels, capture_at=at)
     record["reduced"] = {"n_layers": f"{full.n_layers} -> {n_layers} "
                                      f"({why}; every width kept)"}
     record["heads"] = {"n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
@@ -1301,6 +1571,7 @@ def train_phase(kernels):
     sigma = float(run.metrics[-1].sigma_w_sq)
     probe, probe_launches = probe_phase(run.trainer, run.state, run.api,
                                         run.loader, kernels)
+    bridge, bridge_launches = bridge_phase(run, kernels)
     del run.trainer, run.state, run.metrics
     torch.cuda.empty_cache()
 
@@ -1328,7 +1599,79 @@ def train_phase(kernels):
         "losses": run.losses, "sigma_w_sq": sigma,
         "kernel_launches": launches,
         "ref_backend_max_abs_diff_after_2_steps": ref_err,
-    }, launches["gossip_mix_update_flat"], probe, probe_launches
+        "bridge": bridge,
+    }, launches["gossip_mix_update_flat"], probe, probe_launches, \
+        bridge_launches
+
+
+def bridge_phase(run, kernels):
+    """Phase 4's consensus bridge: snapshot the trained learners' mean,
+    serve phase 3's requests from it, train BRIDGE_STEPS more steps, then
+    the staleness and the served divergence.  Returns (record, launches
+    by kernel)."""
+    from repro_torch.core.util import learner_mean
+    from repro_torch.serve import (ConsensusBridge, ServeEngine,
+                                   served_divergence)
+    from repro_torch.tree import tree_leaves
+
+    for k in kernels:
+        k.launches = 0
+    api, trainer, state = run.api, run.trainer, run.state
+    bridge = ConsensusBridge(trainer)
+    snap = bridge.snapshot(state)
+    mean_err = max(float((a - b.float()).abs().max()) for a, b in zip(
+        tree_leaves(snap.params),
+        tree_leaves(learner_mean(trainer.params_tree(state)))))
+    check(snap.step == run.steps and snap.n_active == TRAIN_LEARNERS,
+          f"bridge snapshot at step {snap.step} of {snap.n_active}")
+    check(mean_err <= BRIDGE_MEAN_ATOL,
+          f"the snapshot differs from learner_mean by {mean_err}")
+    eng = ServeEngine(api, api.params_from_tree(snap.params),
+                      n_slots=N_SLOTS, page_size=PAGE, max_len=MAX_LEN)
+    jobs = requests(api.cfg.vocab)
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, m) for p, m in jobs]
+    eng.run()
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    check(all(r.done and len(r.generated) == m
+              for r, (_, m) in zip(reqs, jobs)),
+          "bridge: a request did not finish with its token budget")
+    losses = []
+    for i in range(BRIDGE_STEPS):
+        state, m = trainer.train_step(state, run.loader.batch(run.steps + i))
+        losses.append(float(m.loss))
+    stale = bridge.staleness(state, snap)
+    check(stale["steps_behind"] == BRIDGE_STEPS
+          and all(np.isfinite(v) for v in stale.values())
+          and all(np.isfinite(losses)),
+          f"bridge staleness {stale}, losses {losses}")
+    live = bridge.snapshot(state)
+    probe = torch.from_numpy(np.random.default_rng(SEED).integers(
+        1, api.cfg.vocab, BRIDGE_PROBE)).cuda()
+    div = served_divergence(api, snap.params, live.params, probe)
+    check(0.0 <= div["top1_agreement"] <= 1.0
+          and all(np.isfinite(v) for v in div.values()),
+          f"served divergence {div}")
+    launches = {k.__name__: k.launches for k in kernels}
+    check(launches["gossip_mix_update_flat"]
+          == BRIDGE_STEPS * trainer.rounds_per_step
+          and launches["paged_decode_attention_fwd"]
+          == eng.real_steps * api.cfg.n_layers
+          and sum(launches.values()) == launches["gossip_mix_update_flat"]
+          + launches["paged_decode_attention_fwd"],
+          f"bridge launches {launches}")
+    del eng, snap, live
+    torch.cuda.empty_cache()
+    return {"snapshot_step": run.steps,
+            "snapshot_mean_max_abs_diff_vs_learner_mean": mean_err,
+            "consensus_dist_snapshot": stale["consensus_dist_snapshot"],
+            "served_requests": len(jobs), "serve_s": serve_s,
+            "generated_tokens": sum(len(r.generated) for r in reqs),
+            "steps_after_snapshot": BRIDGE_STEPS, "losses_after": losses,
+            "staleness": stale, "served_divergence": div,
+            "probe_tokens": list(BRIDGE_PROBE),
+            "kernel_launches": launches}, launches
 
 
 def probe_phase(trainer, state, api, loader, kernels):
@@ -1666,29 +2009,44 @@ def flash_phase():
         library_ms = None
         if lib:
             sdpa = torch.nn.functional.scaled_dot_product_attention
-            library_ms = time_ms(lambda a, b, c: sdpa(a, b, c, is_causal=True),
-                                 sets, iters=100)
+            mask = None
+            if lib == "sdpa_window":
+                pos = torch.arange(S, device="cuda")
+                d = pos[:, None] - pos[None, :]
+                mask = (d >= 0) & (d < kw["window"])
+            library_ms = time_ms(
+                lambda a, b, c: sdpa(a, b, c, attn_mask=mask,
+                                     is_causal=mask is None,
+                                     enable_gqa=H != KV),
+                sets, iters=10 if big else 100)
+            del mask
         times, _, _, _ = device_times(
             lambda: [kernel(*sets[i % len(sets)], **kw) for i in range(10)])
         device_ms, n_ev = per_event_ms(times, "flash_attention")
         pairs = live_pairs(S, S, kw.get("causal", True), kw.get("window", 0))
-        # the tensor-core kernel (bf16 at hd 64 / 128): q.k one bf16 pass,
-        # P.V two (P = hi + lo in bf16), all at the tensor cores' bf16
-        # rate; the float32 kernel: q.k in float32 FMAs, P.V in three TF32
-        # passes (two for bf16 V), on the tensor cores at the same time as
-        # the FMAs, so the slower of the two; beside it, both halves at
-        # the float32 rate (the bound of the FMA kernel it replaced)
+        # the function's operations: q.k and P.V once each.  bf16 inputs:
+        # one tensor-core pass each at the bf16 rate.  float32: q.k in
+        # float32 FMAs (three TF32 terms miss the float32 tier) and
+        # P.V in three TF32 passes beside them, so the slower of the two;
+        # beside it, both halves at the float32 rate.  What the kernel
+        # that runs does is kept apart in bound_parts_ms: the tensor-core
+        # kernel takes P.V twice (P = hi + lo in bf16), the float32 kernel
+        # two TF32 passes for bf16 V
         half = 2 * hd * pairs * B * H
         flops = 2 * half
         nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
         t_bytes = nbytes / HBM_BYTES_PER_S
         route = kernel_for(dt, hd)
-        parts = ({"qk_pv_bf16_tensor_cores": 3 * half / BF16_FLOPS}
-                 if route == "tc" else
-                 {"qk_f32_fma": half / F32_FLOPS,
-                  "pv_tf32_tensor_cores":
-                      (2 if dt == _BF16 else 3) * half / TF32_FLOPS})
-        t_ops = max(parts.values())
+        if dt == _BF16:
+            t_ops = flops / BF16_FLOPS
+            parts = {"qk_pv_bf16_tensor_cores": t_ops,
+                     "kernel_" + route: (
+                         3 * half / BF16_FLOPS if route == "tc"
+                         else max(half / F32_FLOPS, 2 * half / TF32_FLOPS))}
+        else:
+            parts = {"qk_f32_fma": half / F32_FLOPS,
+                     "pv_tf32_tensor_cores": 3 * half / TF32_FLOPS}
+            t_ops = max(parts.values())
         timed[label] = {
             "shape": {"B": B, "H": H, "KV": KV, "hd": hd, "S": S,
                       "dtype": str(dt).replace("torch.", ""), **kw},
@@ -1703,10 +2061,14 @@ def flash_phase():
             "kernel": f"flash_attention_{route}_kernel",
             "share_of_bound": 1e3 * max(t_bytes, t_ops) / kernel_ms,
             "library_ms": library_ms,
-            "library": ("torch.nn.functional.scaled_dot_product_attention("
-                        "is_causal=True)" if lib else
-                        "none: scaled_dot_product_attention has no logit "
-                        "softcap"),
+            "library": {
+                "sdpa": "torch.nn.functional.scaled_dot_product_attention("
+                        "is_causal=True)",
+                "sdpa_window": "torch.nn.functional."
+                               "scaled_dot_product_attention with a boolean "
+                               "causal-window mask",
+                None: "none: scaled_dot_product_attention has no logit "
+                      "softcap"}[lib],
         }
         del q, k, v, sets
         torch.cuda.empty_cache()
@@ -2153,7 +2515,8 @@ def paper_phase(kernels):
     the launch counts zeroed just before it and read just after.  Returns
     (record, gossip launches by path, reorth launches)."""
     from repro_torch.bench import (ablation_topology, fig2_effective_lr,
-                                   fig4_noise_decomp, table4_lr_tuning)
+                                   fig4_noise_decomp, table4_lr_tuning,
+                                   table5_asr_proxy)
     from repro_torch.bench.common import final_loss
 
     names = [k.__name__ for k in kernels]
@@ -2228,7 +2591,9 @@ def paper_phase(kernels):
 
     for key, mod, runs in (("table4", table4_lr_tuning,
                             len(table4_lr_tuning.LRS)),
-                           ("fig4", fig4_noise_decomp, 1)):
+                           ("fig4", fig4_noise_decomp, 1),
+                           ("table5", table5_asr_proxy,
+                            len(table5_asr_proxy.LRS))):
         zero()
         t0 = time.perf_counter()
         res = mod.run()
@@ -2243,13 +2608,175 @@ def paper_phase(kernels):
         rows = res["rows"]
         check(all(np.isfinite(x) for r in rows for x in r[1:]
                   if isinstance(x, float)), f"{key}: non-finite {rows}")
+        if hasattr(mod, "check"):       # table5: what the reference gives
+            mod.check(rows)
         derived = mod.derived(rows)
         print(f"{mod.__name__.rsplit('.', 1)[1]},{res['us_per_step']:.0f},"
               f"{derived}", flush=True)
+        print(f"{key} gossip launches "
+              f"{launches['gossip_mix_update_flat']}", flush=True)
         out[key] = {"rows": rows, "derived": derived, "wall_s": wall,
                     "us_per_step": res["us_per_step"],
                     "kernel_launches": launches}
     return out, gossip, reorth
+
+
+# ---------------------------------------------------------------------------
+# phases 11-12: the moe and hybrid families (granite-moe, jamba)
+# ---------------------------------------------------------------------------
+
+def moe_profile(api, params, n_slots, reps=5):
+    """Device time of a serve step's MoE layers: each MoE layer's
+    ``moe_forward`` on an (n_slots, 1, d) input, ``reps`` steps under the
+    profiler, beside the bytes of every expert weight (at decode every
+    expert runs its capacity bucket, so a step reads them all)."""
+    from repro_torch.models import moe
+
+    cfg = api.cfg
+    layers = [lp.mlp for period in params.periods for lp in period.values()
+              if isinstance(lp.mlp, moe.MoEParams)]
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randn((n_slots, 1, cfg.d_model), generator=gen,
+                    device="cuda").to(layers[0].w1.dtype)
+    kw = dict(n_experts=cfg.n_experts, top_k=cfg.experts_per_tok,
+              capacity_factor=cfg.capacity_factor)
+
+    def step():
+        for mp in layers:
+            moe.moe_forward(mp, x, **kw)
+
+    with torch.inference_mode():
+        step()
+        times, _, wall, _ = device_times(
+            lambda: [step() for _ in range(reps)])
+    busy_ms = sum(v[0] for v in times.values()) / 1e3 / reps
+    nbytes = sum(sum(t.numel() * t.element_size()
+                     for t in (mp.w1, mp.w2, mp.w3)) for mp in layers)
+    return {"moe_layers": len(layers),
+            "capacity_per_expert": max(1, int(
+                cfg.capacity_factor * cfg.experts_per_tok * n_slots
+                / cfg.n_experts)),
+            "device_ms_per_step": busy_ms,
+            "wall_ms_per_step_profiled": 1e3 * wall / reps,
+            "expert_bytes_per_step": nbytes,
+            "expert_bytes_bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S}
+
+
+def recurrent_checks(eng, api, params):
+    """On the served engine's cache: one more served step with half the
+    slots not advancing keeps their mamba leaves bitwise (the others
+    move), and ``reset_slot`` zeroes one slot's leaves and no other's."""
+    from repro_torch.models.transformer import PAGED
+
+    S = eng.n_slots
+    cache = eng.cache
+    leaves = {f"{layer}/{name}": x for layer, c in cache.items()
+              for name, x in c.items() if name not in PAGED}
+    before = {k: x.clone() for k, x in leaves.items()}
+    check(all(bool(x.abs().sum() > 0) for x in before.values()),
+          "a recurrent leaf is all 0 after serving")
+    advance = torch.arange(S, device="cuda") % 2 == 0
+    rng = np.random.default_rng(SEED)
+    tokens = torch.from_numpy(rng.integers(1, api.cfg.vocab, (S, 1))).to(
+        torch.int32).cuda()
+    positions = torch.tensor([s.pos for s in eng.slots], dtype=torch.int32,
+                             device="cuda")
+    api.paged_decode_step(params, cache, tokens, positions,
+                          torch.from_numpy(eng.page_table).cuda(), advance)
+    torch.cuda.synchronize()
+    frozen = [i for i in range(S) if not bool(advance[i])]
+    for k, x in leaves.items():
+        check(torch.equal(x[:, frozen], before[k][:, frozen]),
+              f"{k}: a slot with advance=False changed")
+        for i in range(S):
+            if bool(advance[i]):
+                check(not torch.equal(x[:, i], before[k][:, i]),
+                      f"{k}: advancing slot {i} kept its state")
+    after = {k: x.clone() for k, x in leaves.items()}
+    api.reset_slot(cache, 1)
+    for k, x in leaves.items():
+        check(bool((x[:, 1] == 0).all()), f"{k}: reset_slot left slot 1")
+        others = [i for i in range(S) if i != 1]
+        check(torch.equal(x[:, others], after[k][:, others]),
+              f"{k}: reset_slot touched another slot")
+    return {"recurrent_leaves": len(leaves), "frozen_slots": frozen,
+            "advance_false_bitwise": True, "reset_slot_zeroes_slot": True}
+
+
+def zoo_prefill_phase(name, n_layers, seq, kernels):
+    """``api.apply`` of one ``seq``-token prompt on the flash route (the
+    routing recorded) against the chunked route (that routing replayed):
+    every attention layer one flash launch, finite logits, the last
+    GEMMA_LAST positions within GEMMA_BF16_RTOL.  Returns (record, flash
+    launches)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, moe
+
+    cfg = dataclasses.replace(get_config(name), n_layers=n_layers,
+                              use_pallas=True)
+    api = build_model(cfg)
+    api_c = build_model(dataclasses.replace(cfg, use_pallas=False))
+    n_attn, _ = layer_counts(cfg)
+    params = api.init(SEED)
+    tokens = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab, (1, seq))).cuda()
+    pin = SharedRouting(moe.route)
+    moe.route = pin
+    runs = {}
+    try:
+        for label, a, mode in (("flash", api, "record"),
+                               ("chunked", api_c, "replay")):
+            for k in kernels:
+                k.launches = 0
+            pin.mode = mode
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                logits = a.apply(params, {"tokens": tokens})
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0)
+            check(logits.shape == (1, seq, cfg.padded_vocab)
+                  and logits.dtype == getattr(torch, cfg.compute_dtype),
+                  f"{name} logits {tuple(logits.shape)} {logits.dtype}")
+            check(bool(torch.isfinite(logits).all()),
+                  f"non-finite {name} {label} logits")
+            runs[label] = {"last": logits[:, -GEMMA_LAST:].clone(),
+                           "wall_ms": wall,
+                           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                           "launches": {k.__name__: k.launches
+                                        for k in kernels}}
+            del logits
+            torch.cuda.empty_cache()
+    finally:
+        moe.route = pin.fn
+    flash, chunked = runs["flash"], runs["chunked"]
+    check(flash["launches"]["flash_attention_fwd"] == n_attn
+          and sum(flash["launches"].values()) == n_attn,
+          f"{name} prefill launches {flash['launches']}")
+    check(sum(chunked["launches"].values()) == 0,
+          f"the chunked route launched {chunked['launches']}")
+    pin.check(f"{name} prefill, chunked against flash")
+    rel = _rel(flash["last"], chunked["last"])
+    check(rel <= GEMMA_BF16_RTOL,
+          f"{name} prefill: last {GEMMA_LAST} positions differ from the "
+          f"chunked route by {rel} relative")
+    del params
+    torch.cuda.empty_cache()
+    return {"tokens": seq, "attention_layers": n_attn,
+            "flash_wall_ms": flash["wall_ms"],
+            "chunked_wall_ms": chunked["wall_ms"],
+            "flash_peak_gb": flash["peak_gb"],
+            "chunked_peak_gb": chunked["peak_gb"],
+            "flash_launches": flash["launches"]["flash_attention_fwd"],
+            "last_positions": GEMMA_LAST,
+            "last_logits_rel_diff_vs_chunked": rel,
+            "last_logits_max_abs_diff_vs_chunked": float(
+                (flash["last"].float() - chunked["last"].float()).abs()
+                .max()),
+            "tier_rel": GEMMA_BF16_RTOL,
+            "routing_shared": pin.record()}, \
+        flash["launches"]["flash_attention_fwd"]
 
 
 def main() -> int:
@@ -2288,41 +2815,24 @@ def main() -> int:
     single_record = gossip_single_phase(kernels)
     torch.cuda.empty_cache()
 
-    for k in kernels:
-        k.launches = 0
-    serve, _ = serve_phase()
-    serve["kernel_launches"] = {k.__name__: k.launches for k in kernels}
-    check(all(v == 0 for k, v in serve["kernel_launches"].items()
-              if k != "paged_decode_attention_fwd"),
-          f"the serving path launched another path's kernel: "
-          f"{serve['kernel_launches']}")
+    serve, launches = serve_phase(kernels)
     print(json.dumps({"serve": serve}), flush=True)
 
-    serve_launches = {"transformer_100m_serving": serve["kernel_launches"][
-        "paged_decode_attention_fwd"]}
+    serve_launches = {"transformer_100m_serving": launches}
     for key, name, layers, why in (
             ("serve_gemma2", "gemma2-27b", GEMMA_LAYERS,
              "one local/global period"),
             ("serve_granite", "granite-20b", GRANITE_LAYERS,
              "phase 3b's depth")):
-        for k in kernels:
-            k.launches = 0
-        record, _ = cut_serve_phase(name, layers, why)
-        record["kernel_launches"] = {k.__name__: k.launches for k in kernels}
-        check(all(v == 0 for k, v in record["kernel_launches"].items()
-                  if k != "paged_decode_attention_fwd"),
-              f"the {name} serving path launched another path's kernel: "
-              f"{record['kernel_launches']}")
+        record, launches = cut_serve_phase(name, layers, why, kernels)
         print(json.dumps({key: record}), flush=True)
-        serve_launches[name.replace("-", "_") + "_serving"] = record[
-            "kernel_launches"]["paged_decode_attention_fwd"]
+        serve_launches[name.replace("-", "_") + "_serving"] = launches
         del record
         torch.cuda.empty_cache()
-    decode_record["launches"] = sum(serve_launches.values())
-    decode_record["launches_by_path"] = serve_launches
-
-    train, gossip_record["launches"], probe, probe_launches = \
-        train_phase(kernels)
+    train, gossip_record["launches"], probe, probe_launches, \
+        bridge_launches = train_phase(kernels)
+    serve_launches["transformer_100m_bridge_serving"] = bridge_launches[
+        "paged_decode_attention_fwd"]
     dots_record["launches"] = probe_launches["reorth_dots"]
     axpy_record["launches"] = probe_launches["reorth_axpy"]
     print(json.dumps({"train": train}), flush=True)
@@ -2343,8 +2853,27 @@ def main() -> int:
     print(json.dumps({"pytree_engine": pytree}), flush=True)
     paper, paper_gossip, fig2_reorth = paper_phase(kernels)
     print(json.dumps({"paper_fc": paper}), flush=True)
+    zoo_flash = {}
+    for key, name, layers, why, seq in ZOO:
+        record, launches = cut_serve_phase(name, layers, why, kernels)
+        serve_launches[name.replace("-", "_") + "_serving"] = launches
+        torch.cuda.empty_cache()
+        record["prefill"], zoo_flash[name.replace("-", "_") + "_prefill"] = \
+            zoo_prefill_phase(name, layers, seq, kernels)
+        record["decode_kernel_at_its_decode_shape"] = {
+            k: v for k, v in decode_record["per_shape"].items()
+            if k.startswith(key.split("_", 1)[1])}
+        print(json.dumps({key: record}), flush=True)
+        del record
+        torch.cuda.empty_cache()
+    decode_record["launches"] = sum(serve_launches.values())
+    decode_record["launches_by_path"] = serve_launches
+    flash_record["launches_by_path"].update(zoo_flash)
+    flash_record["launches"] = sum(flash_record["launches_by_path"].values())
     gossip_record["launches_by_path"] = {
         "transformer_100m_dpsgd_training": gossip_record["launches"],
+        "transformer_100m_bridge_training": bridge_launches[
+            "gossip_mix_update_flat"],
         **pytree_gossip, **paper_gossip}
     gossip_record["launches"] = sum(
         gossip_record["launches_by_path"].values())

@@ -11,7 +11,9 @@ row ``name,us_per_call,derived``:
     spectral-gap bound;
   * ``table4_lr_tuning`` — Table 4: SSGD and DPSGD over four lrs;
   * ``fig4_noise_decomp`` — Fig. 4: Delta_S against Delta2;
-  * ``theorem1_smoothing`` — Theorem 1's 2G/sigma smoothing bound.
+  * ``theorem1_smoothing`` — Theorem 1's 2G/sigma smoothing bound;
+  * ``table5_asr_proxy`` — Table 5's ASR proxy: 100 zipf classes, SSGD
+    and DPSGD over an lr scan.
 
 Each runs on the card unless told otherwise, and takes ``--smoke``:
 

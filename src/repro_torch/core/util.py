@@ -1,8 +1,8 @@
 """Tree algebra and learner statistics — the port of ``repro/core/util.py``
 (the tree walking itself is ``repro_torch.tree``).  Sums are taken in
 float32, leaf by leaf, and folded left to right as the reference's
-``tree_reduce`` does.  The masked (elastic) variants arrive with ROADMAP
-slice 6.
+``tree_reduce`` does.  The masked variants average over the ACTIVE
+learners only (elastic membership; the consensus bridge reads them).
 
 ``bind_params`` / ``value_and_grad`` differentiate a loss with respect to a
 parameter TREE (the reference's layout) for models whose ``loss_fn`` takes
@@ -20,6 +20,7 @@ from ..tree import tree_leaves, tree_map
 
 __all__ = ["tree_dot", "tree_norm_sq", "tree_add", "tree_sub", "tree_scale",
            "tree_gaussian_like", "learner_mean", "learner_var",
+           "masked_learner_mean", "masked_learner_var",
            "bind_params", "write_leaves", "value_and_grad"]
 
 
@@ -71,6 +72,39 @@ def learner_var(stacked):
     variance of the learner weights around their mean."""
     return _fold([torch.sum(torch.var(x.float(), dim=0, correction=0))
                   for x in tree_leaves(stacked)])
+
+
+def _mask_for(active, x):
+    return torch.as_tensor(active, dtype=torch.bool, device=x.device
+                           ).reshape((-1,) + (1,) * (x.dim() - 1))
+
+
+def _n_active(active) -> torch.Tensor:
+    return torch.clamp(torch.sum(torch.as_tensor(active, dtype=torch.bool)),
+                       min=1)
+
+
+def masked_learner_mean(stacked, active):
+    """Consensus mean over the ACTIVE learners only.  ``active``: (n,)
+    bool.  Dead rows are excluded with ``where``, never multiplied, so a
+    non-finite parked row cannot leak into the mean."""
+    def _mean(x):
+        s = torch.sum(torch.where(_mask_for(active, x), x.float(), 0.0),
+                      dim=0)
+        return (s / _n_active(active).to(x.device)).to(x.dtype)
+    return tree_map(_mean, stacked)
+
+
+def masked_learner_var(stacked, active):
+    """sigma_w^2 over the ACTIVE learners only (see masked_learner_mean)."""
+    def _var(x):
+        m = _mask_for(active, x)
+        denom = _n_active(active).to(x.device)
+        xf = torch.where(m, x.float(), 0.0)
+        mean = torch.sum(xf, dim=0) / denom
+        dev = torch.where(m, xf - mean[None], 0.0)
+        return torch.sum(torch.square(dev)) / denom
+    return _fold([_var(x) for x in tree_leaves(stacked)])
 
 
 def bind_params(tree, params_from_tree: Optional[Callable] = None):

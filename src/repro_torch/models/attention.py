@@ -2,13 +2,14 @@
 training/prefill, and paged decode for serving.
 
 Port of ``repro/models/attention.py`` (``init_attn_params``,
-``chunked_attention``, ``attn_forward``, ``init_paged_attn_cache``,
-``attn_decode_paged``).  Weights keep the reference's (d_in, d_out)
-orientation and the layer computes ``x @ w``, so the arithmetic matches
-the reference's.  ``attn_forward(use_pallas=True)`` routes the core to
+``chunked_attention``, ``attn_forward``, ``init_attn_cache``,
+``attn_decode``, ``init_paged_attn_cache``, ``attn_decode_paged``).
+Weights keep the reference's (d_in, d_out) orientation and the layer
+computes ``x @ w``, so the arithmetic matches the reference's.
+``attn_forward(use_pallas=True)`` routes the core to
 ``kernels.ops.flash_attention`` (the hand-written flash kernel on the
-card).  The rotating-buffer ``attn_decode`` arrives with the model zoo
-(ROADMAP slice 5).
+card).  ``rope_fn=None`` (a model without RoPE, e.g. jamba) skips the
+rotation everywhere.
 """
 from __future__ import annotations
 
@@ -129,6 +130,57 @@ def attn_forward(params: AttnParams, x, *, n_heads: int, n_kv: int,
                                 window=window, attn_softcap=attn_softcap,
                                 chunk=chunk)
     return out.reshape(B, S, n_heads * head_dim) @ params.wo
+
+
+# ---------------------------------------------------------------------------
+# decode: one new token against a rotating K/V buffer
+# ---------------------------------------------------------------------------
+
+def init_attn_cache(batch: int, buf_len: int, n_kv: int, head_dim: int,
+                    dtype, device):
+    """A rotating K/V buffer of ``buf_len`` positions; ``slot_pos`` holds
+    the position each buffer row was written at (-1: empty)."""
+    shape = (batch, buf_len, n_kv, head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "slot_pos": torch.full((buf_len,), -1, dtype=torch.int32,
+                                   device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def attn_decode(params: AttnParams, cache, x, pos: int, *, n_heads: int,
+                n_kv: int, head_dim: int, rope_fn: Optional[Callable],
+                attn_softcap: float = 0.0):
+    """x: (B, 1, d); pos: the position every sequence writes at.  Row
+    ``pos % buf_len`` of the buffer is written IN PLACE and the returned
+    cache is the same tensors.  Returns (out (B, 1, d), cache)."""
+    B = x.shape[0]
+    buf = cache["k"].shape[1]
+    q = (x @ params.wq).reshape(B, 1, n_heads, head_dim)
+    k = (x @ params.wk).reshape(B, 1, n_kv, head_dim)
+    v = (x @ params.wv).reshape(B, 1, n_kv, head_dim)
+    if rope_fn is not None:
+        posv = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+        q = rope_fn(q, posv)
+        k = rope_fn(k, posv)
+
+    slot = pos % buf
+    kc, vc, sp = cache["k"], cache["v"], cache["slot_pos"]
+    kc[:, slot] = k[:, 0].to(kc.dtype)
+    vc[:, slot] = v[:, 0].to(vc.dtype)
+    sp[slot] = pos
+
+    G = n_heads // n_kv
+    qg = q.reshape(B, n_kv, G, head_dim)
+    s = torch.einsum("bkgd,bwkd->bkgw", qg.float(),
+                     kc.float()) * head_dim ** -0.5
+    if attn_softcap:
+        s = softcap(s, attn_softcap)
+    valid = (sp >= 0) & (sp <= pos)
+    s = torch.where(valid, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgw,bwkd->bkgd", p, vc.float())
+    out = o.reshape(B, 1, n_heads * head_dim).to(x.dtype) @ params.wo
+    return out, cache
 
 
 def init_paged_attn_cache(n_pages: int, page_size: int, n_kv: int,

@@ -16,7 +16,12 @@ tree is also the layout of the flat training store (``core/flatstate.py``).
     Built around the flat store's views, its parameters are the store.
   * ``params_from_jax`` does both steps for a reference transformer tree.
 
-Weights keep the reference's (d_in, d_out) orientation.
+Weights keep the reference's (d_in, d_out) orientation.  A layer's mixer
+is attention (``wq, wk, wv, wo``) or mamba (``a_log, conv_b, conv_w, d,
+dt_bias, dt_proj, in_proj, out_proj, x_proj``); its mlp is dense (``w1,
+w3, w2``) or MoE (``router, w1, w2, w3``).  Each leaf keeps its own dtype
+(the float32 router, ``a_log``, ``d``, ``dt_bias`` and norms of a bf16
+model included).
 """
 from __future__ import annotations
 
@@ -25,6 +30,8 @@ import torch
 from ..configs.base import ModelConfig
 from ..core.util import tree_map
 from .attention import AttnParams
+from .mamba import MambaParams
+from .moe import MoEParams
 from .transformer import (LayerParams, MLPParams, TransformerParams,
                           n_periods, period_spec)
 
@@ -50,38 +57,47 @@ def transformer_tree(params: TransformerParams):
     def stack(get):
         return torch.stack([get(period) for period in params.periods])
 
-    def layer(i):
-        k = f"l{i}"
-        return {
-            "norm1": stack(lambda pp: pp[k].norm1.detach()),
-            "mixer": {w: stack(lambda pp, w=w: getattr(pp[k].mixer,
-                                                       w).detach())
-                      for w in ("wq", "wk", "wv", "wo")},
-            "norm2": stack(lambda pp: pp[k].norm2.detach()),
-            "mlp": {w: stack(lambda pp, w=w: getattr(pp[k].mlp, w).detach())
-                    for w in ("w1", "w3", "w2")},
-        }
+    def module(k, part):
+        names = [n for n, _ in getattr(params.periods[0][k],
+                                       part).named_parameters()]
+        return {n: stack(lambda pp, n=n: getattr(getattr(pp[k], part),
+                                                 n).detach())
+                for n in names}
+
+    def layer(k):
+        return {"norm1": stack(lambda pp: pp[k].norm1.detach()),
+                "mixer": module(k, "mixer"),
+                "norm2": stack(lambda pp: pp[k].norm2.detach()),
+                "mlp": module(k, "mlp")}
 
     tree = {"embed": params.embed.detach(),
-            "periods": {k: layer(int(k[1:])) for k in params.periods[0]},
+            "periods": {k: layer(k) for k in params.periods[0]},
             "final_norm": params.final_norm.detach()}
     if params.lm_head is not None:
         tree["lm_head"] = params.lm_head.detach()
     return tree
 
 
+def _mixer(m, p):
+    if "wq" in m:
+        return AttnParams(m["wq"][p], m["wk"][p], m["wv"][p], m["wo"][p])
+    return MambaParams(**{k: x[p] for k, x in m.items()})
+
+
+def _mlp(f, p):
+    if "router" in f:
+        return MoEParams(f["router"][p], f["w1"][p], f["w3"][p], f["w2"][p])
+    return MLPParams(f["w1"][p], f["w3"][p], f["w2"][p])
+
+
 def transformer_from_tree(tree, cfg: ModelConfig) -> TransformerParams:
-    """tree: {"embed", "periods": {"l0": {"norm1", "mixer": {"wq", "wk",
-    "wv", "wo"}, "norm2", "mlp": {"w1", "w3", "w2"}}}, "final_norm",
-    "lm_head"}, period leaves stacked on axis 0.  The parameters alias the
-    tree's tensors (``nn.Parameter`` of row p of each stacked leaf)."""
+    """tree: {"embed", "periods": {"l0": {"norm1", "mixer", "norm2",
+    "mlp"}}, "final_norm", "lm_head"}, period leaves stacked on axis 0.
+    The parameters alias the tree's tensors (``nn.Parameter`` of row p of
+    each stacked leaf)."""
     def layer(lp, p):
-        m, f = lp["mixer"], lp["mlp"]
-        return LayerParams(
-            lp["norm1"][p],
-            AttnParams(m["wq"][p], m["wk"][p], m["wv"][p], m["wo"][p]),
-            lp["norm2"][p],
-            MLPParams(f["w1"][p], f["w3"][p], f["w2"][p]))
+        return LayerParams(lp["norm1"][p], _mixer(lp["mixer"], p),
+                           lp["norm2"][p], _mlp(lp["mlp"], p))
 
     spec = period_spec(cfg)
     periods = [{f"l{i}": layer(tree["periods"][f"l{i}"], p)

@@ -1,15 +1,23 @@
-"""Decoder-only LM, dense family — the port of
-``repro/models/transformer.py``: training/prefill forward (``apply``,
-through chunked attention or, with ``cfg.use_pallas``, the flash kernel)
-and paged decode for serving.
+"""Decoder-only LM — the port of ``repro/models/transformer.py``:
+training/prefill forward (``apply``, through chunked attention or, with
+``cfg.use_pallas``, the flash kernel), the rotating-buffer decode
+(``init_cache`` / ``decode_step``) and the paged decode that serves.
 
-Depth is n_periods x period as in the reference; a dense model's period is
-one (attn, dense) layer.  Parameters are ``nn.Module``s holding
+Depth is n_periods x period as in the reference: a period is the repeating
+block pattern (dense: [attn]; gemma2: [local, global]; jamba: 7 mamba + 1
+attention with MoE every 2nd layer).  A layer is (mixer, mlp) with mixer in
+{attn, attn_local, mamba} and mlp in {dense, moe}; the xLSTM mixers
+(mlstm, slstm) arrive with ROADMAP slice 5b and raise
+``NotImplementedError`` here.  Parameters are ``nn.Module``s holding
 ``nn.Parameter``s in the reference's layout (``periods[p]["l0"].mixer.wq``
 is the reference's ``periods/l0/mixer/wq[p]``); the functions below take
-them as arguments, mirroring the reference's pure functions.  Mixers other
-than attention and MLPs other than the dense SwiGLU arrive with the model
-zoo (ROADMAP slice 5) and raise ``NotImplementedError`` here.
+them as arguments, mirroring the reference's pure functions.
+
+Caches are dicts {f"l{i}": {leaf: (n_periods, ...)}} in the reference's
+stacked layout and are updated IN PLACE (the reference donates them to a
+jitted step and gets fresh buffers back).  Recurrent layers (mamba) keep
+per-slot state with the slot on axis 1; attention layers of the paged
+cache share page pools with no slot axis.
 """
 from __future__ import annotations
 
@@ -17,14 +25,19 @@ import math
 from typing import Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ..configs.base import ModelConfig
-from .attention import (AttnParams, attn_decode_paged, attn_forward,
-                        init_attn_params, init_paged_attn_cache)
+from .attention import (attn_decode, attn_decode_paged, attn_forward,
+                        init_attn_cache, init_attn_params,
+                        init_paged_attn_cache)
 from .layers import apply_rope, dense_init, dtype_of, embed_init, rms_norm, \
     softcap, swiglu
+from .mamba import (init_mamba_cache, init_mamba_params, mamba_decode,
+                    mamba_forward)
+from .moe import init_moe_params, moe_forward
+
+PAGED = ("k_pages", "v_pages")
 
 
 # ---------------------------------------------------------------------------
@@ -32,17 +45,32 @@ from .layers import apply_rope, dense_init, dtype_of, embed_init, rms_norm, \
 # ---------------------------------------------------------------------------
 
 def period_spec(cfg: ModelConfig) -> Tuple[Tuple[str, str], ...]:
-    if cfg.block_period or cfg.n_experts or cfg.family != "dense":
+    if cfg.mrope_sections or cfg.family in ("vlm", "audio"):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense family (attention + dense MLP) is "
-            "ported; other mixers and MLPs arrive with ROADMAP slice 5")
-    if cfg.mrope_sections:
-        raise NotImplementedError(f"{cfg.name}: M-RoPE is not ported yet")
+            f"{cfg.name}: the {cfg.family} family (M-RoPE, encoder-decoder) "
+            "arrives with ROADMAP slice 5b")
+    if cfg.block_period:
+        spec = []
+        for i, mixer in enumerate(cfg.block_period):
+            if cfg.attn_layer_offset >= 0 and i == cfg.attn_layer_offset:
+                mixer = "attn"
+            if mixer in ("mlstm", "slstm"):
+                raise NotImplementedError(
+                    f"{cfg.name}: the {mixer} mixer (xLSTM) arrives with "
+                    "ROADMAP slice 5b")
+            if cfg.n_experts and cfg.moe_every and (i % cfg.moe_every
+                                                    == cfg.moe_every - 1):
+                mlp = "moe"
+            else:
+                mlp = "dense"
+            spec.append((mixer, mlp))
+        return tuple(spec)
+    mlp = "moe" if cfg.n_experts else "dense"
     if cfg.attn_pattern == "local_global":
-        return (("attn_local", "dense"), ("attn", "dense"))
+        return (("attn_local", mlp), ("attn", mlp))
     if cfg.attn_pattern == "sliding":
-        return (("attn_local", "dense"),)
-    return (("attn", "dense"),)
+        return (("attn_local", mlp),)
+    return (("attn", mlp),)
 
 
 def n_periods(cfg: ModelConfig) -> int:
@@ -79,7 +107,10 @@ class MLPParams(nn.Module):
 
 
 class LayerParams(nn.Module):
-    def __init__(self, norm1, mixer: AttnParams, norm2, mlp: MLPParams):
+    """norm1; mixer (AttnParams or MambaParams); norm2; mlp (MLPParams or
+    MoEParams)."""
+
+    def __init__(self, norm1, mixer: nn.Module, norm2, mlp: nn.Module):
         super().__init__()
         self.norm1 = nn.Parameter(norm1)
         self.mixer = mixer
@@ -99,32 +130,44 @@ class TransformerParams(nn.Module):
         self.lm_head = None if lm_head is None else nn.Parameter(lm_head)
 
 
+def _init_layer(gen: torch.Generator, cfg: ModelConfig, mixer: str,
+                mlp: str) -> LayerParams:
+    dt = dtype_of(cfg.param_dtype)
+    d, dev = cfg.d_model, gen.device
+    if mixer in ("attn", "attn_local"):
+        mix = init_attn_params(gen, d, cfg.n_heads, cfg.n_kv_heads,
+                               cfg.head_dim_, dt)
+    else:
+        mix = init_mamba_params(gen, d, expand=cfg.ssm_expand,
+                                state=cfg.ssm_state, conv=cfg.ssm_conv,
+                                dtype=dt)
+    if mlp == "moe":
+        ffn = init_moe_params(gen, d, cfg.d_ff, cfg.n_experts, dt)
+    else:
+        ffn = MLPParams(dense_init(gen, d, cfg.d_ff, dt),
+                        dense_init(gen, d, cfg.d_ff, dt),
+                        dense_init(gen, cfg.d_ff, d, dt))
+    return LayerParams(torch.zeros((d,), dtype=torch.float32, device=dev),
+                       mix,
+                       torch.zeros((d,), dtype=torch.float32, device=dev),
+                       ffn)
+
+
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> TransformerParams:
     """Random weights drawn from ``gen`` on ``gen.device`` (the reference's
     distributions; not its draws, which come from ``jax.random``)."""
     dt = dtype_of(cfg.param_dtype)
-    d, dev = cfg.d_model, gen.device
+    d = cfg.d_model
     spec = period_spec(cfg)
-
-    def zeros():
-        return torch.zeros((d,), dtype=torch.float32, device=dev)
-
-    def layer():
-        return LayerParams(
-            zeros(),
-            init_attn_params(gen, d, cfg.n_heads, cfg.n_kv_heads,
-                             cfg.head_dim_, dt),
-            zeros(),
-            MLPParams(dense_init(gen, d, cfg.d_ff, dt),
-                      dense_init(gen, d, cfg.d_ff, dt),
-                      dense_init(gen, cfg.d_ff, d, dt)))
-
     embed = embed_init(gen, cfg.padded_vocab, d, dt)
-    periods = [{f"l{i}": layer() for i in range(len(spec))}
+    periods = [{f"l{i}": _init_layer(gen, cfg, mixer, mlp)
+                for i, (mixer, mlp) in enumerate(spec)}
                for _ in range(n_periods(cfg))]
     head = (None if cfg.tie_embeddings
             else dense_init(gen, d, cfg.padded_vocab, dt))
-    return TransformerParams(embed, periods, zeros(), head)
+    return TransformerParams(
+        embed, periods, torch.zeros((d,), dtype=torch.float32,
+                                    device=gen.device), head)
 
 
 # ---------------------------------------------------------------------------
@@ -149,18 +192,40 @@ def logits_from_hidden(params: TransformerParams, cfg: ModelConfig, x):
 # forward (training / prefill)
 # ---------------------------------------------------------------------------
 
-def _layer_forward(lp: LayerParams, x, cfg: ModelConfig, mixer: str,
-                   rope_fn, positions):
-    h = rms_norm(x, lp.norm1, cfg.norm_eps)
-    x = x + attn_forward(lp.mixer, h, n_heads=cfg.n_heads,
-                         n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim_,
-                         rope_fn=rope_fn, q_positions=positions,
-                         window=_window(cfg, mixer),
-                         attn_softcap=cfg.attn_softcap, chunk=cfg.attn_chunk,
-                         use_pallas=cfg.use_pallas)
+def _mlp(lp: LayerParams, x, cfg: ModelConfig, mlp: str):
+    """The layer's FFN half: x + mlp(rms_norm(x)).  ``moe_backend``
+    "shard_map" takes the einsum path on one device, as the reference does
+    without a ``model`` mesh axis (its all-to-all arrives with ROADMAP
+    slice 7)."""
     h = rms_norm(x, lp.norm2, cfg.norm_eps)
-    mlp = lp.mlp
-    return x + swiglu(h, mlp.w1, mlp.w3, mlp.w2)
+    if mlp == "moe":
+        return x + moe_forward(lp.mlp, h, n_experts=cfg.n_experts,
+                               top_k=cfg.experts_per_tok,
+                               capacity_factor=cfg.capacity_factor)
+    f = lp.mlp
+    return x + swiglu(h, f.w1, f.w3, f.w2)
+
+
+def _mamba_kw(cfg: ModelConfig):
+    return dict(expand=cfg.ssm_expand, state=cfg.ssm_state,
+                conv=cfg.ssm_conv)
+
+
+def _layer_forward(lp: LayerParams, x, cfg: ModelConfig, mixer: str,
+                   mlp: str, rope_fn, positions):
+    h = rms_norm(x, lp.norm1, cfg.norm_eps)
+    if mixer == "mamba":
+        x = x + mamba_forward(lp.mixer, h, scan_chunk=cfg.scan_chunk,
+                              **_mamba_kw(cfg))
+    else:
+        x = x + attn_forward(lp.mixer, h, n_heads=cfg.n_heads,
+                             n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim_,
+                             rope_fn=rope_fn, q_positions=positions,
+                             window=_window(cfg, mixer),
+                             attn_softcap=cfg.attn_softcap,
+                             chunk=cfg.attn_chunk,
+                             use_pallas=cfg.use_pallas)
+    return _mlp(lp, x, cfg, mlp)
 
 
 def forward(params: TransformerParams, cfg: ModelConfig, x, positions):
@@ -171,8 +236,8 @@ def forward(params: TransformerParams, cfg: ModelConfig, x, positions):
     spec = period_spec(cfg)
     rope_fn = make_rope_fn(cfg)
     for period in params.periods:
-        for i, (mixer, _) in enumerate(spec):
-            x = _layer_forward(period[f"l{i}"], x, cfg, mixer, rope_fn,
+        for i, (mixer, mlp) in enumerate(spec):
+            x = _layer_forward(period[f"l{i}"], x, cfg, mixer, mlp, rope_fn,
                                positions)
     return x
 
@@ -185,50 +250,140 @@ def apply(params: TransformerParams, cfg: ModelConfig, tokens):
 
 
 # ---------------------------------------------------------------------------
+# caches
+# ---------------------------------------------------------------------------
+
+def _stacked(cfg: ModelConfig, one):
+    """A layer cache {leaf: (...)} -> {leaf: (n_periods, ...)}."""
+    np_ = n_periods(cfg)
+    return {name: x.expand((np_,) + x.shape).clone()
+            for name, x in one.items()}
+
+
+def _recurrent_cache(cfg: ModelConfig, batch: int, device):
+    return init_mamba_cache(batch, cfg.d_model,
+                            dtype=dtype_of(cfg.param_dtype), device=device,
+                            **_mamba_kw(cfg))
+
+
+def _period_cache(cache, p: int):
+    """Period ``p``'s views of every layer cache."""
+    return {layer: {name: x[p] for name, x in c.items()}
+            for layer, c in cache.items()}
+
+
+def _write_state(cc, new_cc, advance=None):
+    """Write a recurrent layer's new state into its cache views.  With an
+    ``advance`` mask ((S,) bool, slot on axis 0) a slot with advance=False
+    keeps its old state bitwise; ``new_cc`` was computed from the old state
+    before anything is written."""
+    for name, old in cc.items():
+        new = new_cc[name]
+        if advance is not None:
+            new = torch.where(
+                advance.reshape((-1,) + (1,) * (new.dim() - 1)), new, old)
+        old.copy_(new)
+
+
+# ---------------------------------------------------------------------------
+# rotating-buffer decode (one position shared by the batch)
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, buf_len: int, device):
+    """Attention layers: {"k", "v": (n_periods, B, blen, KV, hd),
+    "slot_pos": (n_periods, blen) int32, -1 = empty}, blen = min(buf_len,
+    window) on windowed layers; mamba layers: {"conv", "h"}."""
+    dt = dtype_of(cfg.param_dtype)
+
+    def layer(mixer):
+        if mixer == "mamba":
+            return _recurrent_cache(cfg, batch, device)
+        blen = min(buf_len, cfg.window) if (
+            mixer == "attn_local" or cfg.attn_pattern == "sliding") \
+            else buf_len
+        return init_attn_cache(batch, blen, cfg.n_kv_heads, cfg.head_dim_,
+                               dt, device)
+
+    return {f"l{i}": _stacked(cfg, layer(mixer))
+            for i, (mixer, _) in enumerate(period_spec(cfg))}
+
+
+@torch.inference_mode()
+def decode_step(params: TransformerParams, cfg: ModelConfig, cache, tokens,
+                pos):
+    """tokens: (B, 1); pos: int, the position every sequence writes at.
+    -> (logits (B, 1, V), cache updated in place)."""
+    spec = period_spec(cfg)
+    rope_fn = make_rope_fn(cfg)
+    pos = int(pos)
+    x = embed_tokens(params, cfg, tokens)
+    for p, period in enumerate(params.periods):
+        pc = _period_cache(cache, p)
+        for i, (mixer, mlp) in enumerate(spec):
+            lp, cc = period[f"l{i}"], pc[f"l{i}"]
+            h = rms_norm(x, lp.norm1, cfg.norm_eps)
+            if mixer == "mamba":
+                h, new = mamba_decode(lp.mixer, cc, h, **_mamba_kw(cfg))
+                _write_state(cc, new)
+            else:
+                h, _ = attn_decode(lp.mixer, cc, h, pos, n_heads=cfg.n_heads,
+                                   n_kv=cfg.n_kv_heads,
+                                   head_dim=cfg.head_dim_, rope_fn=rope_fn,
+                                   attn_softcap=cfg.attn_softcap)
+            x = _mlp(lp, x + h, cfg, mlp)
+    return logits_from_hidden(params, cfg, x), cache
+
+
+# ---------------------------------------------------------------------------
 # paged decode (per-slot positions — the serving path, DESIGN §14)
 # ---------------------------------------------------------------------------
 
 def init_paged_cache(cfg: ModelConfig, n_slots: int, n_pages: int,
                      page_size: int, device):
-    """{f"l{i}": {"k_pages", "v_pages": (n_periods, n_pages, page_size,
-    KV, hd)}} — the reference's stacked layout.  Attention layers share a
-    page pool with no slot axis, so ``n_slots`` sizes nothing here."""
-    np_ = n_periods(cfg)
+    """Attention layers: {"k_pages", "v_pages": (n_periods, n_pages,
+    page_size, KV, hd)}, a page pool with no slot axis (the scheduler's
+    page table says which pages a slot owns); mamba layers: per-slot
+    {"conv": (n_periods, n_slots, conv - 1, di), "h": (n_periods, n_slots,
+    di, N) float32}, position-free and recycled by ``reset_slot``."""
     dt = dtype_of(cfg.param_dtype)
 
-    def stacked():
-        one = init_paged_attn_cache(n_pages, page_size, cfg.n_kv_heads,
-                                    cfg.head_dim_, dt, device)
-        return {name: pool.expand((np_,) + pool.shape).clone()
-                for name, pool in one.items()}
+    def layer(mixer):
+        if mixer == "mamba":
+            return _recurrent_cache(cfg, n_slots, device)
+        return init_paged_attn_cache(n_pages, page_size, cfg.n_kv_heads,
+                                     cfg.head_dim_, dt, device)
 
-    return {f"l{i}": stacked() for i in range(len(period_spec(cfg)))}
+    return {f"l{i}": _stacked(cfg, layer(mixer))
+            for i, (mixer, _) in enumerate(period_spec(cfg))}
 
 
 def _layer_decode_paged(lp: LayerParams, cc, x, positions, page_table,
-                        cfg: ModelConfig, mixer: str, rope_fn):
+                        cfg: ModelConfig, mixer: str, mlp: str, rope_fn,
+                        advance):
     h = rms_norm(x, lp.norm1, cfg.norm_eps)
-    h, cc = attn_decode_paged(lp.mixer, cc, h, positions, page_table,
-                              n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
-                              head_dim=cfg.head_dim_, rope_fn=rope_fn,
-                              attn_softcap=cfg.attn_softcap,
-                              window=_window(cfg, mixer))
-    x = x + h
-    h = rms_norm(x, lp.norm2, cfg.norm_eps)
-    mlp = lp.mlp
-    return x + (F.silu(h @ mlp.w1) * (h @ mlp.w3)) @ mlp.w2
+    if mixer == "mamba":
+        h, new = mamba_decode(lp.mixer, cc, h, **_mamba_kw(cfg))
+        _write_state(cc, new, advance)
+    else:
+        h, _ = attn_decode_paged(lp.mixer, cc, h, positions, page_table,
+                                 n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+                                 head_dim=cfg.head_dim_, rope_fn=rope_fn,
+                                 attn_softcap=cfg.attn_softcap,
+                                 window=_window(cfg, mixer))
+    return _mlp(lp, x + h, cfg, mlp)
 
 
 @torch.inference_mode()
 def paged_decode_step(params: TransformerParams, cfg: ModelConfig, cache,
                       tokens, positions, page_table, advance=None):
     """tokens: (S, 1); positions: (S,) int32 per-slot write positions;
-    page_table: (S, max_pages) int32 -> (logits (S, 1, V), cache).
+    page_table: (S, max_pages) int32; advance: (S,) bool or None ->
+    (logits (S, 1, V), cache).
 
-    ``advance`` ((S,) bool or None) is accepted for the reference's
-    signature: it freezes recurrent per-slot state, and a dense model has
-    none — a non-advancing slot's attention write lands in the scratch page
-    either way.  The cache is updated in place and returned.  The paged
+    A slot with advance=False runs through the batch but keeps its
+    recurrent (mamba) state bitwise; its attention write lands in the
+    scratch page, which length masks never read.  None means every slot
+    advances.  The cache is updated in place and returned.  The paged
     cache never wraps: the scheduler keeps prompt + max_new_tokens <=
     max_pages * page_size per slot.
     """
@@ -236,16 +391,22 @@ def paged_decode_step(params: TransformerParams, cfg: ModelConfig, cache,
     rope_fn = make_rope_fn(cfg)
     x = embed_tokens(params, cfg, tokens)
     for p, period in enumerate(params.periods):
-        for i, (mixer, _) in enumerate(spec):
-            cc = {name: pool[p] for name, pool in cache[f"l{i}"].items()}
-            x = _layer_decode_paged(period[f"l{i}"], cc, x, positions,
-                                    page_table, cfg, mixer, rope_fn)
+        pc = _period_cache(cache, p)
+        for i, (mixer, mlp) in enumerate(spec):
+            x = _layer_decode_paged(period[f"l{i}"], pc[f"l{i}"], x,
+                                    positions, page_table, cfg, mixer, mlp,
+                                    rope_fn, advance)
     return logits_from_hidden(params, cfg, x), cache
 
 
 def reset_slot(cache, slot: int):
-    """Recycle slot ``slot``.  The reference zeroes the slot's recurrent
-    (non-paged) state; a dense model's cache holds only paged pools, whose
-    freed pages the allocator reclaims and length masks never read, so
-    there is nothing to do."""
+    """Zero slot ``slot``'s recurrent (non-paged) state in place, so a
+    recycled slot starts from the initial state.  Page pools pass through:
+    the allocator reclaims freed pages and length masks never read their
+    stale rows."""
+    with torch.inference_mode():
+        for layer in cache.values():
+            for name, x in layer.items():
+                if name not in PAGED:
+                    x[:, slot] = 0
     return cache

@@ -10,8 +10,15 @@ its prompt feeds the next prompt token and its logits are ignored until
 the prompt is exhausted.
 
 Slot lifecycle:  FREE -> (admit) -> PREFILL -> DECODE -> (EOS | max-tokens)
--> evict -> FREE.  Eviction returns the slot's pages to the allocator and
-points its page-table row back at the scratch page.
+-> evict -> FREE.  Eviction returns the slot's pages to the allocator,
+points its page-table row back at the scratch page and zeroes the slot's
+recurrent state (``api.reset_slot``: mamba's conv history and h), as
+admission does again.  FREE and page-stalled slots are left out of the
+``advance`` mask, so their recurrent state stays bitwise frozen; the
+scratch page takes only their attention write.
+
+A MoE model routes with a capacity per expert, so the tokens served for a
+prompt can depend on which other requests share its steps.
 
 Admission: ``continuous`` admits a request the moment a slot is free;
 ``static`` admits only when EVERY slot is free (the head-of-line-blocking
@@ -24,9 +31,10 @@ eviction frees pages.  If every active slot is stalled the engine raises
 advance, so such a step could never make progress.
 
 The step runs on ``api.device`` under ``torch.inference_mode``; the K/V
-pools are updated in place.  Per step the host copies the tokens,
-positions, page table and advance mask in, and takes ONE sync: the
-per-slot argmax of the logits, which sampling needs on the host.
+pools and the recurrent state are updated in place.  Per step the host
+copies the tokens, positions, page table and advance mask in, and takes
+ONE sync: the per-slot argmax of the logits, which sampling needs on the
+host.
 """
 # lint: hot-path
 from __future__ import annotations

@@ -80,3 +80,25 @@ def test_theorem1_twin(capsys):
     assert [r[1] for r in sm] == [0.1, 0.8]
     assert sm[0][2] > sm[1][2] and out["ls_raw"] > sm[0][2]
     assert "monotone=True" in lines[-1]
+
+
+def test_table5_twin(capsys):
+    from repro_torch.bench import table5_asr_proxy as t5
+    out, lines = _run("table5_asr_proxy", capsys)
+    assert lines[0] == "algo,lr,train_loss,heldout"
+    assert [(r[0], r[1]) for r in out["rows"]] == [("ssgd", 0.5),
+                                                   ("dpsgd", 0.5)]
+    assert all(math.isfinite(x) for r in out["rows"] for x in r[2:])
+    assert "critical-lr heldout ssgd=" in lines[-1]
+    # the zipf classes: class 1 the most frequent, rank r ~ r^-1.2
+    gen = torch.Generator().manual_seed(0)
+    lab = t5.ZipfTemplates().sample(gen, 20000)["label"].long()
+    counts = torch.bincount(lab, minlength=100).float()
+    assert counts[0] == counts.max()
+    assert 0.8 < float(counts[0] / counts[1]) / 2 ** 1.2 < 1.25
+    # the check holds the reference's result: both converge at the safe lr
+    t5.check([["ssgd", 0.25, 0.5, 0.53], ["dpsgd", 0.25, 0.4, 0.44]])
+    with pytest.raises(RuntimeError, match="safe lr"):
+        t5.check([["ssgd", 0.25, 3.2, 3.3], ["dpsgd", 0.25, 0.4, 0.44]])
+    with pytest.raises(RuntimeError, match="non-finite"):
+        t5.check([["ssgd", 0.5, float("nan"), 3.3]])

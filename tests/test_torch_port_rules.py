@@ -68,8 +68,11 @@ def test_lint_finds_nothing_in_the_port():
     assert port == [], port
 
 
-DENSE = ["transformer-100m", "gemma2-27b", "yi-34b", "granite-20b",
-         "mistral-large-123b"]
+from repro_torch.configs import REGISTRY  # noqa: E402
+
+# every config in the port's registry: the dense family, and the moe
+# (granite-moe, qwen3-moe) and hybrid (jamba) families since their slice
+DENSE = sorted(REGISTRY)
 
 
 @pytest.mark.parametrize("name", DENSE)
@@ -111,16 +114,27 @@ def test_every_registry_config_passes_both_attention_kernels_shape_rules(
 
 
 def test_unported_architectures_raise_naming_their_slice():
-    # the dense family resolves (gemma2 since the flash-attention route)
+    # the dense family resolves (gemma2 since the flash-attention route),
+    # and the moe and hybrid families since their slice
     assert get_config("gemma2-27b").name == "gemma2-27b"
     assert period_spec(get_config("gemma2-27b")) == (
         ("attn_local", "dense"), ("attn", "dense"))
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        get_config("granite-moe-3b-a800m")
-    moe = dataclasses.replace(get_config("transformer-100m"), family="moe",
-                              n_experts=4, experts_per_tok=2)
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        period_spec(moe)
+    assert period_spec(get_config("granite-moe-3b-a800m")) == (
+        ("attn", "moe"),)
+    for name in ("xlstm-350m", "qwen2-vl-7b", "seamless-m4t-large-v2"):
+        with pytest.raises(NotImplementedError, match="slice 5"):
+            get_config(name)
+    # the xLSTM mixers and M-RoPE, on a config the registry does hold
+    xlstm = dataclasses.replace(get_config("transformer-100m"), family="ssm",
+                                block_period=("mlstm", "slstm"))
+    with pytest.raises(NotImplementedError, match="slice 5b"):
+        period_spec(xlstm)
+    vlm = dataclasses.replace(get_config("transformer-100m"), family="vlm",
+                              mrope_sections=(16, 24, 24))
+    with pytest.raises(NotImplementedError, match="slice 5b"):
+        period_spec(vlm)
+    with pytest.raises(NotImplementedError, match="slice 5b"):
+        build_model(xlstm, device="cpu")
     assert period_spec(get_config("transformer-100m")) == (("attn", "dense"),)
 
 
