@@ -152,13 +152,32 @@ Phases (any failure raises and the script exits non-zero):
      way (1 decode launch a step), plus on the served cache: a step with
      half the slots not advancing keeps their mamba leaves bitwise and
      ``reset_slot`` zeroes one slot's leaves and no other's; then the
-     prefill of 8,192 tokens, where the window binds.
+     prefill of 8,192 tokens, where the window binds;
+ 13. xlstm-350m at full width and depth (24 layers: 12 mLSTM and 12
+     sLSTM blocks, bf16) served as phase 3b serves gemma2 (no attention:
+     no decode launch; card logits within 5e-2 of the CPU's; the advance
+     mask keeps a frozen slot's mLSTM/sLSTM leaves bitwise and
+     ``reset_slot`` zeroes one slot), paged decode of a 64-token prompt
+     against ``api.apply`` (bf16 within 0.12, float32 within 1e-4), then
+     trained with DPSGD (4 learners, random_pair, seq 256, local batch 2,
+     2 steps: 1 gossip launch a step, the store equal to
+     ``kernel_backend="ref"`` within 1e-5);
+ 14. qwen2-vl-7b (28 layers) and seamless-m4t-large-v2 (24 + 24 layers)
+     at full width and depth in bf16, one after the other: qwen2-vl's
+     ``api.apply`` on 1,024 patch embeddings + 1,024 text tokens (M-RoPE,
+     the chunked route), seamless's ``init_cache`` over (8, 512) frames;
+     then 64 greedy ``decode_step``s of 8 sequences, each step's logits
+     within 3e-2 of ``apply``'s on the same tokens (teacher forcing); then
+     both with depth cut to 2 (2 + 2) layers on the card against the CPU
+     on 64 + 64 positions (logits within 1.2e-2; every layer's output).
+     Each bf16 tier of phases 13-14 must also reject its control, the
+     same run one mantissa bit below bf16.
 Each path runs with every kernel's launch count set to 0 just before it
 and read just after.  The last lines are the serve (100m, gemma2,
 granite), train (with the bridge), probe, FC, Table-1, gemma2,
-flash-training, pytree-engine, paper-experiment, granite-moe and jamba
-numbers, the card, the kernels record and ``{"ok": true, "device":
-{...}}``.
+flash-training, pytree-engine, paper-experiment, granite-moe, jamba,
+xlstm, qwen2-vl and seamless numbers, the card, the kernels record and
+``{"ok": true, "device": {...}}``.
 Without CUDA the script exits 1 before printing any result.
 """
 from __future__ import annotations
@@ -332,6 +351,41 @@ ZOO = (   # (record key, config, layers, why, prefill length)
 # their own (a router fault changes the set of nearly every token: two
 # random top-8 sets of granite-moe's 40 experts agree once in 7.7e7)
 ROUTING_SET_CHANGES = 0.25
+# phases 13-14: the ssm, vlm and audio families at full width in bf16.
+# Each bf16 tier below is held against its control, the same run one
+# mantissa bit below bf16 (CoarseBF16): the sound reading within the tier,
+# the control's beyond it (``held``).
+# 13: xlstm-350m at full depth (24 layers: 12 mLSTM + 12 sLSTM blocks),
+# served with phase 3b's requests (card logits against the CPU's), decoded
+# token by token against its prefill, and trained (4 learners, DPSGD on
+# random_pair, examples/train_100m.py's recipe at seq 256)
+XLSTM_LAYERS = 24
+# bf16 rounding grows with xlstm's depth (card against CPU: 2.0e-3 after
+# layer 1, 3.3e-2 after 24; control 0.135), and the mLSTM's normalizer
+# |q . n| amplifies it; decode against prefill compares the chunkwise form
+# with the recurrent one (0.080, control 0.192; in float32 8.7e-6 at
+# depth 24 on the CPU), so the float32 run is held too
+XLSTM_SERVE_RTOL = 5e-2
+XLSTM_PREFILL = 64          # prompt of the decode-against-prefill check
+XLSTM_DECODE_RTOL = 0.12
+XLSTM_DECODE_F32_RTOL = 1e-4
+XLSTM_TRAIN_SEQ, XLSTM_TRAIN_STEPS = 256, 2
+# 14: qwen2-vl-7b (28 layers) and seamless-m4t-large-v2 (24 + 24) at full
+# depth: prefill / encode, then greedy decode_step held against apply on
+# the same tokens; then both at full width with depth cut to 2 (2 + 2)
+# layers, the card against the port on the CPU (logits and every layer's
+# output) on a short input
+VLM_TEXT = 1024             # + 1,024 patch embeddings: 2,048 positions
+ZOO_DECODE_SEQS, ZOO_PROMPT, ZOO_NEW = 8, 8, 64
+AUDIO_FRAMES = 512
+# decode against apply, every step (qwen2-vl 2.1e-2, control 6.3e-2;
+# seamless 1.5e-2, control 8.6e-2); 2 layers on the card against the CPU
+# (6.6e-3 / 8.1e-3, controls 2.5e-2 / 2.9e-2)
+ZOO_DECODE_RTOL = 3e-2
+ZOO_PROFILED_STEPS = 8
+CUT_LAYERS = 2
+CUT_INPUT = 64              # patches + text tokens, or frames + tokens
+CUT_RTOL = 1.2e-2
 # jamba's decode shape in phase 2 (H 32 on KV 8, hd 128, window 4,096)
 # and granite-moe's (H 24 on KV 8, hd 64), 8 slots up to 8,192 tokens
 ZOO_DECODE = {"granite_moe": (24, 8, 64, {}),
@@ -1090,18 +1144,18 @@ def serve_phase(kernels):
                        compare, n_prof=20, kernels=kernels)
 
 
-def cut_serve_phase(name, n_layers, why, kernels):
-    """Phases 3b, 3c, 11b and 12b: ``name`` at full width, depth cut to
-    ``n_layers``, served from pools in its own dtype (bf16) with phase
+def cut_serve_phase(name, n_layers, why, kernels, tier=GEMMA_BF16_RTOL):
+    """Phases 3b, 3c, 11b, 12b and 13a: ``name`` at full width, depth cut
+    to ``n_layers``, served from pools in its own dtype (bf16) with phase
     3b's requests; card logits held to the CPU's in the Frobenius norm
-    (beside them the control one mantissa bit below bf16), and the decode
-    kernel on the inputs of every attention layer at three steps spread
-    over the run."""
+    within ``tier`` (beside them the control one mantissa bit below bf16),
+    and the decode kernel on the inputs of every attention layer at three
+    steps spread over the run."""
     from repro_torch.configs import get_config
 
     def compare(i, g, c):
         rel = _rel(g, c)
-        check(rel <= GEMMA_BF16_RTOL,
+        check(rel <= tier,
               f"{name} serve step {i}: card logits differ from the CPU's "
               f"by {rel} relative (Frobenius)")
         return rel
@@ -1121,8 +1175,7 @@ def cut_serve_phase(name, n_layers, why, kernels):
     record["heads"] = {"n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
                        "head_dim": cfg.head_dim_}
     record["window"] = cfg.window
-    record["logit_tier"] = ("||card - cpu|| / ||cpu|| <= "
-                            f"{GEMMA_BF16_RTOL}")
+    record["logit_tier"] = f"||card - cpu|| / ||cpu|| <= {tier}"
     return record, launches
 
 
@@ -2664,7 +2717,7 @@ def moe_profile(api, params, n_slots, reps=5):
 
 def recurrent_checks(eng, api, params):
     """On the served engine's cache: one more served step with half the
-    slots not advancing keeps their mamba leaves bitwise (the others
+    slots not advancing keeps their recurrent leaves bitwise (the others
     move), and ``reset_slot`` zeroes one slot's leaves and no other's."""
     from repro_torch.models.transformer import PAGED
 
@@ -2688,10 +2741,22 @@ def recurrent_checks(eng, api, params):
     for k, x in leaves.items():
         check(torch.equal(x[:, frozen], before[k][:, frozen]),
               f"{k}: a slot with advance=False changed")
+    # an advancing slot moves every leaf of its state, except an sLSTM
+    # cell whose input gate has underflowed: its forget pre-activation
+    # (bias 3) adds ~3-6 to m every token, so exp(i - m) reaches 0 within
+    # a few dozen tokens and c and n then hold bitwise while h and m move
+    still = 0
+    for layer, c in cache.items():
+        names = [n for n in c if n not in PAGED]
         for i in range(S):
-            if bool(advance[i]):
-                check(not torch.equal(x[:, i], before[k][:, i]),
-                      f"{k}: advancing slot {i} kept its state")
+            if not bool(advance[i]):
+                continue
+            kept = [n for n in names
+                    if torch.equal(c[n][:, i], before[f"{layer}/{n}"][:, i])]
+            check(set(kept) <= ({"c", "n"} if set(names) == {"c", "h", "m",
+                                                             "n"} else set()),
+                  f"{layer}: advancing slot {i} kept {kept}")
+            still += len(kept)
     after = {k: x.clone() for k, x in leaves.items()}
     api.reset_slot(cache, 1)
     for k, x in leaves.items():
@@ -2700,7 +2765,8 @@ def recurrent_checks(eng, api, params):
         check(torch.equal(x[:, others], after[k][:, others]),
               f"{k}: reset_slot touched another slot")
     return {"recurrent_leaves": len(leaves), "frozen_slots": frozen,
-            "advance_false_bitwise": True, "reset_slot_zeroes_slot": True}
+            "advance_false_bitwise": True, "reset_slot_zeroes_slot": True,
+            "saturated_slstm_leaves_held_while_advancing": still}
 
 
 def zoo_prefill_phase(name, n_layers, seq, kernels):
@@ -2777,6 +2843,382 @@ def zoo_prefill_phase(name, n_layers, seq, kernels):
             "tier_rel": GEMMA_BF16_RTOL,
             "routing_shared": pin.record()}, \
         flash["launches"]["flash_attention_fwd"]
+
+
+# ---------------------------------------------------------------------------
+# phases 13-14: the ssm, vlm and audio families (xlstm, qwen2-vl, seamless)
+# ---------------------------------------------------------------------------
+
+def held(what, sound, control, tier):
+    """A bf16 reading within its tier, and its control (one mantissa bit
+    below bf16) beyond it: a tier the control passes is too loose."""
+    check(sound <= tier, f"{what}: {sound} relative > its tier {tier}")
+    check(control > tier, f"{what}: the control one mantissa bit below "
+          f"bf16 reads {control}, within the tier {tier}")
+    return {"rel": sound, "control_one_bit_below_bf16": control,
+            "tier_rel": tier}
+
+
+def step_rel(got, want):
+    """Per step t: ||got[t] - want[:, t]|| / ||want[:, t]|| over the batch
+    (got: a list of (B, V) logits, want: (B, T, V))."""
+    return [_rel(g, want[:, t]) for t, g in enumerate(got)]
+
+
+def xlstm_decode_vs_prefill(api, params):
+    """Phase 13b: paged decode of one XLSTM_PREFILL-token prompt, token by
+    token, against ``api.apply``'s logits at the same positions; then the
+    same in float32 (fresh float32 weights)."""
+    from repro_torch.models import build_model
+
+    tokens = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, api.cfg.vocab, (1, XLSTM_PREFILL))).cuda()
+    pages = -(-XLSTM_PREFILL // PAGE)
+    table = torch.arange(1, 1 + pages, dtype=torch.int32,
+                         device="cuda")[None]
+
+    def prefill(a, p):
+        with torch.no_grad():
+            return a.apply(p, {"tokens": tokens})[0, :, :a.cfg.vocab]
+
+    def decode(a, p):
+        cache = a.init_paged_cache(p, 1, 1 + pages, PAGE)
+        out = []
+        for pos in range(XLSTM_PREFILL):
+            lg, cache = a.paged_decode_step(
+                p, cache, tokens[:, pos:pos + 1].to(torch.int32),
+                torch.full((1,), pos, dtype=torch.int32, device="cuda"),
+                table)
+            out.append(lg[0, 0, :a.cfg.vocab].float())
+        return torch.stack(out)
+
+    full = prefill(api, params)
+    sound = _rel(decode(api, params), full)
+    with CoarseBF16():
+        control = _rel(decode(api, params), full)
+    api32 = build_model(dataclasses.replace(api.cfg, param_dtype="float32",
+                                            compute_dtype="float32"))
+    params32 = api32.init(SEED)
+    rel32 = _rel(decode(api32, params32), prefill(api32, params32))
+    check(rel32 <= XLSTM_DECODE_F32_RTOL, f"xlstm-350m float32: decode "
+          f"differs from prefill by {rel32} relative")
+    del params32
+    return {"prompt_tokens": XLSTM_PREFILL, **held(
+        "xlstm-350m decode against prefill", sound, control,
+        XLSTM_DECODE_RTOL), "float32_rel": rel32,
+        "float32_tier_rel": XLSTM_DECODE_F32_RTOL}
+
+
+def xlstm_train(api, kernels):
+    """Phase 13c: XLSTM_TRAIN_STEPS DPSGD steps of xlstm-350m through the
+    gossip kernel, then as many with ``kernel_backend="ref"`` from the same
+    start: the stores within TRAIN_REF_ATOL.  Returns (record, gossip
+    launches)."""
+    from repro_torch.core import flat_meta
+    from repro_torch.data import ShardedLoader, SyntheticTokenStream
+
+    tree = api.param_tree(api.init(SEED))
+    meta = flat_meta(tree)
+    loader = ShardedLoader(SyntheticTokenStream(vocab=api.cfg.vocab),
+                           n_learners=TRAIN_LEARNERS,
+                           local_batch=TRAIN_BATCH,
+                           extra_args=(XLSTM_TRAIN_SEQ,), seed=SEED)
+    batches = [loader.batch(i) for i in range(XLSTM_TRAIN_STEPS)]
+    trainer = _train_100m_trainer(api, "auto")
+    state = trainer.init(SEED, tree)
+    check(trainer.is_flat and trainer.is_fused,
+          "xlstm DPSGD did not take the fused flat engine")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels:
+        k.launches = 0
+    step_ms, losses = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        state, m = trainer.train_step(state, b)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(m.loss))
+    launches = {k.__name__: k.launches for k in kernels}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = XLSTM_TRAIN_STEPS * trainer.rounds_per_step
+    check(launches["gossip_mix_update_flat"] == want
+          and sum(launches.values()) == want,
+          f"xlstm training launches {launches}, want {want} gossip")
+    check(all(np.isfinite(losses)), f"non-finite xlstm losses {losses}")
+    after = state.params.clone()
+    rows = state.params.shape[1]
+    del trainer, state
+    torch.cuda.empty_cache()
+    ref = _train_100m_trainer(api, "ref")
+    ref_state = ref.init(SEED, tree)
+    for b in batches:
+        ref_state, _ = ref.train_step(ref_state, b)
+    err = float((ref_state.params - after).abs().max())
+    check(err <= TRAIN_REF_ATOL, f"xlstm: kernel and plain training differ "
+          f"by {err} after {XLSTM_TRAIN_STEPS} steps")
+    del ref, ref_state, after, tree
+    torch.cuda.empty_cache()
+    return {"learners": TRAIN_LEARNERS, "local_batch": TRAIN_BATCH,
+            "seq": XLSTM_TRAIN_SEQ, "algo": "dpsgd",
+            "topology": "random_pair", "lr": TRAIN_LR,
+            "store_rows": rows, "leaves": len(meta.dtypes),
+            "bf16_leaves": sum(d == torch.bfloat16 for d in meta.dtypes),
+            "step_wall_ms": step_ms, "losses": losses,
+            "max_memory_allocated_gb": peak_gb, "kernel_launches": launches,
+            "ref_backend_max_abs_diff_after_2_steps": err,
+            "tier_abs": TRAIN_REF_ATOL}, launches["gossip_mix_update_flat"]
+
+
+def xlstm_phase(kernels):
+    """Phase 13: xlstm-350m at full width and depth.  Returns (record,
+    gossip launches)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    record, _ = cut_serve_phase("xlstm-350m", XLSTM_LAYERS, "full depth",
+                                kernels, tier=XLSTM_SERVE_RTOL)
+    errs = record["cpu_logit_err_per_step"]
+    control = record["cpu_control_one_bit_below_bf16"]["logit_errs"]
+    record["serve_tier"] = held("xlstm-350m serve, card against CPU",
+                                max(errs), min(control), XLSTM_SERVE_RTOL)
+    torch.cuda.empty_cache()
+    api = build_model(get_config("xlstm-350m"))
+    params = api.init(SEED)
+    record["decode_against_prefill"] = xlstm_decode_vs_prefill(api, params)
+    del params
+    torch.cuda.empty_cache()
+    record["train"], gossip = xlstm_train(api, kernels)
+    return record, gossip
+
+
+def decode_profile(step, n=ZOO_PROFILED_STEPS):
+    """Device busy ms and idle share of ``n`` calls of ``step()``."""
+    times, _, wall, _ = device_times(lambda: [step() for _ in range(n)])
+    busy_us = sum(v[0] for v in times.values())
+    return {"steps": n, "wall_ms_per_step_profiled": 1e3 * wall / n,
+            "device_busy_ms_per_step": busy_us / 1e3 / n,
+            "device_idle_share": 1 - busy_us / 1e6 / wall,
+            "device_kernels_per_step": sum(v[1] for v in times.values()) / n}
+
+
+def zoo_decode(api, params, first, n_steps, cache_fn, prompt=None):
+    """Greedy ``decode_step`` from ``cache_fn()``: the prompt's tokens
+    (B, P) are fed first, then each step's argmax; with ``prompt`` None
+    ``first`` (B,) starts it.  Returns (fed tokens (B, n_steps), logits a
+    step, host ms a step)."""
+    vocab = api.cfg.vocab
+    cache = cache_fn()
+    tok = first
+    fed, logits, ms = [], [], []
+    for pos in range(n_steps):
+        if prompt is not None and pos < prompt.shape[1]:
+            tok = prompt[:, pos]
+        t0 = time.perf_counter()
+        lg, cache = api.decode_step(params, cache, tok[:, None], pos)
+        tok_next = lg[:, 0, :vocab].argmax(-1)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        fed.append(tok)
+        logits.append(lg[:, 0, :vocab].float())
+        tok = tok_next
+    return torch.stack(fed, 1), logits, ms, cache
+
+
+def forced_decode(api, params, tokens, cache_fn):
+    """``decode_step`` fed ``tokens`` (B, T) -> logits a step."""
+    cache, out = cache_fn(), []
+    for pos in range(tokens.shape[1]):
+        lg, cache = api.decode_step(params, cache, tokens[:, pos:pos + 1],
+                                    pos)
+        out.append(lg[:, 0, :api.cfg.vocab].float())
+    return out
+
+
+def cut_against_cpu(cfg, batch_fn, layer_owner, layer_fn, n_calls):
+    """``cfg`` (depth cut to CUT_LAYERS) applied on the card and on the
+    CPU to one batch: the logits' error and each layer's output's (the
+    calls of ``layer_owner.layer_fn``), the CPU run once more one mantissa
+    bit below bf16."""
+    from repro_torch.models import build_model
+
+    api, cpu_api = build_model(cfg), build_model(cfg, device="cpu")
+    params = api.init(SEED)
+    batch = batch_fn()
+    layers = LayerOutputs(getattr(layer_owner, layer_fn), n_calls)
+    setattr(layer_owner, layer_fn, layers)
+    try:
+        layers.on = True
+        with torch.no_grad():
+            card = api.apply(params, batch)[..., :cfg.vocab].float().cpu()
+        card_layers, layers.kept = layers.kept, []
+        cpu_params = module_on(params, "cpu")
+        del params
+        torch.cuda.empty_cache()
+        cpu_batch = {k: v.cpu() for k, v in batch.items()}
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            cpu = cpu_api.apply(cpu_params, cpu_batch)[..., :cfg.vocab]
+        cpu_s = time.perf_counter() - t0
+        layers.on = False
+        with torch.no_grad(), CoarseBF16():
+            coarse = cpu_api.apply(cpu_params, cpu_batch)[..., :cfg.vocab]
+    finally:
+        setattr(layer_owner, layer_fn, layers.fn)
+    check(len(card_layers) == len(layers.kept) == n_calls,
+          f"{cfg.name}: kept {len(card_layers)} / {len(layers.kept)} of "
+          f"{n_calls} layer outputs")
+    by_layer = [_rel(a, b) for a, b in zip(card_layers, layers.kept)]
+    return {"n_layers": cfg.n_layers, "enc_layers": cfg.enc_layers,
+            "input_positions": {k: list(v.shape) for k, v in batch.items()},
+            "cpu_s": cpu_s, "hidden_rel_err_by_layer": by_layer,
+            "logits": held(f"{cfg.name} card against CPU", _rel(card, cpu),
+                           _rel(card, coarse), CUT_RTOL)}
+
+
+def vlm_phase():
+    """Phase 14a: qwen2-vl-7b at full width and depth."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, transformer
+
+    cfg = get_config("qwen2-vl-7b")
+    api = build_model(cfg)
+    t0 = time.perf_counter()
+    params = api.init(SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    P = cfg.n_frontend_tokens
+    batch = {"patch_embeds": (torch.randn((1, P, cfg.d_model), generator=gen,
+                                          device="cuda")
+                              .to(torch.bfloat16) * 0.1),
+             "tokens": torch.randint(0, cfg.vocab, (1, VLM_TEXT),
+                                     generator=gen, device="cuda")}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits = api.apply(params, batch)
+    torch.cuda.synchronize()
+    prefill_ms = 1e3 * (time.perf_counter() - t0)
+    check(logits.shape == (1, P + VLM_TEXT, cfg.padded_vocab)
+          and logits.dtype == torch.bfloat16
+          and bool(torch.isfinite(logits).all()),
+          f"qwen2-vl prefill logits {tuple(logits.shape)} {logits.dtype}")
+    prefill_peak = torch.cuda.max_memory_allocated() / 1e9
+    del logits
+
+    prompt = torch.randint(0, cfg.vocab, (ZOO_DECODE_SEQS, ZOO_PROMPT),
+                           generator=gen, device="cuda")
+    n = ZOO_PROMPT + ZOO_NEW
+
+    def cache_fn():
+        return api.init_cache(params, ZOO_DECODE_SEQS, n)
+
+    fed, got, ms, cache = zoo_decode(api, params, None, n, cache_fn, prompt)
+    with torch.no_grad():
+        want = transformer.apply(params, cfg, fed)[..., :cfg.vocab]
+    errs = step_rel(got, want)
+    with CoarseBF16():
+        coarse = step_rel(forced_decode(api, params, fed, cache_fn), want)
+    tok = fed[:, -1:]
+    prof = decode_profile(lambda: api.decode_step(params, cache, tok, n - 1))
+    del params, cache, want, got
+    torch.cuda.empty_cache()
+    cut = cut_against_cpu(
+        dataclasses.replace(cfg, n_layers=CUT_LAYERS,
+                            n_frontend_tokens=CUT_INPUT),
+        lambda: {"patch_embeds": (torch.randn(
+            (1, CUT_INPUT, cfg.d_model), generator=gen, device="cuda")
+            .to(torch.bfloat16) * 0.1),
+            "tokens": torch.randint(0, cfg.vocab, (1, CUT_INPUT),
+                                    generator=gen, device="cuda")},
+        transformer, "_layer_forward", CUT_LAYERS)
+    torch.cuda.empty_cache()
+    return {"model": cfg.name, "n_layers": cfg.n_layers,
+            "n_params": n_params, "dtype": cfg.param_dtype, "init_s": init_s,
+            "prefill": {"patches": P, "text_tokens": VLM_TEXT,
+                        "wall_ms": prefill_ms,
+                        "max_memory_allocated_gb": prefill_peak,
+                        "route": "chunked (M-RoPE; no flash route)"},
+            "decode": {"sequences": ZOO_DECODE_SEQS,
+                       "prompt_tokens": ZOO_PROMPT, "new_tokens": ZOO_NEW,
+                       "step_ms_mean": float(np.mean(ms)),
+                       "step_ms_median": float(np.median(ms)),
+                       "step_ms_p95": float(np.percentile(ms, 95)),
+                       "profile": prof,
+                       "against_apply": held(
+                           "qwen2-vl decode against apply", max(errs),
+                           min(coarse), ZOO_DECODE_RTOL)},
+            "cut_against_cpu": cut}
+
+
+def audio_phase():
+    """Phase 14b: seamless-m4t-large-v2 at full width and depth."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, encdec
+
+    cfg = get_config("seamless-m4t-large-v2")
+    api = build_model(cfg)
+    t0 = time.perf_counter()
+    params = api.init(SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    frames = (torch.randn((ZOO_DECODE_SEQS, AUDIO_FRAMES, cfg.d_model),
+                          generator=gen, device="cuda")
+              .to(torch.bfloat16) * 0.1)
+    first = torch.randint(0, cfg.vocab, (ZOO_DECODE_SEQS,), generator=gen,
+                          device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+
+    def cache_fn():
+        return api.init_cache(params, frames, ZOO_NEW)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cache_fn()
+    torch.cuda.synchronize()
+    encode_ms = 1e3 * (time.perf_counter() - t0)
+    fed, got, ms, cache = zoo_decode(api, params, first, ZOO_NEW, cache_fn)
+    with torch.no_grad():
+        want = api.apply(params, {"frames": frames,
+                                  "tokens": fed})[..., :cfg.vocab]
+    check(bool(torch.isfinite(want).all()), "non-finite seamless logits")
+    errs = step_rel(got, want)
+    with CoarseBF16():
+        coarse = step_rel(forced_decode(api, params, fed, cache_fn), want)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    tok = fed[:, -1:]
+    prof = decode_profile(
+        lambda: api.decode_step(params, cache, tok, ZOO_NEW - 1))
+    del params, cache, want, got
+    torch.cuda.empty_cache()
+    cut = cut_against_cpu(
+        dataclasses.replace(cfg, n_layers=CUT_LAYERS, enc_layers=CUT_LAYERS),
+        lambda: {"frames": (torch.randn((1, CUT_INPUT, cfg.d_model),
+                                        generator=gen, device="cuda")
+                            .to(torch.bfloat16) * 0.1),
+                 "tokens": torch.randint(0, cfg.vocab, (1, CUT_INPUT),
+                                         generator=gen, device="cuda")},
+        encdec, "_ff", 2 * CUT_LAYERS)
+    torch.cuda.empty_cache()
+    return {"model": cfg.name, "n_layers": cfg.n_layers,
+            "enc_layers": cfg.enc_layers, "n_params": n_params,
+            "dtype": cfg.param_dtype, "init_s": init_s,
+            "encode": {"frames": [ZOO_DECODE_SEQS, AUDIO_FRAMES],
+                       "init_cache_wall_ms": encode_ms},
+            "decode": {"sequences": ZOO_DECODE_SEQS, "new_tokens": ZOO_NEW,
+                       "step_ms_mean": float(np.mean(ms)),
+                       "step_ms_median": float(np.median(ms)),
+                       "step_ms_p95": float(np.percentile(ms, 95)),
+                       "profile": prof,
+                       "against_teacher_forced_apply": held(
+                           "seamless decode against apply", max(errs),
+                           min(coarse), ZOO_DECODE_RTOL)},
+            "max_memory_allocated_gb": peak,
+            "cut_against_cpu": cut}
 
 
 def main() -> int:
@@ -2866,6 +3308,11 @@ def main() -> int:
         print(json.dumps({key: record}), flush=True)
         del record
         torch.cuda.empty_cache()
+    xlstm, xlstm_gossip = xlstm_phase(kernels)
+    print(json.dumps({"ssm_xlstm": xlstm}), flush=True)
+    del xlstm
+    print(json.dumps({"vlm_qwen2_vl": vlm_phase()}), flush=True)
+    print(json.dumps({"audio_seamless": audio_phase()}), flush=True)
     decode_record["launches"] = sum(serve_launches.values())
     decode_record["launches_by_path"] = serve_launches
     flash_record["launches_by_path"].update(zoo_flash)
@@ -2874,7 +3321,8 @@ def main() -> int:
         "transformer_100m_dpsgd_training": gossip_record["launches"],
         "transformer_100m_bridge_training": bridge_launches[
             "gossip_mix_update_flat"],
-        **pytree_gossip, **paper_gossip}
+        **pytree_gossip, **paper_gossip,
+        "xlstm_350m_dpsgd_training": xlstm_gossip}
     gossip_record["launches"] = sum(
         gossip_record["launches_by_path"].values())
     for record in (dots_record, axpy_record):

@@ -1,29 +1,32 @@
-"""Config registry of the port: the architectures ported so far — the
-dense family (transformer-100m and the four dense configs of the
-reference, which the ``use_pallas`` flash-attention route runs), the moe
-family (granite-moe-3b-a800m, qwen3-moe-235b-a22b) and the hybrid family
-(jamba-v0.1-52b)."""
+"""Config registry of the port: every architecture of the reference — the
+dense family (transformer-100m and the four dense configs, which the
+``use_pallas`` flash-attention route runs), the moe family
+(granite-moe-3b-a800m, qwen3-moe-235b-a22b), the hybrid family
+(jamba-v0.1-52b), the ssm family (xlstm-350m), the vlm family
+(qwen2-vl-7b) and the audio family (seamless-m4t-large-v2)."""
 from .base import ModelConfig
 from .gemma2_27b import CONFIG as GEMMA2_27B
 from .granite_20b import CONFIG as GRANITE_20B
 from .granite_moe_3b_a800m import CONFIG as GRANITE_MOE_3B
 from .jamba_v01_52b import CONFIG as JAMBA_52B
 from .mistral_large_123b import CONFIG as MISTRAL_LARGE_123B
+from .qwen2_vl_7b import CONFIG as QWEN2_VL_7B
 from .qwen3_moe_235b_a22b import CONFIG as QWEN3_MOE_235B
+from .seamless_m4t_large_v2 import CONFIG as SEAMLESS_M4T
 from .transformer_100m import CONFIG as TRANSFORMER_100M
+from .xlstm_350m import CONFIG as XLSTM_350M
 from .yi_34b import CONFIG as YI_34B
 
 REGISTRY = {c.name: c for c in [MISTRAL_LARGE_123B, GEMMA2_27B, GRANITE_20B,
                                  YI_34B, TRANSFORMER_100M, GRANITE_MOE_3B,
-                                 QWEN3_MOE_235B, JAMBA_52B]}
+                                 QWEN3_MOE_235B, JAMBA_52B, XLSTM_350M,
+                                 QWEN2_VL_7B, SEAMLESS_M4T]}
 
 
 def get_config(name: str) -> ModelConfig:
     if name not in REGISTRY:
-        raise NotImplementedError(
-            f"arch '{name}' is not ported yet (ported: {sorted(REGISTRY)}); "
-            "the ssm, vlm and audio families arrive with ROADMAP slice 5b "
-            "of the model zoo")
+        raise KeyError(f"unknown arch '{name}'; available: "
+                       f"{sorted(REGISTRY)}")
     return REGISTRY[name]
 
 

@@ -135,10 +135,14 @@ def write_leaves(like, leaves: List[torch.Tensor],
 def value_and_grad(loss_fn: Callable, tree, batch,
                    params_from_tree: Optional[Callable] = None):
     """(loss, gradient tree) of ``loss_fn(params, batch)`` at the parameter
-    tree ``tree`` (detached; ``tree`` itself is not touched)."""
+    tree ``tree`` (detached; ``tree`` itself is not touched).  A leaf the
+    loss never reads (an xLSTM layer's ``norm1``) has a zero gradient, as
+    in the reference."""
     with torch.enable_grad():
         w = tree_map(lambda x: x.detach().requires_grad_(), tree)
         params, leaves = bind_params(w, params_from_tree)
         loss = loss_fn(params, batch)
-        grads = torch.autograd.grad(loss, leaves)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(x) if g is None else g
+             for x, g in zip(leaves, grads)]
     return loss.detach(), write_leaves(tree, grads, params_from_tree)

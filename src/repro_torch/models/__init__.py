@@ -1,4 +1,4 @@
-"""The port's models (dense decoder for serving; see ``model.build_model``)."""
-from .model import ModelAPI, build_model
+"""The port's models (see ``model.build_model``)."""
+from .model import ModelAPI, build_model, make_synthetic_batch
 
-__all__ = ["ModelAPI", "build_model"]
+__all__ = ["ModelAPI", "build_model", "make_synthetic_batch"]

@@ -6,9 +6,10 @@ Port of ``repro/models/attention.py`` (``init_attn_params``,
 ``attn_decode``, ``init_paged_attn_cache``, ``attn_decode_paged``).
 Weights keep the reference's (d_in, d_out) orientation and the layer
 computes ``x @ w``, so the arithmetic matches the reference's.
-``attn_forward(use_pallas=True)`` routes the core to
-``kernels.ops.flash_attention`` (the hand-written flash kernel on the
-card).  ``rope_fn=None`` (a model without RoPE, e.g. jamba) skips the
+``attn_forward`` takes cross-attention (``kv_input``) and M-RoPE
+positions; with ``use_pallas=True`` it routes the core of a plain
+self-attention to ``kernels.ops.flash_attention`` (the hand-written flash
+kernel on the card).  ``rope_fn=None`` (a model without RoPE, e.g. jamba) skips the
 rotation everywhere.
 """
 from __future__ import annotations
@@ -105,28 +106,48 @@ def chunked_attention(q, k, v, *, q_positions, k_positions,
 
 def attn_forward(params: AttnParams, x, *, n_heads: int, n_kv: int,
                  head_dim: int, rope_fn: Optional[Callable], q_positions,
-                 window: int = 0, attn_softcap: float = 0.0,
-                 chunk: int = 1024, causal: bool = True,
-                 use_pallas: bool = False):
-    """Self-attention layer forward.  x: (B, S, d); q_positions (S,) feed
-    the rope_fn and the causal/window mask.  ``use_pallas`` sends the core
-    to ``ops.flash_attention`` (positions contiguous from 0), otherwise
-    ``chunked_attention``.  Cross-attention (``kv_input``) and M-RoPE
-    positions arrive with the model zoo (ROADMAP slice 5)."""
+                 k_positions=None, window: int = 0,
+                 attn_softcap: float = 0.0, chunk: int = 1024,
+                 kv_input=None, causal: bool = True,
+                 use_pallas: bool = False, mask_positions=None):
+    """Attention layer forward.  x: (B, S, d); ``kv_input``: the memory of
+    a cross-attention (B, Sk, d), or None for self-attention.
+
+    ``q_positions`` feed the rope_fn (they may be (3, S) under M-RoPE);
+    ``mask_positions`` (default: q_positions) are the scalar (S,) ids of
+    the causal/window mask.  Keys rotate by ``k_positions``, else by
+    q_positions (self-attention) or by 0..Sk-1 (cross-attention), at which
+    cross-attention keys are also masked.  ``use_pallas`` sends the core
+    to ``ops.flash_attention``, which takes self-attention at positions
+    contiguous from 0; otherwise ``chunked_attention``."""
+    if use_pallas and (kv_input is not None or mask_positions is not None):
+        raise ValueError(
+            "use_pallas: the flash route takes self-attention at positions "
+            "contiguous from 0, not cross-attention (kv_input) or separate "
+            "mask positions (M-RoPE); the reference's flash route raises "
+            "for these configurations too (its position arrays pass "
+            "custom_vjp's nondiff_argnums as tracers)")
     B, S, _ = x.shape
+    kv_src = x if kv_input is None else kv_input
+    Sk = kv_src.shape[1]
+    if mask_positions is None:
+        mask_positions = q_positions
+    k_mask = (mask_positions if kv_input is None
+              else torch.arange(Sk, device=x.device))
     q = (x @ params.wq).reshape(B, S, n_heads, head_dim)
-    k = (x @ params.wk).reshape(B, S, n_kv, head_dim)
-    v = (x @ params.wv).reshape(B, S, n_kv, head_dim)
+    k = (kv_src @ params.wk).reshape(B, Sk, n_kv, head_dim)
+    v = (kv_src @ params.wv).reshape(B, Sk, n_kv, head_dim)
     if rope_fn is not None:
         q = rope_fn(q, q_positions)
-        k = rope_fn(k, q_positions)
+        k = rope_fn(k, k_positions if k_positions is not None
+                    else (q_positions if kv_input is None else k_mask))
     if use_pallas:
-        out = flash_attention(q, k, v, q_positions=q_positions,
-                              k_positions=q_positions, causal=causal,
+        out = flash_attention(q, k, v, q_positions=mask_positions,
+                              k_positions=k_mask, causal=causal,
                               window=window, attn_softcap=attn_softcap)
     else:
-        out = chunked_attention(q, k, v, q_positions=q_positions,
-                                k_positions=q_positions, causal=causal,
+        out = chunked_attention(q, k, v, q_positions=mask_positions,
+                                k_positions=k_mask, causal=causal,
                                 window=window, attn_softcap=attn_softcap,
                                 chunk=chunk)
     return out.reshape(B, S, n_heads * head_dim) @ params.wo

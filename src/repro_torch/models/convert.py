@@ -3,25 +3,28 @@ parameter objects.
 
 The reference keeps a model's parameters as a tree of arrays: the FC net as
 a flat dict, the transformer as nested dicts whose period leaves are
-stacked on axis 0 (``periods/l0/mixer/wq`` is (n_periods, d, d)).  That
-tree is also the layout of the flat training store (``core/flatstate.py``).
+stacked on axis 0 (``periods/l0/mixer/wq`` is (n_periods, d, d)), the
+encoder-decoder likewise with its layer leaves stacked
+(``dec_layers/self_attn/wq`` is (n_layers, d, d)).  That tree is also the
+layout of the flat training store (``core/flatstate.py``).
 
   * ``tree_from_jax`` turns such a tree of numpy arrays (``np.asarray`` of
-    each reference leaf) into the same tree of torch tensors — the FC net's
-    parameters as they are, the transformer's ready for
-    ``transformer_from_tree``.
-  * ``transformer_tree`` stacks a ``TransformerParams`` into the tree.
-  * ``transformer_from_tree`` builds a ``TransformerParams`` AROUND a tree's
-    tensors, with no copy: layer p's ``wq`` is row p of the stacked leaf.
-    Built around the flat store's views, its parameters are the store.
-  * ``params_from_jax`` does both steps for a reference transformer tree.
+    each reference leaf) into the same tree of torch tensors.
+  * ``transformer_tree`` / ``encdec_tree`` stack a model's parameter
+    object into the tree (a copy).
+  * ``transformer_from_tree`` / ``encdec_from_tree`` build the parameter
+    object AROUND a tree's tensors, with no copy: layer p's ``wq`` is row
+    p of the stacked leaf.  Built around the flat store's views, its
+    parameters are the store.
+  * ``params_from_jax`` does both steps for a reference model's tree.
 
-Weights keep the reference's (d_in, d_out) orientation.  A layer's mixer
-is attention (``wq, wk, wv, wo``) or mamba (``a_log, conv_b, conv_w, d,
-dt_bias, dt_proj, in_proj, out_proj, x_proj``); its mlp is dense (``w1,
-w3, w2``) or MoE (``router, w1, w2, w3``).  Each leaf keeps its own dtype
-(the float32 router, ``a_log``, ``d``, ``dt_bias`` and norms of a bf16
-model included).
+Weights keep the reference's (d_in, d_out) orientation.  A transformer
+layer's mixer is attention (``wq, wk, wv, wo``), mamba (``a_log, conv_b,
+conv_w, d, dt_bias, dt_proj, in_proj, out_proj, x_proj``), mLSTM (with
+``w_igate``) or sLSTM (with ``r``); its mlp is dense (``w1, w3, w2``) or
+MoE (``router, w1, w2, w3``), and an xLSTM layer has neither ``norm2`` nor
+``mlp``.  Each leaf keeps its own dtype (the float32 router, gates, norms
+and biases of a bf16 model included).
 """
 from __future__ import annotations
 
@@ -30,10 +33,12 @@ import torch
 from ..configs.base import ModelConfig
 from ..core.util import tree_map
 from .attention import AttnParams
+from .encdec import DecLayerParams, EncDecParams, EncLayerParams
 from .mamba import MambaParams
 from .moe import MoEParams
 from .transformer import (LayerParams, MLPParams, TransformerParams,
                           n_periods, period_spec)
+from .xlstm import MLSTMParams, SLSTMParams
 
 
 def _tensor(a, device):
@@ -51,27 +56,26 @@ def tree_from_jax(tree, device=None):
     return tree_map(lambda a: _tensor(a, device), tree)
 
 
+def _stack(modules):
+    """Modules of one structure -> {name: ...: stacked leaf} nested as
+    their attribute paths."""
+    out = {}
+    for name, _ in modules[0].named_parameters():
+        *path, leaf = name.split(".")
+        node = out
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = torch.stack([m.get_parameter(name).detach()
+                                  for m in modules])
+    return out
+
+
 def transformer_tree(params: TransformerParams):
     """``TransformerParams`` -> the reference's tree, period leaves stacked
     on axis 0 (a copy)."""
-    def stack(get):
-        return torch.stack([get(period) for period in params.periods])
-
-    def module(k, part):
-        names = [n for n, _ in getattr(params.periods[0][k],
-                                       part).named_parameters()]
-        return {n: stack(lambda pp, n=n: getattr(getattr(pp[k], part),
-                                                 n).detach())
-                for n in names}
-
-    def layer(k):
-        return {"norm1": stack(lambda pp: pp[k].norm1.detach()),
-                "mixer": module(k, "mixer"),
-                "norm2": stack(lambda pp: pp[k].norm2.detach()),
-                "mlp": module(k, "mlp")}
-
     tree = {"embed": params.embed.detach(),
-            "periods": {k: layer(k) for k in params.periods[0]},
+            "periods": {k: _stack([pp[k] for pp in params.periods])
+                        for k in params.periods[0]},
             "final_norm": params.final_norm.detach()}
     if params.lm_head is not None:
         tree["lm_head"] = params.lm_head.detach()
@@ -79,9 +83,17 @@ def transformer_tree(params: TransformerParams):
 
 
 def _mixer(m, p):
+    if "w_igate" in m:
+        return MLSTMParams(**{k: x[p] for k, x in m.items()})
+    if "r" in m:
+        return SLSTMParams(**{k: x[p] for k, x in m.items()})
     if "wq" in m:
-        return AttnParams(m["wq"][p], m["wk"][p], m["wv"][p], m["wo"][p])
+        return _attn(m, p)
     return MambaParams(**{k: x[p] for k, x in m.items()})
+
+
+def _attn(m, p):
+    return AttnParams(m["wq"][p], m["wk"][p], m["wv"][p], m["wo"][p])
 
 
 def _mlp(f, p):
@@ -91,11 +103,13 @@ def _mlp(f, p):
 
 
 def transformer_from_tree(tree, cfg: ModelConfig) -> TransformerParams:
-    """tree: {"embed", "periods": {"l0": {"norm1", "mixer", "norm2",
-    "mlp"}}, "final_norm", "lm_head"}, period leaves stacked on axis 0.
+    """tree: {"embed", "periods": {"l0": {"norm1", "mixer"[, "norm2",
+    "mlp"]}}, "final_norm"[, "lm_head"]}, period leaves stacked on axis 0.
     The parameters alias the tree's tensors (``nn.Parameter`` of row p of
     each stacked leaf)."""
     def layer(lp, p):
+        if "mlp" not in lp:
+            return LayerParams(lp["norm1"][p], _mixer(lp["mixer"], p))
         return LayerParams(lp["norm1"][p], _mixer(lp["mixer"], p),
                            lp["norm2"][p], _mlp(lp["mlp"], p))
 
@@ -107,7 +121,42 @@ def transformer_from_tree(tree, cfg: ModelConfig) -> TransformerParams:
     return TransformerParams(tree["embed"], periods, tree["final_norm"], head)
 
 
-def params_from_jax(tree, cfg: ModelConfig, device) -> TransformerParams:
-    """The reference transformer's parameter tree (numpy leaves) -> the
-    port's ``TransformerParams`` on ``device``."""
-    return transformer_from_tree(tree_from_jax(tree, device), cfg)
+def encdec_tree(params: EncDecParams):
+    """``EncDecParams`` -> the reference's tree {"embed", "enc_layers",
+    "enc_norm", "dec_layers", "final_norm", "lm_head"}, layer leaves
+    stacked on axis 0 (a copy)."""
+    return {"embed": params.embed.detach(),
+            "enc_layers": _stack(list(params.enc_layers)),
+            "enc_norm": params.enc_norm.detach(),
+            "dec_layers": _stack(list(params.dec_layers)),
+            "final_norm": params.final_norm.detach(),
+            "lm_head": params.lm_head.detach()}
+
+
+def encdec_from_tree(tree, cfg: ModelConfig) -> EncDecParams:
+    """The encoder-decoder's tree -> ``EncDecParams`` aliasing its
+    tensors."""
+    e, d = tree["enc_layers"], tree["dec_layers"]
+    enc = [EncLayerParams(_attn(e["attn"], i), _mlp(e["mlp"], i),
+                          e["norm1"][i], e["norm2"][i])
+           for i in range(cfg.enc_layers)]
+    dec = [DecLayerParams(cross_attn=_attn(d["cross_attn"], i),
+                          mlp=_mlp(d["mlp"], i), norm1=d["norm1"][i],
+                          norm2=d["norm2"][i], norm_x=d["norm_x"][i],
+                          self_attn=_attn(d["self_attn"], i))
+           for i in range(cfg.n_layers)]
+    return EncDecParams(tree["embed"], enc, tree["enc_norm"], dec,
+                        tree["final_norm"], tree["lm_head"])
+
+
+def params_from_tree(tree, cfg: ModelConfig):
+    """A model's tree -> its parameter object (aliasing), by family."""
+    if cfg.family == "audio":
+        return encdec_from_tree(tree, cfg)
+    return transformer_from_tree(tree, cfg)
+
+
+def params_from_jax(tree, cfg: ModelConfig, device):
+    """A reference model's parameter tree (numpy leaves) -> the port's
+    parameter object on ``device``."""
+    return params_from_tree(tree_from_jax(tree, device), cfg)

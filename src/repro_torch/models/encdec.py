@@ -1,0 +1,204 @@
+"""Encoder-decoder transformer (the seamless-m4t-large-v2 backbone) — the
+port of ``repro/models/encdec.py``.
+
+Encoder: bidirectional self-attention over frame embeddings that stand in
+for the speech frontend (mel + conformer), as in the reference.  Decoder:
+causal self-attention, cross-attention to the encoder's output, SwiGLU,
+over text tokens.  Serving: ``init_cache`` runs the encoder once and keeps
+each decoder layer's cross K/V; ``decode_step`` appends one token to a
+rotating self-attention buffer (``attn_decode``) and attends to those K/V.
+
+Parameters are ``nn.Module``s in the reference's layout: layer l's
+``self_attn.wq`` is the reference's ``dec_layers/self_attn/wq[l]``.
+Frames come in the compute dtype.  Caches are updated in place.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..configs.base import ModelConfig
+from .attention import (AttnParams, attn_decode, attn_forward,
+                        init_attn_cache, init_attn_params)
+from .layers import dense_init, dtype_of, embed_init, rms_norm, swiglu
+from .transformer import MLPParams, embed_tokens, make_rope_fn
+
+__all__ = ["EncLayerParams", "DecLayerParams", "EncDecParams",
+           "init_params", "encode", "decode_train", "apply", "init_cache",
+           "decode_step"]
+
+
+class EncLayerParams(nn.Module):
+    """norm1; attn (AttnParams); norm2; mlp (MLPParams)."""
+
+    def __init__(self, attn: AttnParams, mlp: MLPParams, norm1, norm2):
+        super().__init__()
+        self.attn = attn
+        self.mlp = mlp
+        self.norm1 = nn.Parameter(norm1)
+        self.norm2 = nn.Parameter(norm2)
+
+
+class DecLayerParams(nn.Module):
+    """norm1; self_attn; norm_x; cross_attn; norm2; mlp."""
+
+    def __init__(self, cross_attn: AttnParams, mlp: MLPParams, norm1, norm2,
+                 norm_x, self_attn: AttnParams):
+        super().__init__()
+        self.cross_attn = cross_attn
+        self.mlp = mlp
+        self.norm1 = nn.Parameter(norm1)
+        self.norm2 = nn.Parameter(norm2)
+        self.norm_x = nn.Parameter(norm_x)
+        self.self_attn = self_attn
+
+
+class EncDecParams(nn.Module):
+    """embed (V, d); enc_layers; enc_norm (d,); dec_layers; final_norm
+    (d,); lm_head (d, V)."""
+
+    def __init__(self, embed, enc_layers, enc_norm, dec_layers, final_norm,
+                 lm_head):
+        super().__init__()
+        self.embed = nn.Parameter(embed)
+        self.enc_layers = nn.ModuleList(enc_layers)
+        self.enc_norm = nn.Parameter(enc_norm)
+        self.dec_layers = nn.ModuleList(dec_layers)
+        self.final_norm = nn.Parameter(final_norm)
+        self.lm_head = nn.Parameter(lm_head)
+
+
+def init_params(cfg: ModelConfig, gen: torch.Generator) -> EncDecParams:
+    """Random weights drawn from ``gen`` on ``gen.device`` (the reference's
+    distributions, not its draws)."""
+    dt = dtype_of(cfg.param_dtype)
+    d, dev = cfg.d_model, gen.device
+
+    def zeros():
+        return torch.zeros((d,), dtype=torch.float32, device=dev)
+
+    def attn():
+        return init_attn_params(gen, d, cfg.n_heads, cfg.n_kv_heads,
+                                cfg.head_dim_, dt)
+
+    def ff():
+        return MLPParams(dense_init(gen, d, cfg.d_ff, dt),
+                         dense_init(gen, d, cfg.d_ff, dt),
+                         dense_init(gen, cfg.d_ff, d, dt))
+
+    embed = embed_init(gen, cfg.padded_vocab, d, dt)
+    enc = [EncLayerParams(attn(), ff(), zeros(), zeros())
+           for _ in range(cfg.enc_layers)]
+    dec = [DecLayerParams(cross_attn=attn(), mlp=ff(), norm1=zeros(),
+                          norm2=zeros(), norm_x=zeros(), self_attn=attn())
+           for _ in range(cfg.n_layers)]
+    return EncDecParams(embed, enc, zeros(), dec, zeros(),
+                        dense_init(gen, d, cfg.padded_vocab, dt))
+
+
+def _attn_kw(cfg: ModelConfig):
+    return dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+                head_dim=cfg.head_dim_, chunk=cfg.attn_chunk,
+                use_pallas=cfg.use_pallas)
+
+
+def _ff(lp, x, cfg: ModelConfig):
+    f = lp.mlp
+    return x + swiglu(rms_norm(x, lp.norm2, cfg.norm_eps), f.w1, f.w3, f.w2)
+
+
+def encode(params: EncDecParams, cfg: ModelConfig, frames):
+    """frames: (B, S_enc, d) frame embeddings -> memory (B, S_enc, d)."""
+    pos = torch.arange(frames.shape[1], device=frames.device)
+    rope_fn = make_rope_fn(cfg)
+    x = frames
+    for lp in params.enc_layers:
+        h = rms_norm(x, lp.norm1, cfg.norm_eps)
+        x = x + attn_forward(lp.attn, h, rope_fn=rope_fn, q_positions=pos,
+                             causal=False, **_attn_kw(cfg))
+        x = _ff(lp, x, cfg)
+    return rms_norm(x, params.enc_norm, cfg.norm_eps)
+
+
+def decode_train(params: EncDecParams, cfg: ModelConfig, tokens, memory):
+    """tokens: (B, S_dec); memory: (B, S_enc, d) -> logits (B, S_dec, V)."""
+    x = embed_tokens(params, cfg, tokens)
+    pos = torch.arange(x.shape[1], device=x.device)
+    rope_fn = make_rope_fn(cfg)
+    for lp in params.dec_layers:
+        h = rms_norm(x, lp.norm1, cfg.norm_eps)
+        x = x + attn_forward(lp.self_attn, h, rope_fn=rope_fn,
+                             q_positions=pos, causal=True, **_attn_kw(cfg))
+        h = rms_norm(x, lp.norm_x, cfg.norm_eps)
+        x = x + attn_forward(lp.cross_attn, h, rope_fn=rope_fn,
+                             q_positions=pos, kv_input=memory, causal=False,
+                             **_attn_kw(cfg))
+        x = _ff(lp, x, cfg)
+    return rms_norm(x, params.final_norm, cfg.norm_eps) @ params.lm_head
+
+
+def apply(params: EncDecParams, cfg: ModelConfig, frames, tokens):
+    return decode_train(params, cfg, tokens, encode(params, cfg, frames))
+
+
+# ---------------------------------------------------------------------------
+# serving
+# ---------------------------------------------------------------------------
+
+@torch.inference_mode()
+def init_cache(params: EncDecParams, cfg: ModelConfig, frames,
+               buf_len: int):
+    """Runs the encoder once.  -> {"cross": {"xk", "xv": (n_layers, B,
+    S_enc, KV, hd)} (the keys rotated at 0..S_enc-1), "self": the rotating
+    buffer of ``init_attn_cache`` stacked over the decoder layers}."""
+    memory = encode(params, cfg, frames)
+    B, Sk, _ = memory.shape
+    dt = dtype_of(cfg.param_dtype)
+    rope_fn = make_rope_fn(cfg)
+    shape = (B, Sk, cfg.n_kv_heads, cfg.head_dim_)
+    xk, xv = [], []
+    for lp in params.dec_layers:
+        k = (memory @ lp.cross_attn.wk).reshape(shape)
+        if rope_fn is not None:
+            k = rope_fn(k, torch.arange(Sk, device=memory.device))
+        xk.append(k.to(dt))
+        xv.append((memory @ lp.cross_attn.wv).reshape(shape).to(dt))
+    one = init_attn_cache(B, buf_len, cfg.n_kv_heads, cfg.head_dim_, dt,
+                          memory.device)
+    return {"cross": {"xk": torch.stack(xk), "xv": torch.stack(xv)},
+            "self": {name: x.expand((cfg.n_layers,) + x.shape).clone()
+                     for name, x in one.items()}}
+
+
+@torch.inference_mode()
+def decode_step(params: EncDecParams, cfg: ModelConfig, cache, tokens, pos):
+    """tokens: (B, 1); pos: int, the position every sequence writes at.
+    -> (logits (B, 1, V), cache; its self-attention buffer updated in
+    place)."""
+    pos = int(pos)
+    x = embed_tokens(params, cfg, tokens)
+    B = x.shape[0]
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    rope_fn = make_rope_fn(cfg)
+    posv = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+    for l, lp in enumerate(params.dec_layers):
+        cc = {name: t[l] for name, t in cache["self"].items()}
+        h, _ = attn_decode(lp.self_attn, cc,
+                           rms_norm(x, lp.norm1, cfg.norm_eps), pos,
+                           n_heads=H, n_kv=KV, head_dim=hd, rope_fn=rope_fn)
+        x = x + h
+        # cross-attention against the memory's K/V (no cache update)
+        h = rms_norm(x, lp.norm_x, cfg.norm_eps)
+        q = (h @ lp.cross_attn.wq).reshape(B, 1, H, hd)
+        if rope_fn is not None:
+            q = rope_fn(q, posv)
+        qg = q.reshape(B, KV, H // KV, hd)
+        s = torch.einsum("bkgd,bwkd->bkgw", qg.float(),
+                         cache["cross"]["xk"][l].float()) * hd ** -0.5
+        p = torch.softmax(s, dim=-1)
+        o = torch.einsum("bkgw,bwkd->bkgd", p,
+                         cache["cross"]["xv"][l].float())
+        x = x + o.reshape(B, 1, H * hd).to(x.dtype) @ lp.cross_attn.wo
+        x = _ff(lp, x, cfg)
+    return (rms_norm(x, params.final_norm, cfg.norm_eps) @ params.lm_head,
+            cache)

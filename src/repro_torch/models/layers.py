@@ -1,8 +1,9 @@
 """Shared neural building blocks — the port of ``repro/models/layers.py``
-(init helpers, RMSNorm, softcap, SwiGLU, RoPE, cross-entropy).  M-RoPE
-arrives with the model zoo (ROADMAP slice 5)."""
+(init helpers, RMSNorm, softcap, SwiGLU, RoPE and qwen2-vl's M-RoPE,
+cross-entropy)."""
 from __future__ import annotations
 
+import itertools
 import math
 
 import torch
@@ -11,6 +12,14 @@ import torch
 def dtype_of(name: str) -> torch.dtype:
     return {"float32": torch.float32, "bfloat16": torch.bfloat16,
             "float16": torch.float16}[name]
+
+
+def weak_scalar(s: float, dtype) -> float:
+    """The Python float ``s`` rounded to ``dtype``: the factor the
+    reference's arithmetic uses when it scales an array by a Python float
+    (JAX's weak typing casts the scalar to the array's dtype first;
+    ``sqrt(4608)`` is 68.0 in bfloat16, not 67.88)."""
+    return torch.tensor(s, dtype=dtype).item()
 
 
 # ---------------------------------------------------------------------------
@@ -54,7 +63,7 @@ def swiglu(x, w1, w3, w2):
 
 
 # ---------------------------------------------------------------------------
-# RoPE
+# RoPE / M-RoPE
 # ---------------------------------------------------------------------------
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
@@ -70,6 +79,32 @@ def apply_rope(x, positions, theta: float):
     freqs = rope_freqs(hd, theta, x.device)                  # (hd/2,)
     angles = positions.float()[..., None] * freqs            # (..., S, hd/2)
     cos = torch.cos(angles)[..., None, :]                    # (..., S, 1, hd/2)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_mrope(x, positions3, theta: float, sections):
+    """qwen2-vl M-RoPE.  x: (..., S, H, hd); positions3: (3, ..., S) = the
+    (t, h, w) ids.  The hd/2 frequencies are split into ``sections``
+    (pair counts, summing to hd/2): frequency i rotates by the id of its
+    section, the rotation otherwise ``apply_rope``'s."""
+    hd = x.shape[-1]
+    half = hd // 2
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} do not sum to "
+                         f"head_dim / 2 = {half}")
+    freqs = rope_freqs(hd, theta, x.device)                  # (half,)
+    # frequency i's section: how many section ends lie at or below i
+    # (built on the device from host ints: no copy, no sync)
+    idx = torch.arange(half, device=x.device)
+    sec_ids = torch.zeros_like(idx)
+    for end in itertools.accumulate(sections[:-1]):
+        sec_ids += idx >= end
+    p = torch.movedim(positions3, 0, -1)                     # (..., S, 3)
+    angles = p[..., sec_ids].float() * freqs                 # (..., S, half)
+    cos = torch.cos(angles)[..., None, :]
     sin = torch.sin(angles)[..., None, :]
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)

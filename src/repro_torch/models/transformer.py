@@ -5,19 +5,23 @@ training/prefill forward (``apply``, through chunked attention or, with
 
 Depth is n_periods x period as in the reference: a period is the repeating
 block pattern (dense: [attn]; gemma2: [local, global]; jamba: 7 mamba + 1
-attention with MoE every 2nd layer).  A layer is (mixer, mlp) with mixer in
-{attn, attn_local, mamba} and mlp in {dense, moe}; the xLSTM mixers
-(mlstm, slstm) arrive with ROADMAP slice 5b and raise
-``NotImplementedError`` here.  Parameters are ``nn.Module``s holding
-``nn.Parameter``s in the reference's layout (``periods[p]["l0"].mixer.wq``
-is the reference's ``periods/l0/mixer/wq[p]``); the functions below take
-them as arguments, mirroring the reference's pure functions.
+attention with MoE every 2nd layer; xlstm: [mLSTM, sLSTM]).  A layer is
+(mixer, mlp) with mixer in {attn, attn_local, mamba, mlstm, slstm} and mlp
+in {dense, moe, none}: an xLSTM block carries its own norms, projections
+and residuals (``models/xlstm.py``), so its layer has no ``norm2`` and no
+``mlp``, and its ``norm1`` is a leaf that no block reads (kept, as in the
+reference, so the flat store's leaves line up).  Parameters are
+``nn.Module``s holding ``nn.Parameter``s in the reference's layout
+(``periods[p]["l0"].mixer.wq`` is the reference's ``periods/l0/mixer/wq[p]``);
+the functions below take them as arguments, mirroring the reference's pure
+functions.  Under M-RoPE (qwen2-vl) positions are (3, S) (t, h, w) ids:
+they rotate q and k, and their t row masks.
 
 Caches are dicts {f"l{i}": {leaf: (n_periods, ...)}} in the reference's
 stacked layout and are updated IN PLACE (the reference donates them to a
-jitted step and gets fresh buffers back).  Recurrent layers (mamba) keep
-per-slot state with the slot on axis 1; attention layers of the paged
-cache share page pools with no slot axis.
+jitted step and gets fresh buffers back).  Recurrent layers (mamba, mlstm,
+slstm) keep per-slot state with the slot on axis 1; attention layers of
+the paged cache share page pools with no slot axis.
 """
 from __future__ import annotations
 
@@ -31,13 +35,18 @@ from ..configs.base import ModelConfig
 from .attention import (attn_decode, attn_decode_paged, attn_forward,
                         init_attn_cache, init_attn_params,
                         init_paged_attn_cache)
-from .layers import apply_rope, dense_init, dtype_of, embed_init, rms_norm, \
-    softcap, swiglu
+from .layers import (apply_mrope, apply_rope, dense_init, dtype_of,
+                     embed_init, rms_norm, softcap, swiglu, weak_scalar)
 from .mamba import (init_mamba_cache, init_mamba_params, mamba_decode,
                     mamba_forward)
 from .moe import init_moe_params, moe_forward
+from .xlstm import (init_mlstm_cache, init_mlstm_params, init_slstm_cache,
+                    init_slstm_params, mlstm_block_decode,
+                    mlstm_block_forward, slstm_block_decode,
+                    slstm_block_forward)
 
 PAGED = ("k_pages", "v_pages")
+XLSTM = ("mlstm", "slstm")
 
 
 # ---------------------------------------------------------------------------
@@ -45,21 +54,15 @@ PAGED = ("k_pages", "v_pages")
 # ---------------------------------------------------------------------------
 
 def period_spec(cfg: ModelConfig) -> Tuple[Tuple[str, str], ...]:
-    if cfg.mrope_sections or cfg.family in ("vlm", "audio"):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family (M-RoPE, encoder-decoder) "
-            "arrives with ROADMAP slice 5b")
     if cfg.block_period:
         spec = []
         for i, mixer in enumerate(cfg.block_period):
             if cfg.attn_layer_offset >= 0 and i == cfg.attn_layer_offset:
                 mixer = "attn"
-            if mixer in ("mlstm", "slstm"):
-                raise NotImplementedError(
-                    f"{cfg.name}: the {mixer} mixer (xLSTM) arrives with "
-                    "ROADMAP slice 5b")
-            if cfg.n_experts and cfg.moe_every and (i % cfg.moe_every
-                                                    == cfg.moe_every - 1):
+            if mixer in XLSTM:
+                mlp = "none"
+            elif cfg.n_experts and cfg.moe_every and (i % cfg.moe_every
+                                                      == cfg.moe_every - 1):
                 mlp = "moe"
             else:
                 mlp = "dense"
@@ -82,8 +85,13 @@ def n_periods(cfg: ModelConfig) -> int:
 
 
 def make_rope_fn(cfg: ModelConfig):
+    """(x, positions) -> x rotated; positions are (3, ...) (t, h, w) ids
+    under M-RoPE.  None for a model without RoPE."""
     if not cfg.use_rope:
         return None
+    if cfg.mrope_sections:
+        return lambda x, pos: apply_mrope(x, pos, cfg.rope_theta,
+                                          cfg.mrope_sections)
     return lambda x, pos: apply_rope(x, pos, cfg.rope_theta)
 
 
@@ -107,14 +115,16 @@ class MLPParams(nn.Module):
 
 
 class LayerParams(nn.Module):
-    """norm1; mixer (AttnParams or MambaParams); norm2; mlp (MLPParams or
-    MoEParams)."""
+    """norm1; mixer (AttnParams, MambaParams, MLSTMParams or SLSTMParams);
+    norm2 and mlp (MLPParams or MoEParams), both None for an xLSTM layer,
+    whose block has its own."""
 
-    def __init__(self, norm1, mixer: nn.Module, norm2, mlp: nn.Module):
+    def __init__(self, norm1, mixer: nn.Module, norm2=None,
+                 mlp: nn.Module = None):
         super().__init__()
         self.norm1 = nn.Parameter(norm1)
         self.mixer = mixer
-        self.norm2 = nn.Parameter(norm2)
+        self.norm2 = None if norm2 is None else nn.Parameter(norm2)
         self.mlp = mlp
 
 
@@ -137,18 +147,26 @@ def _init_layer(gen: torch.Generator, cfg: ModelConfig, mixer: str,
     if mixer in ("attn", "attn_local"):
         mix = init_attn_params(gen, d, cfg.n_heads, cfg.n_kv_heads,
                                cfg.head_dim_, dt)
-    else:
+    elif mixer == "mamba":
         mix = init_mamba_params(gen, d, expand=cfg.ssm_expand,
                                 state=cfg.ssm_state, conv=cfg.ssm_conv,
                                 dtype=dt)
+    elif mixer == "mlstm":
+        mix = init_mlstm_params(gen, d, cfg.n_heads, dt)
+    elif mixer == "slstm":
+        mix = init_slstm_params(gen, d, cfg.n_heads, dt)
+    else:
+        raise ValueError(mixer)
+    norm1 = torch.zeros((d,), dtype=torch.float32, device=dev)
+    if mlp == "none":
+        return LayerParams(norm1, mix)
     if mlp == "moe":
         ffn = init_moe_params(gen, d, cfg.d_ff, cfg.n_experts, dt)
     else:
         ffn = MLPParams(dense_init(gen, d, cfg.d_ff, dt),
                         dense_init(gen, d, cfg.d_ff, dt),
                         dense_init(gen, cfg.d_ff, d, dt))
-    return LayerParams(torch.zeros((d,), dtype=torch.float32, device=dev),
-                       mix,
+    return LayerParams(norm1, mix,
                        torch.zeros((d,), dtype=torch.float32, device=dev),
                        ffn)
 
@@ -175,10 +193,7 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> TransformerParams:
 # ---------------------------------------------------------------------------
 
 def embed_tokens(params: TransformerParams, cfg: ModelConfig, tokens):
-    # the reference's Python-float scale takes the table's dtype (JAX's
-    # weak typing): sqrt(4608) is 68.0 in bfloat16, not 67.88
-    dt = params.embed.dtype
-    scale = torch.tensor(math.sqrt(cfg.d_model), dtype=dt).item()
+    scale = weak_scalar(math.sqrt(cfg.d_model), params.embed.dtype)
     return params.embed[tokens.long()] * scale
 
 
@@ -193,10 +208,12 @@ def logits_from_hidden(params: TransformerParams, cfg: ModelConfig, x):
 # ---------------------------------------------------------------------------
 
 def _mlp(lp: LayerParams, x, cfg: ModelConfig, mlp: str):
-    """The layer's FFN half: x + mlp(rms_norm(x)).  ``moe_backend``
-    "shard_map" takes the einsum path on one device, as the reference does
-    without a ``model`` mesh axis (its all-to-all arrives with ROADMAP
-    slice 7)."""
+    """The layer's FFN half: x + mlp(rms_norm(x)) (x itself for "none").
+    ``moe_backend`` "shard_map" takes the einsum path on one device, as
+    the reference does without a ``model`` mesh axis (its all-to-all
+    arrives with ROADMAP slice 7)."""
+    if mlp == "none":
+        return x
     h = rms_norm(x, lp.norm2, cfg.norm_eps)
     if mlp == "moe":
         return x + moe_forward(lp.mlp, h, n_experts=cfg.n_experts,
@@ -211,28 +228,42 @@ def _mamba_kw(cfg: ModelConfig):
                 conv=cfg.ssm_conv)
 
 
+_XLSTM_FORWARD = {"mlstm": mlstm_block_forward, "slstm": slstm_block_forward}
+_XLSTM_DECODE = {"mlstm": mlstm_block_decode, "slstm": slstm_block_decode}
+
+
 def _layer_forward(lp: LayerParams, x, cfg: ModelConfig, mixer: str,
                    mlp: str, rope_fn, positions):
+    if mixer in XLSTM:
+        x = _XLSTM_FORWARD[mixer](lp.mixer, x, n_heads=cfg.n_heads,
+                                  chunk=cfg.scan_chunk,
+                                  norm_eps=cfg.norm_eps)
+        return _mlp(lp, x, cfg, mlp)
     h = rms_norm(x, lp.norm1, cfg.norm_eps)
     if mixer == "mamba":
         x = x + mamba_forward(lp.mixer, h, scan_chunk=cfg.scan_chunk,
                               **_mamba_kw(cfg))
     else:
+        # M-RoPE: (3, S) ids rotate q and k, their t row masks
         x = x + attn_forward(lp.mixer, h, n_heads=cfg.n_heads,
                              n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim_,
                              rope_fn=rope_fn, q_positions=positions,
                              window=_window(cfg, mixer),
                              attn_softcap=cfg.attn_softcap,
                              chunk=cfg.attn_chunk,
-                             use_pallas=cfg.use_pallas)
+                             use_pallas=cfg.use_pallas,
+                             mask_positions=(positions[0]
+                                             if cfg.mrope_sections
+                                             else None))
     return _mlp(lp, x, cfg, mlp)
 
 
 def forward(params: TransformerParams, cfg: ModelConfig, x, positions):
-    """x: (B, S, d) input embeddings; positions: (S,).  Returns the final
-    hidden states (B, S, d).  The reference scans over stacked period
-    parameters with a remat per period; here a loop over
-    ``params.periods``, with autograd keeping each layer's activations."""
+    """x: (B, S, d) input embeddings; positions: (S,), or (3, S) under
+    M-RoPE.  Returns the final hidden states (B, S, d).  The reference
+    scans over stacked period parameters with a remat per period; here a
+    loop over ``params.periods``, with autograd keeping each layer's
+    activations."""
     spec = period_spec(cfg)
     rope_fn = make_rope_fn(cfg)
     for period in params.periods:
@@ -242,10 +273,19 @@ def forward(params: TransformerParams, cfg: ModelConfig, x, positions):
     return x
 
 
-def apply(params: TransformerParams, cfg: ModelConfig, tokens):
-    """tokens: (B, S) -> logits (B, S, V)."""
+def apply(params: TransformerParams, cfg: ModelConfig, tokens,
+          positions=None, extra_embeds=None):
+    """tokens: (B, S) -> logits (B, S_total, V).  ``extra_embeds``: (B, P,
+    d) frontend embeddings (vision patches) put before the tokens' own;
+    ``positions`` default to 0..S_total-1 (each of t, h, w under
+    M-RoPE)."""
     x = embed_tokens(params, cfg, tokens)
-    positions = torch.arange(x.shape[1], device=x.device)
+    if extra_embeds is not None:
+        x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
+    if positions is None:
+        positions = torch.arange(x.shape[1], device=x.device)
+        if cfg.mrope_sections:
+            positions = positions.expand(3, -1)
     return logits_from_hidden(params, cfg, forward(params, cfg, x, positions))
 
 
@@ -260,7 +300,15 @@ def _stacked(cfg: ModelConfig, one):
             for name, x in one.items()}
 
 
-def _recurrent_cache(cfg: ModelConfig, batch: int, device):
+def _recurrent_cache(cfg: ModelConfig, mixer: str, batch: int, device):
+    """A recurrent layer's state for ``batch`` sequences (or slots)."""
+    if mixer == "mlstm":
+        return init_mlstm_cache(batch, cfg.d_model, cfg.n_heads,
+                                dtype=dtype_of(cfg.param_dtype),
+                                device=device)
+    if mixer == "slstm":
+        return init_slstm_cache(batch, cfg.d_model, cfg.n_heads,
+                                device=device)
     return init_mamba_cache(batch, cfg.d_model,
                             dtype=dtype_of(cfg.param_dtype), device=device,
                             **_mamba_kw(cfg))
@@ -285,6 +333,23 @@ def _write_state(cc, new_cc, advance=None):
         old.copy_(new)
 
 
+def _recurrent_decode(lp: LayerParams, cc, x, cfg: ModelConfig, mixer: str,
+                      advance=None):
+    """A recurrent mixer's decode step: returns x after the mixer and its
+    residual, and writes the new state into ``cc`` (slots with
+    advance=False keep theirs bitwise)."""
+    if mixer == "mamba":
+        h, new = mamba_decode(lp.mixer, cc, rms_norm(x, lp.norm1,
+                                                     cfg.norm_eps),
+                              **_mamba_kw(cfg))
+        x = x + h
+    else:
+        x, new = _XLSTM_DECODE[mixer](lp.mixer, cc, x, n_heads=cfg.n_heads,
+                                      norm_eps=cfg.norm_eps)
+    _write_state(cc, new, advance)
+    return x
+
+
 # ---------------------------------------------------------------------------
 # rotating-buffer decode (one position shared by the batch)
 # ---------------------------------------------------------------------------
@@ -292,12 +357,13 @@ def _write_state(cc, new_cc, advance=None):
 def init_cache(cfg: ModelConfig, batch: int, buf_len: int, device):
     """Attention layers: {"k", "v": (n_periods, B, blen, KV, hd),
     "slot_pos": (n_periods, blen) int32, -1 = empty}, blen = min(buf_len,
-    window) on windowed layers; mamba layers: {"conv", "h"}."""
+    window) on windowed layers; recurrent layers: their state
+    (``_recurrent_cache``)."""
     dt = dtype_of(cfg.param_dtype)
 
     def layer(mixer):
-        if mixer == "mamba":
-            return _recurrent_cache(cfg, batch, device)
+        if mixer not in ("attn", "attn_local"):
+            return _recurrent_cache(cfg, mixer, batch, device)
         blen = min(buf_len, cfg.window) if (
             mixer == "attn_local" or cfg.attn_pattern == "sliding") \
             else buf_len
@@ -311,26 +377,30 @@ def init_cache(cfg: ModelConfig, batch: int, buf_len: int, device):
 @torch.inference_mode()
 def decode_step(params: TransformerParams, cfg: ModelConfig, cache, tokens,
                 pos):
-    """tokens: (B, 1); pos: int, the position every sequence writes at.
-    -> (logits (B, 1, V), cache updated in place)."""
+    """tokens: (B, 1); pos: int, the position every sequence writes at
+    (under M-RoPE the same id for t, h and w).  -> (logits (B, 1, V),
+    cache updated in place)."""
     spec = period_spec(cfg)
     rope_fn = make_rope_fn(cfg)
+    if cfg.mrope_sections and rope_fn is not None:
+        mrope = rope_fn
+        rope_fn = lambda xx, p: mrope(xx, p.expand((3,) + p.shape))  # noqa
     pos = int(pos)
     x = embed_tokens(params, cfg, tokens)
     for p, period in enumerate(params.periods):
         pc = _period_cache(cache, p)
         for i, (mixer, mlp) in enumerate(spec):
             lp, cc = period[f"l{i}"], pc[f"l{i}"]
-            h = rms_norm(x, lp.norm1, cfg.norm_eps)
-            if mixer == "mamba":
-                h, new = mamba_decode(lp.mixer, cc, h, **_mamba_kw(cfg))
-                _write_state(cc, new)
-            else:
-                h, _ = attn_decode(lp.mixer, cc, h, pos, n_heads=cfg.n_heads,
-                                   n_kv=cfg.n_kv_heads,
+            if mixer in ("attn", "attn_local"):
+                h, _ = attn_decode(lp.mixer, cc,
+                                   rms_norm(x, lp.norm1, cfg.norm_eps), pos,
+                                   n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
                                    head_dim=cfg.head_dim_, rope_fn=rope_fn,
                                    attn_softcap=cfg.attn_softcap)
-            x = _mlp(lp, x + h, cfg, mlp)
+                x = x + h
+            else:
+                x = _recurrent_decode(lp, cc, x, cfg, mixer)
+            x = _mlp(lp, x, cfg, mlp)
     return logits_from_hidden(params, cfg, x), cache
 
 
@@ -342,14 +412,15 @@ def init_paged_cache(cfg: ModelConfig, n_slots: int, n_pages: int,
                      page_size: int, device):
     """Attention layers: {"k_pages", "v_pages": (n_periods, n_pages,
     page_size, KV, hd)}, a page pool with no slot axis (the scheduler's
-    page table says which pages a slot owns); mamba layers: per-slot
-    {"conv": (n_periods, n_slots, conv - 1, di), "h": (n_periods, n_slots,
-    di, N) float32}, position-free and recycled by ``reset_slot``."""
+    page table says which pages a slot owns); recurrent layers: per-slot
+    state (mamba {"conv", "h"}; mlstm {"C", "conv", "m", "n"}; slstm {"c",
+    "h", "m", "n"}; slot on axis 1), position-free and recycled by
+    ``reset_slot``."""
     dt = dtype_of(cfg.param_dtype)
 
     def layer(mixer):
-        if mixer == "mamba":
-            return _recurrent_cache(cfg, n_slots, device)
+        if mixer not in ("attn", "attn_local"):
+            return _recurrent_cache(cfg, mixer, n_slots, device)
         return init_paged_attn_cache(n_pages, page_size, cfg.n_kv_heads,
                                      cfg.head_dim_, dt, device)
 
@@ -360,17 +431,18 @@ def init_paged_cache(cfg: ModelConfig, n_slots: int, n_pages: int,
 def _layer_decode_paged(lp: LayerParams, cc, x, positions, page_table,
                         cfg: ModelConfig, mixer: str, mlp: str, rope_fn,
                         advance):
-    h = rms_norm(x, lp.norm1, cfg.norm_eps)
-    if mixer == "mamba":
-        h, new = mamba_decode(lp.mixer, cc, h, **_mamba_kw(cfg))
-        _write_state(cc, new, advance)
-    else:
-        h, _ = attn_decode_paged(lp.mixer, cc, h, positions, page_table,
+    if mixer in ("attn", "attn_local"):
+        h, _ = attn_decode_paged(lp.mixer, cc,
+                                 rms_norm(x, lp.norm1, cfg.norm_eps),
+                                 positions, page_table,
                                  n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
                                  head_dim=cfg.head_dim_, rope_fn=rope_fn,
                                  attn_softcap=cfg.attn_softcap,
                                  window=_window(cfg, mixer))
-    return _mlp(lp, x + h, cfg, mlp)
+        x = x + h
+    else:
+        x = _recurrent_decode(lp, cc, x, cfg, mixer, advance)
+    return _mlp(lp, x, cfg, mlp)
 
 
 @torch.inference_mode()
@@ -381,11 +453,12 @@ def paged_decode_step(params: TransformerParams, cfg: ModelConfig, cache,
     (logits (S, 1, V), cache).
 
     A slot with advance=False runs through the batch but keeps its
-    recurrent (mamba) state bitwise; its attention write lands in the
-    scratch page, which length masks never read.  None means every slot
-    advances.  The cache is updated in place and returned.  The paged
-    cache never wraps: the scheduler keeps prompt + max_new_tokens <=
-    max_pages * page_size per slot.
+    recurrent (mamba, mlstm, slstm) state bitwise; its attention write
+    lands in the scratch page, which length masks never read.  None means
+    every slot advances.  The cache is updated in place and returned.  The
+    paged cache never wraps: the scheduler keeps prompt + max_new_tokens
+    <= max_pages * page_size per slot.  No M-RoPE: the reference serves
+    the vlm family through ``decode_step`` only.
     """
     spec = period_spec(cfg)
     rope_fn = make_rope_fn(cfg)

@@ -83,6 +83,10 @@ class ServeEngine:
                  admission: str = "continuous"):
         if admission not in ("continuous", "static"):
             raise ValueError(f"unknown admission policy {admission!r}")
+        if not api.has_paged:
+            raise ValueError(
+                f"{api.cfg.name}: the {api.cfg.family} family has no paged "
+                "decode (serve it through api.init_cache / decode_step)")
         self.api = api
         self.device = api.device
         self.set_params(params)

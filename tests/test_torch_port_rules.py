@@ -60,6 +60,15 @@ def test_entry_points_default_to_cuda():
     assert api.device == torch.device("cpu")
     params = api.init(0)
     assert all(p.device.type == "cpu" for p in params.parameters())
+    # the ssm, vlm and audio families the same way
+    for name in ("xlstm-350m", "qwen2-vl-7b", "seamless-m4t-large-v2"):
+        small = get_config(name).smoke_config()
+        if not torch.cuda.is_available():
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                build_model(small)
+        api = build_model(small, device="cpu")
+        assert all(p.device.type == "cpu"
+                   for p in api.init(0).parameters())
 
 
 def test_lint_finds_nothing_in_the_port():
@@ -70,9 +79,14 @@ def test_lint_finds_nothing_in_the_port():
 
 from repro_torch.configs import REGISTRY  # noqa: E402
 
-# every config in the port's registry: the dense family, and the moe
-# (granite-moe, qwen3-moe) and hybrid (jamba) families since their slice
+# every config in the port's registry: the dense family, the moe
+# (granite-moe, qwen3-moe) and hybrid (jamba) families since slice 5a, the
+# ssm (xlstm), vlm (qwen2-vl) and audio (seamless) families since slice 5b
 DENSE = sorted(REGISTRY)
+# the configs with an attention layer (xlstm-350m has none)
+ATTENTION = [n for n in DENSE
+             if any(m.startswith("attn") for m, _ in period_spec(
+                 get_config(n)))]
 
 
 @pytest.mark.parametrize("name", DENSE)
@@ -86,7 +100,7 @@ def test_config_matches_reference_field_for_field(smoke, name):
         ref.head_dim_, ref.padded_vocab, ref.q_per_kv)
 
 
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", ATTENTION)
 @pytest.mark.parametrize("smoke", [False, True])
 def test_every_registry_config_passes_both_attention_kernels_shape_rules(
         smoke, name):
@@ -114,28 +128,44 @@ def test_every_registry_config_passes_both_attention_kernels_shape_rules(
 
 
 def test_unported_architectures_raise_naming_their_slice():
-    # the dense family resolves (gemma2 since the flash-attention route),
-    # and the moe and hybrid families since their slice
-    assert get_config("gemma2-27b").name == "gemma2-27b"
-    assert period_spec(get_config("gemma2-27b")) == (
-        ("attn_local", "dense"), ("attn", "dense"))
-    assert period_spec(get_config("granite-moe-3b-a800m")) == (
-        ("attn", "moe"),)
-    for name in ("xlstm-350m", "qwen2-vl-7b", "seamless-m4t-large-v2"):
-        with pytest.raises(NotImplementedError, match="slice 5"):
-            get_config(name)
-    # the xLSTM mixers and M-RoPE, on a config the registry does hold
-    xlstm = dataclasses.replace(get_config("transformer-100m"), family="ssm",
-                                block_period=("mlstm", "slstm"))
-    with pytest.raises(NotImplementedError, match="slice 5b"):
-        period_spec(xlstm)
-    vlm = dataclasses.replace(get_config("transformer-100m"), family="vlm",
-                              mrope_sections=(16, 24, 24))
-    with pytest.raises(NotImplementedError, match="slice 5b"):
-        period_spec(vlm)
-    with pytest.raises(NotImplementedError, match="slice 5b"):
-        build_model(xlstm, device="cpu")
-    assert period_spec(get_config("transformer-100m")) == (("attn", "dense"),)
+    """Slice 5b ported the last three families, so no architecture is
+    refused any more: every name in the reference's registry resolves to
+    the port's config with the reference's period spec, and an unknown
+    name raises as in the reference.  What stays refused is what the
+    reference cannot run either: ``use_pallas`` on the vlm and audio
+    families (``ValueError``; on xlstm, which has no attention, it changes
+    nothing), and serving a family without paged decode."""
+    from repro.configs import REGISTRY as JAX_REGISTRY
+    from repro.models import transformer as jt
+    from repro_torch.serve import ServeEngine
+    assert sorted(REGISTRY) == sorted(JAX_REGISTRY)
+    for name in JAX_REGISTRY:
+        assert get_config(name).name == name
+        for port, ref in ((get_config(name), jax_get_config(name)),
+                          (get_config(name).smoke_config(),
+                           jax_get_config(name).smoke_config())):
+            assert period_spec(port) == jt.period_spec(ref), name
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("no-such-arch")
+    for name in ("qwen2-vl-7b", "seamless-m4t-large-v2"):
+        cfg = dataclasses.replace(get_config(name).smoke_config(),
+                                  use_pallas=True)
+        with pytest.raises(ValueError, match="use_pallas"):
+            build_model(cfg, device="cpu")
+        api = build_model(get_config(name).smoke_config(), device="cpu")
+        assert not api.has_paged and api.paged_decode_step is None
+        with pytest.raises(ValueError, match="no paged decode"):
+            ServeEngine(api, api.init(0))
+    cfg = get_config("xlstm-350m").smoke_config()
+    tokens = {"tokens": torch.randint(0, cfg.vocab, (1, 16))}
+    outs = []
+    for use_pallas in (False, True):
+        api = build_model(dataclasses.replace(cfg, use_pallas=use_pallas),
+                          device="cpu")
+        assert api.has_paged
+        with torch.no_grad():
+            outs.append(api.apply(api.init(0), tokens))
+    assert torch.equal(outs[0], outs[1])
 
 
 def test_build_helper_keys_libraries_by_source(tmp_path):

@@ -1,7 +1,8 @@
-"""The port's moe and hybrid families against the JAX reference, on the
-CPU: granite-moe-3b-a800m and qwen3-moe-235b-a22b (moe) and jamba-v0.1-52b
-(hybrid: 7 mamba + 1 attention layers, MoE every 2nd layer, no RoPE), each
-at its smoke config.
+"""The port's moe, hybrid and ssm families against the JAX reference, on
+the CPU: granite-moe-3b-a800m and qwen3-moe-235b-a22b (moe),
+jamba-v0.1-52b (hybrid: 7 mamba + 1 attention layers, MoE every 2nd layer,
+no RoPE) and xlstm-350m (ssm: mLSTM + sLSTM blocks, no attention), each at
+its smoke config.
 
 Both packages run the SAME weights: the reference's ``init_params`` draws
 them and ``params_from_jax`` carries them across.  Tiers:
@@ -18,6 +19,10 @@ them and ``params_from_jax`` carries them across.  Tiers:
     carry bf16 rounding far, so that two sound runs of the reference
     itself, eager and under ``jax.jit``, lie 5.2e-2 apart, and the port
     2.9e-2 from the reference (7.7e-2 from its float32 run);
+  * xlstm's bf16 logits are held to 3.5e-2 in the Frobenius norm: each
+    layer divides by the mLSTM normalizer |q . n|, and the reference's
+    own jitted and eager runs lie 1.28e-2 apart (tests/test_torch_xlstm.py
+    measures the rest); the port lies 2.16e-2 from it, the control 4.67e-2;
   * each bf16 tier rejects the control: the port with every bf16 result
     rounded to one mantissa bit fewer (``CoarseBF16``), measured at 1.35
     x the 2e-2 tier (granite-moe, qwen3-moe) and 7.2e-2 Frobenius
@@ -66,11 +71,13 @@ from repro_torch.models.convert import params_from_jax  # noqa: E402
 from repro_torch.models.transformer import PAGED, period_spec  # noqa: E402
 from repro_torch.serve import ServeEngine  # noqa: E402
 
-ARCHS = ["granite-moe-3b-a800m", "qwen3-moe-235b-a22b", "jamba-v0.1-52b"]
+ARCHS = ["granite-moe-3b-a800m", "qwen3-moe-235b-a22b", "jamba-v0.1-52b",
+         "xlstm-350m"]
 PAGE, MAX_PAGES = 4, 4
 BUF = PAGE * MAX_PAGES
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 HYBRID_BF16_RTOL = 6e-2
+SSM_BF16_RTOL = 3.5e-2
 LOSS_RTOL = {"float32": 1e-5, "bfloat16": 1e-3}
 BF16 = dict(param_dtype="bfloat16", compute_dtype="bfloat16")
 
@@ -96,6 +103,11 @@ def models(request):
 @pytest.fixture(scope="module")
 def jamba():
     return _models("jamba-v0.1-52b")
+
+
+@pytest.fixture(scope="module")
+def xlstm():
+    return _models("xlstm-350m")
 
 
 def _shuffled_table(n_slots, seed=0):
@@ -164,10 +176,13 @@ def _rel(a, b):
 
 def _bf16_excess(family, got, want):
     """How far ``got`` lies from ``want`` in units of the bf16 tier (at
-    most 1 passes): jamba's Frobenius distance over HYBRID_BF16_RTOL, the
-    others' worst |got - want| over 2e-2 (max |want| + |want|)."""
+    most 1 passes): jamba's Frobenius distance over HYBRID_BF16_RTOL,
+    xlstm's over SSM_BF16_RTOL, the others' worst |got - want| over 2e-2
+    (max |want| + |want|)."""
     if family == "hybrid":
         return _rel(got, want) / HYBRID_BF16_RTOL
+    if family == "ssm":
+        return _rel(got, want) / SSM_BF16_RTOL
     tol = TOL["bfloat16"]
     return float(np.max(np.abs(got - want)
                         / (tol * np.max(np.abs(want)) + tol * np.abs(want))))
@@ -299,8 +314,13 @@ def test_paged_decode_step_matches_reference(models):
     got = _recurrent(cache, lambda t: t.numpy())
     assert sorted(got) == sorted(want)
     for k in want:
-        np.testing.assert_allclose(got[k], want[k], atol=1e-5, rtol=1e-5,
-                                   err_msg=k)
+        # the mLSTM memory C sums outer products k v^T (|C| reaches ~21 at
+        # this seed): xlstm's state is held, as logits are, to 1e-5 of its
+        # largest value
+        scale = (float(np.max(np.abs(want[k])))
+                 if api.cfg.family == "ssm" else 1.0)
+        np.testing.assert_allclose(got[k], want[k], atol=1e-5 * scale,
+                                   rtol=1e-5, err_msg=k)
 
 
 def test_paged_decode_bitwise_matches_rotating(models):
@@ -333,7 +353,17 @@ def test_advance_mask_freezes_recurrent_state(jamba):
     """advance=False keeps every recurrent (mamba) leaf of its slot
     bitwise through fused steps; the advancing slot's leaves move and
     match the reference's masked run."""
-    japi, jparams, api, params = jamba
+    _advance_mask_check(jamba)
+
+
+def test_xlstm_advance_mask_freezes_recurrent_state(xlstm):
+    """The same for the mLSTM (C, conv, m, n) and sLSTM (c, h, m, n)
+    leaves."""
+    _advance_mask_check(xlstm)
+
+
+def _advance_mask_check(models):
+    japi, jparams, api, params = models
     vocab, B = api.cfg.vocab, 2
     table = _shuffled_table(B)
     cache = api.init_paged_cache(params, B, 1 + B * MAX_PAGES, PAGE)
@@ -363,7 +393,15 @@ def test_advance_mask_freezes_recurrent_state(jamba):
 
 
 def test_reset_slot_zeroes_the_slot_recurrent_leaves(jamba):
-    _, _, api, params = jamba
+    _reset_slot_check(jamba)
+
+
+def test_xlstm_reset_slot_zeroes_the_slot_recurrent_leaves(xlstm):
+    _reset_slot_check(xlstm)
+
+
+def _reset_slot_check(models):
+    _, _, api, params = models
     vocab, B = api.cfg.vocab, 3
     table = torch.tensor(_shuffled_table(B))
     cache = api.init_paged_cache(params, B, 1 + B * MAX_PAGES, PAGE)
@@ -446,3 +484,72 @@ def test_engine_stall_keeps_recurrent_state_frozen(jamba):
         assert eng.stall_events > 0
         out.append([list(r0.generated), list(r1.generated)])
     assert out[0] == out[1]
+
+
+# -- xlstm behind the engine (tests/test_serve.py's ssm cases) ------------------
+
+def _isolated(api, params, prompt, max_new):
+    eng = ServeEngine(api, params, n_slots=1, page_size=PAGE, max_len=BUF)
+    r = eng.submit(prompt, max_new)
+    eng.run()
+    return list(r.generated)
+
+
+def test_xlstm_engine_midflight_join_matches_isolated(xlstm):
+    """Five requests on two slots join a running batch and recycle slots:
+    each decodes exactly the tokens it gets alone, and the reference's
+    engine's."""
+    japi, jparams, api, params = xlstm
+    jobs = _jobs(api.cfg.vocab, 0)
+    expect = [_isolated(api, params, p, m) for p, m in jobs]
+    eng = ServeEngine(api, params, n_slots=2, page_size=PAGE, max_len=BUF)
+    eng.warmup()
+    reqs = [eng.submit(p, m) for p, m in jobs]
+    eng.run()
+    assert [list(r.generated) for r in reqs] == expect
+    assert eng.alloc.free_pages == eng.n_pages - 1
+    assert all(s.state == "free" for s in eng.slots)
+    jeng = JaxServeEngine(japi, jparams, n_slots=2, page_size=PAGE,
+                          max_len=BUF)
+    jreqs = [jeng.submit(p, m) for p, m in jobs]
+    jeng.run()
+    assert [list(r.generated) for r in jreqs] == expect
+
+
+def test_xlstm_engine_stall_on_page_exhaustion_recovers(xlstm):
+    """A pool too small for both slots stalls one mid-flight; its mLSTM /
+    sLSTM state stays frozen while it waits, so both requests still decode
+    their isolated tokens (the reference's engine's too)."""
+    japi, jparams, api, params = xlstm
+    rng = np.random.default_rng(1)
+    p0, p1 = (rng.integers(1, api.cfg.vocab, n).tolist() for n in (3, 7))
+    expect = [_isolated(api, params, p0, 5), _isolated(api, params, p1, 3)]
+    for Eng, a, p in ((ServeEngine, api, params),
+                      (JaxServeEngine, japi, jparams)):
+        eng = Eng(a, p, n_slots=2, page_size=PAGE, max_len=BUF, n_pages=4)
+        r0, r1 = eng.submit(p0, 5), eng.submit(p1, 3)
+        eng.run()
+        assert eng.stall_events > 0
+        assert [list(r0.generated), list(r1.generated)] == expect
+
+
+def test_xlstm_engine_idle_slot_then_late_join(xlstm):
+    """A FREE slot idling beside a running one accumulates no recurrent
+    state: a request admitted into it later decodes exactly its isolated
+    tokens (the reference's regression for the unmasked paged step)."""
+    _, _, api, params = xlstm
+    rng = np.random.default_rng(7)
+    pa, pb, pc = (rng.integers(1, api.cfg.vocab, n).tolist()
+                  for n in (4, 2, 3))
+    expect = [_isolated(api, params, p, m)
+              for p, m in ((pa, 8), (pb, 2), (pc, 4))]
+    eng = ServeEngine(api, params, n_slots=2, page_size=PAGE, max_len=BUF)
+    eng.warmup()
+    ra, rb = eng.submit(pa, 8), eng.submit(pb, 2)
+    while not rb.done:
+        eng.step()
+    for _ in range(3):
+        eng.step()
+    rc = eng.submit(pc, 4)
+    eng.run()
+    assert [list(r.generated) for r in (ra, rb, rc)] == expect
