@@ -46,12 +46,13 @@ Phases (any failure raises and the script exits non-zero):
      local/global period (2 layers, 2.31 B bf16 parameters, bf16 K/V
      pools): 8 slots, page 16, max_len 640, 16 requests of 32-512 prompt
      and 16-64 new tokens; 2 decode launches per step, the first 3 steps'
-     logits within 2e-2 (relative, Frobenius) of the port on the CPU, and
-     the decode kernel, on the inputs both layers gave it at steps 256,
+     logits within 1e-2 (relative, Frobenius) of the port on the CPU while
+     the control (the CPU steps one mantissa bit below bf16) falls outside
+     it, and the decode kernel, on the inputs both layers gave it at steps 256,
      512 and 768, within the bf16 tier of its plain version;
   3c. granite-20b served as in 3b at full width, depth cut from 52 to 2
      layers (1.67 B bf16 parameters; 48 query heads on one kv head), with
-     the same requests and checks;
+     the same requests and checks (1e-2, against its control);
   4. full-width training: transformer-100m trained with DPSGD by
      ``MultiLearnerTrainer`` (4 learners, random_pair, the
      ``examples/train_100m.py`` recipe: sgd(0.5, momentum 0.9) under a
@@ -138,18 +139,18 @@ Phases (any failure raises and the script exits non-zero):
      ``derived`` line and its gossip launches;
  11. granite-moe-3b-a800m at full width and full depth (32 layers, 40
      experts top-8, 3.37 B bf16 parameters from a seeded torch.Generator)
-     served as phase 3b serves gemma2 (32 decode launches a step; the CPU
+     served as phase 3b serves gemma2 (32 decode launches a step; logits
+     within 2e-2 and the control outside it; the CPU
      steps replay the card's expert choices, and at most a quarter of the
      tokens may have picked another set of experts on the CPU; the error
-     layer by layer, and the control one mantissa bit below bf16, beside
-     the logits' error; the MoE layers' device time a step beside the
+     layer by layer beside the logits' error; the MoE layers' device time a step beside the
      bytes of every expert weight), then ``api.apply`` of
      4,096 tokens through the flash route against the chunked route
      (routing shared; the last 64 positions within 2e-2, Frobenius);
  12. jamba-v0.1-52b at full width, depth cut to one period (8 layers: 7
      mamba, 1 attention without RoPE and with a 4,096 window, 4 MoE
      layers of 16 experts top-2; 13.3 B bf16 parameters), served the same
-     way (1 decode launch a step), plus on the served cache: a step with
+     way (1 decode launch a step; 2e-2 against its control), plus on the served cache: a step with
      half the slots not advancing keeps their mamba leaves bitwise and
      ``reset_slot`` zeroes one slot's leaves and no other's; then the
      prefill of 8,192 tokens, where the window binds;
@@ -170,14 +171,37 @@ Phases (any failure raises and the script exits non-zero):
      within 3e-2 of ``apply``'s on the same tokens (teacher forcing); then
      both with depth cut to 2 (2 + 2) layers on the card against the CPU
      on 64 + 64 positions (logits within 1.2e-2; every layer's output).
-     Each bf16 tier of phases 13-14 must also reject its control, the
-     same run one mantissa bit below bf16.
+     Each bf16 tier of phases 3b-3c and 11-14 must also reject its
+     control, the same run one mantissa bit below bf16 (``held``).
+ 15. the elastic fleet (``core/membership.py``, ``core/faults.py``,
+     ``checkpoint/``), through the gossip kernel's active column:
+     (a) transformer-100m at full width and depth with phase 4's recipe
+     (4 learners, DPSGD on random_pair, the flat engine): 2 steps of an
+     all-active ``Membership(4)`` bitwise the fixed fleet's, then
+     ``crash(1)`` and 2 steps (learner 1's parameter and momentum rows
+     bitwise frozen; a twin fleet whose row 1 is NaN keeps rows 0, 2 and 3
+     bitwise equal and finite; ``n_active`` 3), ``admit`` (slot 1 the
+     live rows' mean within 1e-6 relative, its momentum zero),
+     ``rejoin`` and 2 steps (finite, ``n_active`` 4); the whole script
+     with ``kernel_backend="ref"`` within 1e-5; one crash on ``ring``
+     (``reschedule``'s K = 2 tables) against ``ref``; ms a step in each
+     window, one profiled step; (b) that fleet's state after the dead
+     window (parameters, momentum, membership: ~4.3 GB) saved with
+     ``save_checkpoint``, verified, and restored through
+     ``state_from_view`` bitwise past a torn newer copy, each timed;
+     (c) the FC net through ``train_fc(fault_plan=...)`` against
+     ``kernel_backend="ref"`` (1e-5, equal supervisor reports):
+     ``benchmarks/faults.py``'s crash-rejoin + straggler plan for DPSGD
+     and AD-PSGD, ``FaultPlan.random(0, 120, 8)``, a sticky hang evicted
+     after its retries, and one crash on every deterministic topology;
+     (d) the Fig. 3 twin at its full settings, held to what the
+     reference's run shows.
 Each path runs with every kernel's launch count set to 0 just before it
 and read just after.  The last lines are the serve (100m, gemma2,
 granite), train (with the bridge), probe, FC, Table-1, gemma2,
 flash-training, pytree-engine, paper-experiment, granite-moe, jamba,
-xlstm, qwen2-vl and seamless numbers, the card, the kernels record and
-``{"ok": true, "device": {...}}``.
+xlstm, qwen2-vl, seamless and elastic numbers, the card, the kernels
+record and ``{"ok": true, "device": {...}}``.
 Without CUDA the script exits 1 before printing any result.
 """
 from __future__ import annotations
@@ -293,13 +317,19 @@ GEMMA_LAST = 64             # prefill positions compared with the chunked route
 GEMMA_CHUNK = 512           # the chunked route's block at S = 4,608 (9 x 512)
 # the flash and chunked routes round the attention output to bf16 from
 # float32 sums taken in other orders, and two bf16 layers and the tied head
-# carry the difference on: held as ||a - b|| / ||b||.  The same tier holds
-# a served model's card logits to the CPU's; there the difference grows
-# with depth as sqrt(layers) (granite-moe: 1.3e-3 after one layer, 8.6e-3
-# after 8, 1.67e-2 after all 32, logits 1.76e-2) and the control, the CPU
-# steps one mantissa bit below bf16, lands at 6.6e-2 (granite-moe, 32
-# layers) and 2.9e-2 (jamba, 8) on an H100
+# carry the difference on: held as ||a - b|| / ||b||
 GEMMA_BF16_RTOL = 2e-2
+# a served bf16 model's card logits against the CPU's (Frobenius, the
+# worst of CPU_STEPS steps), each tier held against its control, the CPU
+# steps one mantissa bit below bf16 (``held``: the control's best step must
+# fall outside it).  The difference grows with depth as sqrt(layers)
+# (granite-moe: 1.3e-3 after one layer, 8.6e-3 after 8, 1.67e-2 after all
+# 32).  On an H100 (run 18c): gemma2 (2 layers) 4.5-5.3e-3, control
+# 2.09e-2; granite-20b (2) 3.9-4.7e-3, control 1.50e-2; granite-moe (32)
+# 1.64-1.76e-2, control 6.62e-2; jamba (8) 1.04-1.21e-2, control 2.92e-2.
+# 2e-2 let a 2-layer model's control pass, so those hold 1e-2
+SERVE_CUT_RTOL = {"gemma2-27b": 1e-2, "granite-20b": 1e-2,
+                  "granite-moe-3b-a800m": 2e-2, "jamba-v0.1-52b": 2e-2}
 GEMMA_LOSS_RTOL = 1e-3
 # gemma2-27b's decode shape in phase 2: 8 slots, lengths up to 8,192
 GEMMA_DECODE_LEN = 8192
@@ -386,6 +416,20 @@ ZOO_PROFILED_STEPS = 8
 CUT_LAYERS = 2
 CUT_INPUT = 64              # patches + text tokens, or frames + tokens
 CUT_RTOL = 1.2e-2
+# phase 15: the elastic fleet.  a: transformer-100m at full width with
+# phase 4's recipe, ELASTIC_WINDOW steps healthy, as many with learner
+# ELASTIC_DEAD dead and as many rejoined; the admitted row against the live
+# mean (the same float32 sum over other rows: an f32-ulp tier); b: a
+# checkpoint of that fleet, beside a torn newer copy (its first
+# CKPT_TORN_BYTES); c: the FC net under supervised fault plans at
+# benchmarks/faults.py's settings; d: the Fig. 3 twin
+ELASTIC_WINDOW, ELASTIC_DEAD = 2, 1
+ADMIT_RTOL = 1e-6
+CKPT_TORN_BYTES = 1 << 20
+FAULT_N, FAULT_LR, FAULT_BATCH, FAULT_STEPS = 5, 0.5, 200, 60
+# a sticky hang under the supervisor's defaults (staleness bound 4, grace
+# 2, 2 retries): retried past 8 and 16 silent ticks, evicted past 32
+HANG_EVICTED_AT = 4 * 2 * 2 ** 2
 # jamba's decode shape in phase 2 (H 32 on KV 8, hd 128, window 4,096)
 # and granite-moe's (H 24 on KV 8, hd 64), 8 slots up to 8,192 tokens
 ZOO_DECODE = {"granite_moe": (24, 8, 64, {}),
@@ -897,7 +941,8 @@ def serve_model(cfg, jobs, n_slots, page, max_len, compare, n_prof,
     weights and requests for CPU_STEPS steps on the CPU (plain versions);
     ``compare(card logits, cpu logits)`` returns the step's error and
     raises past its tier.  A bf16 model's CPU steps run once more under
-    ``CoarseBF16``, the control; its error is recorded, not checked.  A MoE
+    ``CoarseBF16``, the control; its error is recorded here and held
+    against the tier by ``cut_serve_phase``.  A MoE
     model's CPU steps replay the card's routing (``SharedRouting``).  Each
     layer's output at the compared steps is kept on both sides, for the
     error's growth with depth.  The decode-attention calls numbered in
@@ -1144,14 +1189,17 @@ def serve_phase(kernels):
                        compare, n_prof=20, kernels=kernels)
 
 
-def cut_serve_phase(name, n_layers, why, kernels, tier=GEMMA_BF16_RTOL):
+def cut_serve_phase(name, n_layers, why, kernels, tier=None):
     """Phases 3b, 3c, 11b, 12b and 13a: ``name`` at full width, depth cut
     to ``n_layers``, served from pools in its own dtype (bf16) with phase
     3b's requests; card logits held to the CPU's in the Frobenius norm
-    within ``tier`` (beside them the control one mantissa bit below bf16),
-    and the decode kernel on the inputs of every attention layer at three
-    steps spread over the run."""
+    within ``tier`` (default ``SERVE_CUT_RTOL[name]``) and the control one
+    mantissa bit below bf16 beyond it (``held``), and the decode kernel on
+    the inputs of every attention layer at three steps spread over the
+    run."""
     from repro_torch.configs import get_config
+
+    tier = SERVE_CUT_RTOL[name] if tier is None else tier
 
     def compare(i, g, c):
         rel = _rel(g, c)
@@ -1176,6 +1224,10 @@ def cut_serve_phase(name, n_layers, why, kernels, tier=GEMMA_BF16_RTOL):
                        "head_dim": cfg.head_dim_}
     record["window"] = cfg.window
     record["logit_tier"] = f"||card - cpu|| / ||cpu|| <= {tier}"
+    record["serve_tier"] = held(
+        f"{name} serve, card against CPU",
+        max(record["cpu_logit_err_per_step"]),
+        min(record["cpu_control_one_bit_below_bf16"]["logit_errs"]), tier)
     return record, launches
 
 
@@ -2978,10 +3030,6 @@ def xlstm_phase(kernels):
 
     record, _ = cut_serve_phase("xlstm-350m", XLSTM_LAYERS, "full depth",
                                 kernels, tier=XLSTM_SERVE_RTOL)
-    errs = record["cpu_logit_err_per_step"]
-    control = record["cpu_control_one_bit_below_bf16"]["logit_errs"]
-    record["serve_tier"] = held("xlstm-350m serve, card against CPU",
-                                max(errs), min(control), XLSTM_SERVE_RTOL)
     torch.cuda.empty_cache()
     api = build_model(get_config("xlstm-350m"))
     params = api.init(SEED)
@@ -3221,6 +3269,382 @@ def audio_phase():
             "cut_against_cpu": cut}
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the elastic fleet
+# ---------------------------------------------------------------------------
+
+def _window(trainer, state, batches, lo, hi):
+    """Steps ``lo`` to ``hi`` of ``batches``; returns (state, metrics, ms
+    a step on the host clock, ending in a sync)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ms = []
+    for i in range(lo, hi):
+        state, m = trainer.train_step(state, batches[i])
+        ms.append(m)
+    torch.cuda.synchronize()
+    return state, ms, 1e3 * (time.perf_counter() - t0) / (hi - lo)
+
+
+def _poisoned_twin(api, tree, trainer, state, dead):
+    """A second fleet holding ``state`` with learner ``dead``'s parameter
+    and momentum rows set to NaN (through ``state_from_view``)."""
+    from repro_torch.tree import tree_map
+
+    def poison(x):
+        if not (isinstance(x, torch.Tensor) and x.is_floating_point()
+                and x.dim() >= 1 and x.shape[0] == TRAIN_LEARNERS):
+            return x
+        y = x.clone()
+        y[dead] = float("nan")
+        return y
+    twin = _train_100m_trainer(api, "auto")
+    twin.init(SEED, tree)
+    view = trainer.state_view(state)
+    return twin, twin.state_from_view(view._replace(
+        params=tree_map(poison, view.params),
+        opt_state=tree_map(poison, view.opt_state)))
+
+
+def elastic_checkpoint(trainer, state):
+    """Phase 15b: the elastic state (its ``state_view``: parameters,
+    momentum, the membership arrays) saved, verified and restored into the
+    trainer through ``state_from_view``, bitwise; a torn copy standing as
+    a newer step is skipped.  Returns (state, record)."""
+    import os
+    import tempfile
+
+    from repro_torch.checkpoint import (latest_step, restore_checkpoint,
+                                        save_checkpoint, verify_checkpoint)
+    from repro_torch.tree import tree_leaves
+
+    view = trainer.state_view(state)
+    saved = [x.clone() for x in tree_leaves(view)
+             if isinstance(x, torch.Tensor)]
+    n_bytes = sum(x.numel() * x.element_size() for x in saved)
+    step = state.step
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        path = save_checkpoint(d, step, view)
+        write_s = time.perf_counter() - t0
+        file_bytes = os.path.getsize(path)
+        t0 = time.perf_counter()
+        ok = verify_checkpoint(d, step)
+        verify_s = time.perf_counter() - t0
+        check(ok, "the elastic checkpoint does not verify")
+        torn = os.path.join(d, f"ckpt_{step + 1}.npz")
+        with open(path, "rb") as src, open(torn, "wb") as dst:
+            dst.write(src.read(CKPT_TORN_BYTES))
+        check(latest_step(d) == step + 1 and not verify_checkpoint(
+            d, step + 1), "the torn copy is not an unverified newer step")
+        t0 = time.perf_counter()
+        back, got_step = restore_checkpoint(d, view)
+        state = trainer.state_from_view(back)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    check(got_step == step, f"restored step {got_step}, not {step}: the "
+          "torn newer file was not skipped")
+    got = [x for x in tree_leaves(trainer.state_view(state))
+           if isinstance(x, torch.Tensor)]
+    check(len(got) == len(saved) and all(
+        a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(got, saved)),
+        "the restored elastic state is not bitwise the saved one")
+    del saved, back, got, view
+    torch.cuda.empty_cache()
+    return state, {"state_bytes": n_bytes, "file_bytes": file_bytes,
+                   "write_s": write_s, "verify_s": verify_s,
+                   "restore_s": restore_s,
+                   "torn_newer_step_skipped": True, "bitwise": True}
+
+
+def elastic_script(api, tree, batches, backend, extras=False):
+    """Phase 15a's script on a fresh fleet of 4: ELASTIC_WINDOW steps
+    healthy, ``crash(ELASTIC_DEAD)``, as many with one dead, ``admit``
+    (consensus) and ``rejoin``, as many again; the dead learner's
+    parameter and momentum rows bitwise frozen while it is dead, the
+    admitted row the live mean.  ``extras`` (the kernel run): a
+    NaN-poisoned twin fleet steps the dead window beside it, and phase
+    15b's checkpoint follows that window.  Returns (trainer, state,
+    record)."""
+    from repro_torch.core import Membership, admit
+
+    W, dead = ELASTIC_WINDOW, ELASTIC_DEAD
+    live = [i for i in range(TRAIN_LEARNERS) if i != dead]
+    tr = _train_100m_trainer(api, backend)
+    mem = Membership(TRAIN_LEARNERS)
+    st = tr.set_membership(tr.init(SEED, tree), mem)
+    rec, n_active = {}, []
+    st, ms, rec["healthy_ms_per_step"] = _window(tr, st, batches, 0, W)
+    rec["healthy_params"] = st.params.clone()
+    n_active.append(float(ms[-1].n_active))
+
+    mem.crash(dead)
+    st = tr.set_membership(st, mem)
+    mu = tr._fused.read_mu(st.opt_state)
+    frozen = (st.params[dead].clone(), mu[dead].clone())
+    if extras:
+        twin, tw = _poisoned_twin(api, tree, tr, st, dead)
+        poisoned = tw.params[dead].view(torch.int32).clone()
+        check(bool(torch.isnan(tw.params[dead]).any()), "no NaN in the "
+              "twin's dead row")
+    st, ms, rec["one_dead_ms_per_step"] = _window(tr, st, batches, W, 2 * W)
+    mu = tr._fused.read_mu(st.opt_state)
+    check(torch.equal(st.params[dead], frozen[0])
+          and torch.equal(mu[dead], frozen[1]),
+          f"{backend}: the dead learner's parameter or momentum row moved")
+    n_active.append(float(ms[-1].n_active))
+    del frozen
+    if extras:
+        tw, tw_ms, _ = _window(twin, tw, batches, W, 2 * W)
+        tw_mu = twin._fused.read_mu(tw.opt_state)
+        check(torch.equal(tw.params[live], st.params[live])
+              and torch.equal(tw_mu[live], mu[live])
+              and bool(torch.isfinite(st.params[live]).all())
+              and [float(m.loss) for m in tw_ms]
+              == [float(m.loss) for m in ms],
+              "a NaN-poisoned dead row changed the live learners")
+        check(torch.equal(tw.params[dead].view(torch.int32), poisoned),
+              "the poisoned row did not stay quarantined bitwise")
+        rec["nan_twin_live_rows_bitwise"] = True
+        del twin, tw, tw_mu, tw_ms, poisoned
+        torch.cuda.empty_cache()
+        st, rec["checkpoint"] = elastic_checkpoint(tr, st)
+
+    st = admit(tr, st, dead, mode="consensus")
+    mean = torch.mean(st.params[live], dim=0)
+    rec["admit_rel_err"] = float((st.params[dead] - mean).abs().max()
+                                 / mean.abs().max())
+    check(rec["admit_rel_err"] <= ADMIT_RTOL,
+          f"{backend}: the admitted row is {rec['admit_rel_err']} from the "
+          "live mean")
+    check(not bool(tr._fused.read_mu(st.opt_state)[dead].any()),
+          "admit kept the joiner's old momentum")
+    del mean
+    mem.rejoin(dead)
+    st = tr.set_membership(st, mem)
+    st, ms, rec["rejoined_ms_per_step"] = _window(tr, st, batches, 2 * W,
+                                                  3 * W)
+    n_active.append(float(ms[-1].n_active))
+    rec["n_active_by_window"] = n_active
+    rec["losses_rejoined"] = [float(m.loss) for m in ms]
+    check(n_active == [4.0, 3.0, 4.0]
+          and all(np.isfinite(rec["losses_rejoined"]))
+          and bool(torch.isfinite(st.params).all()),
+          f"{backend}: n_active {n_active}, losses "
+          f"{rec['losses_rejoined']}")
+    return tr, st, rec
+
+
+def elastic_ring(api, tree, batches):
+    """Phase 15a on ``ring``: one crash before the first step, so the
+    fleet runs ``reschedule``'s K = 2 tables for 3 live learners at full
+    width, ELASTIC_WINDOW steps with the kernel against ``ref``.  Returns
+    (record, gossip launches of the kernel run)."""
+    from repro_torch.core import AlgoConfig, Membership, MultiLearnerTrainer
+    from repro_torch.optim import scale_by_schedule, sgd, warmup_linear_scale
+
+    out = {}
+    for backend in ("auto", "ref"):
+        opt = scale_by_schedule(sgd(TRAIN_LR, momentum=0.9),
+                                warmup_linear_scale(10, 1.0))
+        tr = MultiLearnerTrainer(
+            api.loss_fn, opt,
+            AlgoConfig(algo="dpsgd", topology="ring",
+                       n_learners=TRAIN_LEARNERS),
+            kernel_backend=backend, params_from_tree=api.params_from_tree)
+        mem = Membership(TRAIN_LEARNERS)
+        mem.crash(ELASTIC_DEAD)
+        st = tr.set_membership(tr.init(SEED, tree), mem)
+        K = int(st.members.partners.shape[1])
+        row = st.params[ELASTIC_DEAD].clone()
+        st, ms, step_ms = _window(tr, st, batches, 0, ELASTIC_WINDOW)
+        check(torch.equal(st.params[ELASTIC_DEAD], row)
+              and all(np.isfinite(float(m.loss)) for m in ms),
+              f"ring {backend}: the dead row moved or a loss is not finite")
+        out[backend] = (st.params.clone(), K, step_ms)
+        del tr, st, row
+        torch.cuda.empty_cache()
+    err = float((out["auto"][0] - out["ref"][0]).abs().max())
+    check(out["auto"][1] == 2 and err <= TRAIN_REF_ATOL,
+          f"ring, one dead: K {out['auto'][1]}, kernel against ref {err}")
+    return {"K": out["auto"][1], "ms_per_step": out["auto"][2],
+            "ref_max_abs_diff": err, "steps": ELASTIC_WINDOW}
+
+
+def elastic_train_phase(kernels):
+    """Phase 15a-b (module docstring).  Returns (record, gossip launches
+    of the path)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import ShardedLoader, SyntheticTokenStream
+    from repro_torch.models import build_model
+
+    W = ELASTIC_WINDOW
+    cfg = get_config("transformer-100m")
+    api = build_model(cfg)
+    tree = api.param_tree(api.init(SEED))
+    loader = ShardedLoader(SyntheticTokenStream(vocab=cfg.vocab),
+                           n_learners=TRAIN_LEARNERS,
+                           local_batch=TRAIN_BATCH, extra_args=(TRAIN_SEQ,),
+                           seed=SEED)
+    batches = [loader.batch(i) for i in range(3 * W + 1)]
+
+    # the fixed fleet's first W steps: what the healthy window must equal
+    legacy = _train_100m_trainer(api, "auto")
+    st = legacy.init(SEED, tree)
+    for i in range(W):
+        st, _ = legacy.train_step(st, batches[i])
+    legacy_params = st.params.clone()
+    del legacy, st
+    torch.cuda.empty_cache()
+
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    tr, st, rec = elastic_script(api, tree, batches, "auto", extras=True)
+    check(torch.equal(rec.pop("healthy_params"), legacy_params),
+          "the all-active elastic fleet is not bitwise the fixed fleet")
+    del legacy_params
+    final = st.params.clone()
+    # one more step, profiled: where the rejoined fleet's time goes
+    times, api_calls, wall, host = device_times(
+        lambda: tr.train_step(st, batches[3 * W]))
+    rec["profile_rejoined"] = train_profile(times, api_calls, wall, host, 1)
+    del tr, st
+    torch.cuda.empty_cache()
+    ring = elastic_ring(api, tree, batches)
+    launches = {k.__name__: k.launches for k in kernels}
+    wall_s = time.perf_counter() - t0
+    want = 3 * W + W + 1 + W        # script, twin, profiled step, ring
+    check(launches["gossip_mix_update_flat"] == want
+          and sum(launches.values()) == want,
+          f"elastic training launches {launches}, want {want} of the "
+          "gossip kernel alone")
+
+    _, ref_st, _ = elastic_script(api, tree, batches, "ref")
+    ref_err = float((ref_st.params - final).abs().max())
+    check(ref_err <= TRAIN_REF_ATOL,
+          f"elastic script: kernel and plain differ by {ref_err}")
+    del ref_st, final
+    torch.cuda.empty_cache()
+    rec.update({
+        "model": cfg.name, "learners": TRAIN_LEARNERS, "seq": TRAIN_SEQ,
+        "local_batch": TRAIN_BATCH, "window_steps": W,
+        "dead": ELASTIC_DEAD, "all_active_bitwise_legacy": True,
+        "ref_max_abs_diff_after_script": ref_err, "ring_one_dead": ring,
+        "wall_s_kernel_runs": wall_s, "kernel_launches": launches})
+    return rec, launches["gossip_mix_update_flat"]
+
+
+def _faults_plan(steps):
+    """``benchmarks/faults.py``'s crash-rejoin scenario: learner 1 dies at
+    a third of the run and rejoins (consensus) at two thirds, learner 0 is
+    a 2x straggler throughout."""
+    from repro_torch.core import FaultPlan
+    plan = FaultPlan.crash_rejoin(1, steps // 3, 2 * steps // 3)
+    return FaultPlan(plan.events + FaultPlan.straggler(0, 2).events)
+
+
+def fc_faults_phase(kernels):
+    """Phase 15c: the FC net through ``train_fc(fault_plan=...)``, each run
+    with the kernel and with ``kernel_backend="ref"``: the final stores
+    within TRAIN_REF_ATOL, the supervisors' reports equal, every loss
+    finite.  Returns (record, gossip launches)."""
+    from repro_torch.bench.common import final_loss, train_fc
+    from repro_torch.core import FaultEvent, FaultPlan
+    from repro_torch.core.schedule import DETERMINISTIC_TOPOLOGIES
+
+    S = FAULT_STEPS
+    cases = [  # (name, algo, topology, n, steps, plan, what must happen)
+        ("crash_rejoin_dpsgd", "dpsgd", "random_pair", FAULT_N, S,
+         _faults_plan(S), dict(crashes=[(S // 3, 1)],
+                               rejoins=[(2 * S // 3, 1)])),
+        ("crash_rejoin_adpsgd", "adpsgd", "random_pair", FAULT_N, S,
+         _faults_plan(S), dict(crashes=[(S // 3, 1)],
+                               rejoins=[(2 * S // 3, 1)])),
+        ("chaos_random_0_120_8", "dpsgd", "random_pair", 8, 120,
+         FaultPlan.random(0, 120, 8), {}),
+        ("sticky_hang_evicted", "dpsgd", "random_pair", FAULT_N, S,
+         FaultPlan((FaultEvent(0, "hang", 2, True),)),
+         dict(evictions=[(HANG_EVICTED_AT, 2)]))]
+    cases += [(f"crash_{t}", "dpsgd", t, FAULT_N, S // 2,
+               FaultPlan.crash_rejoin(1, S // 6),
+               dict(crashes=[(S // 6, 1)]))
+              for t in DETERMINISTIC_TOPOLOGIES]
+    out = {}
+    gossip_kernel = {k.__name__: k for k in kernels}["gossip_mix_update_flat"]
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    for name, algo, topology, n, steps, plan, want in cases:
+        kw = dict(n=n, local_batch=FAULT_BATCH, steps=steps,
+                  topology=topology, fault_plan=plan,
+                  algo_kwargs=(dict(max_staleness=4) if algo == "adpsgd"
+                               else None))
+        before = gossip_kernel.launches
+        run = train_fc(algo, FAULT_LR, **kw)
+        gossip = gossip_kernel.launches - before
+        ref = train_fc(algo, FAULT_LR, kernel_backend="ref", **kw)
+        err = float((run["state"].params - ref["state"].params).abs().max())
+        rep, rep_ref = run["supervisor"].report, ref["supervisor"].report
+        report = {f: getattr(rep, f) for f in (
+            "crashes", "rejoins", "retries", "evictions", "dropped_rounds")}
+        check(report == {f: getattr(rep_ref, f) for f in report},
+              f"{name}: the kernel and ref runs' reports differ")
+        check(all(report[f] == v for f, v in want.items()),
+              f"{name}: report {report}, want {want}")
+        check(err <= TRAIN_REF_ATOL and all(np.isfinite(run["losses"])),
+              f"{name}: kernel against ref {err}, or a non-finite loss")
+        check(gossip >= steps, f"{name}: {gossip} gossip launches in "
+              f"{steps} steps")
+        out[name] = {"algo": algo, "topology": topology, "n": n,
+                     "steps": steps, "events": len(plan.events),
+                     "report": report,
+                     "n_active_end": run["supervisor"].membership.n_active,
+                     "final_loss": final_loss(run["losses"]),
+                     "ref_max_abs_diff": err,
+                     "us_per_step": run["us_per_step"],
+                     "gossip_launches": gossip}
+    launches = {k.__name__: k.launches for k in kernels}
+    check(sum(launches.values()) == launches["gossip_mix_update_flat"],
+          f"the FC fault runs launched another path's kernel: {launches}")
+    out["wall_s"] = time.perf_counter() - t0
+    return out, launches["gossip_mix_update_flat"]
+
+
+def fig3_phase(kernels):
+    """Phase 15d: the Fig. 3 twin at its full settings, held to what the
+    reference's run shows (``fig3_straggler.check``).  Returns (record,
+    gossip launches)."""
+    from repro_torch.bench import fig3_straggler as f3
+
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    res = f3.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in kernels}
+    f3.check(res["rows"], res["steps"])
+    want = (1 + len(f3.SLOW_FACTORS)) * f3.STEPS     # one round a step
+    check(launches["gossip_mix_update_flat"] == want
+          and sum(launches.values()) == want,
+          f"fig3 launches {launches}, want {want} gossip launches")
+    derived = f3.derived(res["rows"])
+    print(f"fig3_straggler,{res['wall_us']:.0f},{derived}", flush=True)
+    return {"rows": res["rows"], "columns": f3.COLUMNS, "derived": derived,
+            "wall_s": wall, "kernel_launches": launches}, want
+
+
+def elastic_phase(kernels):
+    """Phase 15: a-d.  Returns (record, gossip launches by path)."""
+    train, train_gossip = elastic_train_phase(kernels)
+    faults, faults_gossip = fc_faults_phase(kernels)
+    fig3, fig3_gossip = fig3_phase(kernels)
+    return {"transformer_100m": train, "fc_faults": faults, "fig3": fig3}, {
+        "transformer_100m_elastic_training": train_gossip,
+        "fc_elastic_faults": faults_gossip, "fig3_straggler": fig3_gossip}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
@@ -3313,6 +3737,9 @@ def main() -> int:
     del xlstm
     print(json.dumps({"vlm_qwen2_vl": vlm_phase()}), flush=True)
     print(json.dumps({"audio_seamless": audio_phase()}), flush=True)
+    torch.cuda.empty_cache()
+    elastic, elastic_gossip = elastic_phase(kernels)
+    print(json.dumps({"elastic": elastic}), flush=True)
     decode_record["launches"] = sum(serve_launches.values())
     decode_record["launches_by_path"] = serve_launches
     flash_record["launches_by_path"].update(zoo_flash)
@@ -3322,7 +3749,7 @@ def main() -> int:
         "transformer_100m_bridge_training": bridge_launches[
             "gossip_mix_update_flat"],
         **pytree_gossip, **paper_gossip,
-        "xlstm_350m_dpsgd_training": xlstm_gossip}
+        "xlstm_350m_dpsgd_training": xlstm_gossip, **elastic_gossip}
     gossip_record["launches"] = sum(
         gossip_record["launches_by_path"].values())
     for record in (dots_record, axpy_record):

@@ -1,6 +1,7 @@
 """The port's paper benchmarks (ROADMAP: port benchmarks live here, not in
 ``benchmarks/``).  ``common.train_fc`` is the twin of
-``benchmarks/common.py::train_fc``; each other module is the twin of the
+``benchmarks/common.py::train_fc`` (``fault_plan`` trains an elastic
+fleet under a ``Supervisor``); each other module is the twin of the
 reference script of its name, with the same columns and the same summary
 row ``name,us_per_call,derived``:
 
@@ -14,6 +15,8 @@ row ``name,us_per_call,derived``:
   * ``theorem1_smoothing`` — Theorem 1's 2G/sigma smoothing bound;
   * ``table5_asr_proxy`` — Table 5's ASR proxy: 100 zipf classes, SSGD
     and DPSGD over an lr scan.
+  * ``fig3_straggler`` — Fig. 3: synchronous DPSGD against AD-PSGD with a
+    straggler injected through ``FaultPlan`` (the elastic fleet).
 
 Each runs on the card unless told otherwise, and takes ``--smoke``:
 

@@ -7,7 +7,7 @@ import time
 
 import torch
 
-from ..core import AlgoConfig, MultiLearnerTrainer
+from ..core import AlgoConfig, Membership, MultiLearnerTrainer, Supervisor
 from ..data import ShardedLoader, TemplateImages
 from ..device import resolve_device
 from ..landscape import AutoLRController, ProbeSchedule, make_trainer_probe
@@ -26,8 +26,8 @@ def train_fc(algo: str, lr: float, *, n: int = 5, local_batch: int = 400,
              kernel_backend: str = "auto"):
     """Train the paper's FC net; returns dict(losses, diags, probes,
     scales, us_per_step, trainer, state, loader, staleness_max,
-    controller); ``scales`` holds the controller's (step, multiplier)
-    pairs.
+    controller, supervisor); ``scales`` holds the controller's (step,
+    multiplier) pairs.
 
     Probes ride the trainer's hook seam: ``diag_every`` runs the paper's
     diagnostics, ``landscape_every`` the curvature probe (``probe_kwargs``
@@ -39,12 +39,10 @@ def train_fc(algo: str, lr: float, *, n: int = 5, local_batch: int = 400,
     unless told otherwise), ``kernel_backend`` the trainer's kernel
     dispatch.  Losses are read from the device once, at the end.
 
-    ``fault_plan`` (elastic membership under a supervisor) arrives with
-    ROADMAP slice 6 and raises."""
-    if fault_plan is not None:
-        raise NotImplementedError(
-            "fault_plan / Supervisor runs arrive with ROADMAP slice 6 "
-            "(elastic membership)")
+    ``fault_plan`` (a ``core.FaultPlan``) trains an elastic fleet under a
+    ``Supervisor`` with the plan: the membership is set before the first
+    step and the supervisor ticks before every step, the warm-up
+    included."""
     dev = resolve_device(device)
     ds = dataset or TemplateImages()
     loader = ShardedLoader(ds, n_learners=n, local_batch=local_batch,
@@ -89,8 +87,14 @@ def train_fc(algo: str, lr: float, *, n: int = 5, local_batch: int = 400,
                      probe_fn, on_result=on_probe)
 
     st = tr.init(seed, params)
+    supervisor = None
+    if fault_plan is not None:
+        supervisor = Supervisor(tr, Membership(n), fault_plan)
+        st = tr.set_membership(st, supervisor.membership)
     if tr.probes_due(0):   # let a controller engage before the first step
         st, _ = tr.run_probes(st, loader.batch(PROBE_BATCH_OFFSET), step=0)
+    if supervisor is not None:
+        st = supervisor.tick(st, 0)
     st, m = tr.train_step(st, loader.batch(0))    # warm-up, not timed
     losses, stale = [], []
     _sync(dev)
@@ -102,6 +106,8 @@ def train_fc(algo: str, lr: float, *, n: int = 5, local_batch: int = 400,
                                   step=i)
             _sync(dev)
             t0 += time.perf_counter() - t_probe   # keep step timing clean
+        if supervisor is not None:
+            st = supervisor.tick(st, i)
         st, m = tr.train_step(st, loader.batch(i))
         losses.append(m.loss)
         stale.append(m.staleness_max)
@@ -111,7 +117,7 @@ def train_fc(algo: str, lr: float, *, n: int = 5, local_batch: int = 400,
     return {"losses": losses, "diags": diags, "probes": probes,
             "scales": scales, "us_per_step": dt * 1e6, "trainer": tr,
             "state": st, "loader": loader, "staleness_max": stale_max,
-            "controller": controller}
+            "controller": controller, "supervisor": supervisor}
 
 
 def _sync(dev: torch.device) -> None:

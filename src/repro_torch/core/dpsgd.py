@@ -13,8 +13,9 @@ SSGD (Eq. 1): g_j = grad L^{mu_j}(w_a); w_a <- w_a - alpha * mean_j g_j.
 SSGD* takes SSGD's gradients at w_a + delta_j, delta_j ~ N(0, sigma0^2 I)
 (``perturb_weights``).  AD-PSGD averages with a partner's possibly stale
 published weights (see ``core/trainer.py``).  The collective (multi-GPU)
-gossip helpers arrive with the launch slice (ROADMAP slice 7) and
-``member_active_mask`` with elastic membership (slice 6).
+gossip helpers arrive with the launch slice (ROADMAP slice 7).
+``member_active_mask`` is the elastic fleet's generalization of the
+injected straggler (``core/membership.py``).
 """
 from __future__ import annotations
 
@@ -26,7 +27,8 @@ from ..tree import tree_leaves, tree_map
 from .util import learner_mean, tree_add, tree_gaussian_like
 
 __all__ = ["AlgoConfig", "mix_einsum", "mix_pair_gather",
-           "straggler_active_mask", "perturb_weights", "mean_broadcast"]
+           "straggler_active_mask", "member_active_mask", "perturb_weights",
+           "mean_broadcast"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,6 +112,23 @@ def straggler_active_mask(step: int, n: int, slow_learner: int,
         return torch.ones((n,), dtype=torch.bool, device=device)
     idx = torch.arange(n, device=device)
     return (idx != slow_learner) | (step % slow_factor == 0)
+
+
+def member_active_mask(step: int, active: torch.Tensor,
+                       slow_every: torch.Tensor) -> torch.Tensor:
+    """(n,) bool: which fleet members complete a local step this tick.
+
+    The elastic generalization of ``straggler_active_mask``: every learner
+    carries a ``slow_every`` tick divisor (1 = full speed, k = one
+    completed step per k ticks, ``membership.HUNG`` = wedged) and a
+    liveness bit.  Dead learners are never active; ``slow_every[i] ==
+    slow_factor`` reproduces the injected straggler's law bitwise
+    (``step % k == 0``).  ``step`` is a host int and ``active`` /
+    ``slow_every`` device tensors, so the mask is built where they live
+    with no host sync."""
+    se = torch.clamp(slow_every.to(torch.int32), min=1)
+    gate = (se <= 1) | (torch.remainder(step, se) == 0)
+    return active.to(torch.bool) & gate
 
 
 def perturb_weights(gen: torch.Generator, params, std: float):

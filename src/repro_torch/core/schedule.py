@@ -18,7 +18,8 @@ Randomized schedules (``random_pair``, ``random_matching``) draw each
 round's matching from a ``torch.Generator`` on the caller's device: the
 reference's law, not its ``jax.random`` draws.  ``spectral_gap_profile``
 measures a schedule's consensus contraction against its spectral-gap
-bound.  ``reschedule`` (elastic membership) arrives with ROADMAP slice 6.
+bound.  ``reschedule`` recompiles a topology onto an elastic fleet's live
+slots (``core/membership.py``).
 """
 from __future__ import annotations
 
@@ -31,8 +32,9 @@ import torch
 
 from . import topology as topo
 
-__all__ = ["GossipSchedule", "make_schedule", "spectral_gap_profile",
-           "SCHEDULED_TOPOLOGIES", "DETERMINISTIC_TOPOLOGIES"]
+__all__ = ["GossipSchedule", "make_schedule", "reschedule",
+           "spectral_gap_profile", "SCHEDULED_TOPOLOGIES",
+           "DETERMINISTIC_TOPOLOGIES"]
 
 SCHEDULED_TOPOLOGIES = ("full", "ring", "torus", "random_pair",
                         "hierarchical", "exp", "one_peer_exp",
@@ -55,6 +57,10 @@ class GossipSchedule:
     partners: np.ndarray       # (period, K, n) int32
     coefs: np.ndarray          # (period, n, K+1) f32
     step_mats: Optional[np.ndarray]  # (variants, n, n) f32; None if randomized
+    # elastic membership (``reschedule``): ``n`` is the fleet capacity and
+    # ``active`` marks the live slots; inactive rows and columns are the
+    # identity in every realized matrix.  None: a fixed-n schedule
+    active: Optional[np.ndarray] = None
     # device copies of the tables, made once per device on first use
     _on_device: Dict[str, list] = dataclasses.field(
         default_factory=dict, repr=False)
@@ -80,12 +86,18 @@ class GossipSchedule:
         (n, K+1) f32), on ``gen.device`` for randomized schedules (the
         matching is drawn from ``gen``) and on ``device`` otherwise."""
         if self.randomized:
-            partner = topo.pair_partners(gen, self.n)
+            partner = self._draw(gen)
             solo = partner == torch.arange(self.n, device=partner.device)
             self_c = torch.where(solo, 1.0, 0.5).to(torch.float32)
             return (partner[None].to(torch.int32),
                     torch.stack([self_c, 1.0 - self_c], dim=1))
         return self._tables(device)[r % self.period]
+
+    def _draw(self, gen: torch.Generator) -> torch.Tensor:
+        """One matching: over every slot, or over the live ones only."""
+        if self.active is None:
+            return topo.pair_partners(gen, self.n)
+        return topo.masked_pair_partners(gen, self.active)
 
     def step_rounds(self, gen: Optional[torch.Generator], step: int,
                     device=None) -> List[Tuple[torch.Tensor, torch.Tensor]]:
@@ -107,9 +119,9 @@ class GossipSchedule:
         """The (n, n) mixing matrix one step realizes (its rounds'
         product): what the unfused path multiplies by."""
         if self.randomized:
-            m = topo.random_pair_matrix(gen, self.n)
+            m = topo.partner_matrix(self._draw(gen), self.n)
             for _ in range(1, self.rounds_per_step):
-                m = topo.random_pair_matrix(gen, self.n) @ m
+                m = topo.partner_matrix(self._draw(gen), self.n) @ m
             return m
         v = step % self.step_mats.shape[0]
         return torch.as_tensor(self.step_mats[v], device=device)
@@ -307,6 +319,79 @@ def make_schedule(topology: str, n: int, *,
 
 
 # ---------------------------------------------------------------------------
+# elastic membership: recompile a topology onto the live active set
+# ---------------------------------------------------------------------------
+
+def _identity_tables(cap: int):
+    """One round of self-loops: partners (1, 1, cap), coefs [1, 0]."""
+    partners = np.tile(np.arange(cap, dtype=np.int32), (1, 1, 1))
+    coefs = np.concatenate([np.ones((1, cap, 1), np.float32),
+                            np.zeros((1, cap, 1), np.float32)], axis=-1)
+    return partners, coefs
+
+
+def _identity_schedule(topology: str, cap: int,
+                       active: np.ndarray) -> GossipSchedule:
+    partners, coefs = _identity_tables(cap)
+    return GossipSchedule(
+        name=topology, n=cap, K=1, period=1, rounds_per_step=1,
+        randomized=False, symmetric=True, perm_rounds=True,
+        partners=partners, coefs=coefs,
+        step_mats=np.eye(cap, dtype=np.float32)[None], active=active)
+
+
+def reschedule(topology: str, active, *, rounds: int = 1) -> GossipSchedule:
+    """Recompile ``topology`` for the live set of a capacity fleet.
+
+    ``active``: (capacity,) bool.  Returns a capacity-sized schedule whose
+    realized matrices are the identity on the inactive slots and exactly
+    ``make_schedule(topology, n_active)``'s on the active ones (active
+    rank i plays slot ``flatnonzero(active)[i]``), so every matrix stays
+    doubly stochastic and restricts to a conformant one over the live
+    learners.  No live row's neighbour slot, padding included, points at a
+    dead slot: a self-loop pad maps to the row's own live slot.
+
+    Randomized topologies return a masked-draw schedule (the matching is
+    drawn over the active set at each step).  A fleet with <= 1 live
+    learner, or ``solo``, compiles to explicit identity tables.
+    """
+    active = np.ascontiguousarray(np.asarray(active, dtype=bool))
+    cap = int(active.shape[0])
+    idx = np.flatnonzero(active)
+    m = int(idx.size)
+    topology = topology.lower()
+    if topology not in SCHEDULED_TOPOLOGIES + ("solo",):
+        raise ValueError(f"unknown topology: {topology}")
+    if topology in ("random_pair", "random_matching") and m > 1:
+        r = 1 if topology == "random_pair" else max(1, rounds)
+        partners, coefs = _identity_tables(cap)
+        return GossipSchedule(
+            name=topology, n=cap, K=1, period=1, rounds_per_step=r,
+            randomized=True, symmetric=r == 1, perm_rounds=True,
+            partners=partners, coefs=coefs, step_mats=None, active=active)
+    inner = (None if (topology == "solo" or m <= 1)
+             else make_schedule(topology, m, rounds=rounds))
+    if inner is None:
+        return _identity_schedule(topology, cap, active)
+    P, K = inner.period, inner.K
+    partners = np.tile(np.arange(cap, dtype=np.int32), (P, K, 1))
+    coefs = np.zeros((P, cap, K + 1), np.float32)
+    coefs[:, :, 0] = 1.0                        # inactive rows: self-loops
+    partners[:, :, idx] = idx[inner.partners]   # active rank -> slot
+    coefs[:, idx, :] = inner.coefs
+    step_mats = None
+    if inner.step_mats is not None:
+        V = inner.step_mats.shape[0]
+        step_mats = np.tile(np.eye(cap, dtype=np.float32), (V, 1, 1))
+        step_mats[np.ix_(np.arange(V), idx, idx)] = inner.step_mats
+    return GossipSchedule(
+        name=inner.name, n=cap, K=K, period=P,
+        rounds_per_step=inner.rounds_per_step, randomized=False,
+        symmetric=inner.symmetric, perm_rounds=inner.perm_rounds,
+        partners=partners, coefs=coefs, step_mats=step_mats, active=active)
+
+
+# ---------------------------------------------------------------------------
 # analyzer: measured consensus contraction vs the spectral-gap bound
 # ---------------------------------------------------------------------------
 
@@ -330,7 +415,8 @@ def spectral_gap_profile(schedule: Optional[GossipSchedule], *,
     and ``measured_rate <= bound_rate``, ``measured_gap = 1 -
     measured_rate``, ``gap_bound = 1 - bound_rate``.
 
-    ``schedule=None`` (solo) profiles the identity: no contraction.
+    ``schedule=None`` (solo) profiles the identity: no contraction; a
+    ``reschedule`` schedule is profiled over its active set.
     ``window=0`` takes max(8, twice the cycle of step matrices).
     Randomized schedules draw their matchings from ``gen`` (default: a CPU
     generator seeded with ``seed``).  The tables are float32, so both
@@ -339,7 +425,15 @@ def spectral_gap_profile(schedule: Optional[GossipSchedule], *,
     """
     if schedule is None:
         return _no_contraction(window)
-    n = schedule.n
+    # an elastic schedule contracts over its active set: the inactive rows
+    # are the identity by construction, so every step matrix is restricted
+    # to the live submatrix, which is exact
+    sub = None
+    if schedule.active is not None:
+        sub = np.flatnonzero(np.asarray(schedule.active, bool))
+        if sub.size <= 1:
+            return _no_contraction(window)
+    n = schedule.n if sub is None else int(sub.size)
     if not window:
         window = max(8, 2 * max(
             1, schedule.period // math.gcd(schedule.period,
@@ -351,6 +445,8 @@ def spectral_gap_profile(schedule: Optional[GossipSchedule], *,
     etas = []
     for t in range(window):
         m = schedule.step_matrix(gen, t).cpu().numpy().astype(np.float64)
+        if sub is not None:
+            m = m[np.ix_(sub, sub)]
         phi = m @ phi
         etas.append(float(np.linalg.norm(m - J, 2)))
     measured_rate = max(float(np.linalg.norm(phi - J, 2)),

@@ -10,8 +10,8 @@ iteration: a random perfect matching.
 Matchings are drawn from a ``torch.Generator`` on its own device, so a
 trainer on the card draws them there with no host round trip.  They follow
 the reference's law (a uniform random permutation, paired consecutively),
-not its ``jax.random`` draws.  ``masked_pair_partners`` (elastic
-membership) arrives with ROADMAP slice 6.
+not its ``jax.random`` draws.  ``masked_pair_partners`` draws the elastic
+fleet's matching over its live slots only (``core/membership.py``).
 """
 from __future__ import annotations
 
@@ -19,8 +19,8 @@ import numpy as np
 import torch
 
 __all__ = ["full_matrix", "ring_matrix", "torus_matrix", "pair_partners",
-           "partner_matrix", "random_pair_matrix", "hierarchical_matrix",
-           "exponential_matrix", "is_doubly_stochastic", "spectral_gap"]
+           "masked_pair_partners", "partner_matrix", "random_pair_matrix",
+           "hierarchical_matrix", "exponential_matrix", "is_doubly_stochastic", "spectral_gap"]
 
 
 def _t(m, dtype) -> torch.Tensor:
@@ -71,6 +71,46 @@ def pair_partners(gen: torch.Generator, n: int) -> torch.Tensor:
     partner = torch.arange(n, device=gen.device)
     partner[a] = b
     partner[b] = a
+    return partner
+
+
+def masked_pair_partners(gen: torch.Generator, active,
+                         drop=None) -> torch.Tensor:
+    """Random perfect matching over the ACTIVE slots of a capacity-n fleet
+    (int64, on ``gen.device``).
+
+    Inactive slots are always solo (partner[i] == i) and no active slot is
+    ever matched to an inactive one, so a dead learner's row carries zero
+    mixing weight with no table recompile.  The draw consumes ``gen``
+    exactly as ``pair_partners`` does (one ``randperm(n)``): the active
+    slots are paired consecutively along that permutation with the
+    inactive ones spliced out, so an all-active fleet reproduces the
+    legacy matching bitwise.  ``drop`` (a 0-dim bool tensor) forces
+    everyone solo: a dropped gossip round.  The live count stays a
+    device tensor (no host sync); an odd count leaves the last-ranked
+    live slot solo."""
+    dev = gen.device
+    active = torch.as_tensor(active, dtype=torch.bool, device=dev)
+    n = active.shape[0]
+    idx = torch.arange(n, device=dev)
+    perm = torch.randperm(n, generator=gen, device=dev)
+    act_in_order = active[perm]
+    # rank of each permutation position among the active ones so far
+    rank = torch.cumsum(act_in_order.to(torch.int64), 0) - 1
+    m = torch.sum(active)
+    # slot_of_rank[r] = the active slot ranked r; the inactive positions
+    # scatter into a spare (n + 1)-th entry that is sliced off
+    slot_of_rank = torch.zeros((n + 1,), dtype=perm.dtype, device=dev)
+    slot_of_rank[torch.where(act_in_order, rank, n)] = perm
+    slot_of_rank = slot_of_rank[:n]
+    rank_of_slot = torch.zeros((n,), dtype=rank.dtype, device=dev)
+    rank_of_slot[perm] = rank
+    mate_rank = rank_of_slot ^ 1
+    paired = active & (mate_rank < m)
+    partner = torch.where(paired, slot_of_rank[mate_rank % n], idx)
+    if drop is not None:
+        partner = torch.where(torch.as_tensor(drop, device=dev), idx,
+                              partner)
     return partner
 
 

@@ -50,7 +50,16 @@ optional ``on_result`` receives the real state, so a controller
 writes the live optimizer state.  ``diagnostics`` measures the paper's
 alpha_e, sigma_w^2 and Delta split (``core/diagnostics.py``).
 
-Elastic membership (ROADMAP slice 6) raises ``NotImplementedError``.
+Elastic membership (DESIGN §15, ``core/membership.py``): ``set_membership``
+puts a ``MemberState`` into the state; its tables and masks are device
+tensors built there.  Dead learners' rows get the kernel's ``active`` column
+0 (selected, never blended: their parameter, momentum and buffer rows stay
+bitwise put in whichever store the next step reads), matchings are drawn
+over the live slots only (``topology.masked_pair_partners``) and
+deterministic topologies run their ``reschedule`` tables, whose live rows
+never point at a dead slot.  AD-PSGD gates each learner by its
+``slow_every`` divisor.  The metrics average over the live learners only.
+With everyone live, an elastic state trains bitwise as a fixed fleet does.
 
 ``train_step`` makes no host sync: gossip tables and SSGD*'s noise are
 drawn on the device, masks are built there from host integers, and the
@@ -73,11 +82,13 @@ from ..optim import Optimizer, apply_updates
 from ..tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 from . import schedule as gsched
 from .diagnostics import DiagStats, compute_diagnostics
-from .dpsgd import (AlgoConfig, mean_broadcast, mix_einsum,
-                    mix_pair_gather, straggler_active_mask)
+from . import topology as topo
+from .dpsgd import (AlgoConfig, mean_broadcast, member_active_mask,
+                    mix_einsum, mix_pair_gather, straggler_active_mask)
 from .flatstate import LANE, FlatMeta, flat_meta
-from .util import (learner_mean, learner_var, tree_gaussian_like,
-                   tree_norm_sq)
+from .membership import Membership, MemberState
+from .util import (learner_mean, learner_var, masked_learner_mean,
+                   masked_learner_var, tree_gaussian_like, tree_norm_sq)
 
 # the SSGD* noise stream's seeds: the matchings' seeds XOR this, so the
 # two streams differ at every (seed, step)
@@ -94,17 +105,18 @@ class TrainState(NamedTuple):
     buffer: Any = None    # last-published weights, laid out like params
     age: Any = None       # (n,) int32 ticks since each learner published
     clock: Any = None     # (n,) int32 completed local steps per learner
-    members: Any = None   # elastic membership: ROADMAP slice 6
+    # -- elastic membership (None = a fixed fleet; DESIGN §15) -------------
+    members: Any = None   # MemberState: masks and tables as device tensors
 
 
 class StepMetrics(NamedTuple):
-    loss: torch.Tensor          # mean per-learner minibatch loss
-    grad_norm: torch.Tensor     # ||g_a|| (consensus gradient)
-    sigma_w_sq: torch.Tensor    # weight variance across learners
+    loss: torch.Tensor          # mean per-learner minibatch loss (live only)
+    grad_norm: torch.Tensor     # ||g_a|| (consensus gradient, live only)
+    sigma_w_sq: torch.Tensor    # weight variance across (live) learners
     staleness_mean: torch.Tensor  # mean buffer age seen at gossip (adpsgd)
     staleness_max: torch.Tensor   # max buffer age seen at gossip (adpsgd)
     n_active: torch.Tensor      # live learner count this tick
-    grad_sq_mean: torch.Tensor  # mean_i ||g_i||^2
+    grad_sq_mean: torch.Tensor  # mean_i ||g_i||^2 over live learners
 
 
 class _Bound(NamedTuple):
@@ -488,6 +500,124 @@ class MultiLearnerTrainer:
                  torch.as_tensor(c, dtype=torch.float32, device=self.device))
                 for p, c in rounds]
 
+    # -- elastic membership (DESIGN §15) --------------------------------------
+    def membership_state(self, membership: Membership, *,
+                         drop_round: bool = False) -> MemberState:
+        """The device bundle of ``membership`` for this trainer's topology:
+        a deterministic DPSGD schedule embeds its ``reschedule`` tables;
+        randomized matchings and AD-PSGD draw from the mask at each
+        step."""
+        topo_name = None
+        if (self.algo.algo == "dpsgd" and self._schedule is not None
+                and not self._schedule.randomized):
+            topo_name = self.algo.topology
+        return membership.member_state(
+            topo_name, gossip_rounds=self.algo.gossip_rounds,
+            drop_round=drop_round, device=self.device)
+
+    def set_membership(self, state: TrainState, membership: Membership, *,
+                       drop_round: bool = False) -> TrainState:
+        """``state`` with ``membership`` swapped in (its tables and masks
+        built on the device here, once, never in the step).  Raises
+        ``ValueError`` for a centralized algorithm, for an optimizer that
+        corrects for a static mixing matrix (decentlam) and for a fleet of
+        another capacity."""
+        if self.algo.algo not in ("dpsgd", "adpsgd"):
+            raise ValueError("elastic membership rides the decentralized "
+                             f"paths, not {self.algo.algo}")
+        if getattr(self.optimizer, "wants_mixed", False):
+            raise ValueError(
+                "a mixing-matrix-corrected optimizer (decentlam) assumes a "
+                "static fleet: its drift term diverges when membership "
+                "changes the realized matrix; use plain (momentum-)SGD")
+        if membership.capacity != self.algo.n_learners:
+            raise ValueError(
+                f"membership capacity {membership.capacity} != "
+                f"n_learners {self.algo.n_learners}")
+        return state._replace(members=self.membership_state(
+            membership, drop_round=drop_round))
+
+    def _member_rounds(self, mem: MemberState, state: TrainState):
+        """The elastic form of ``_rounds``: this step's per-round
+        (partners (K, n) int32, coefs (n, K + 1) float32) tables from the
+        membership's device tensors.  Randomized matchings are drawn over
+        the live slots from the step's generator (consumed as the fixed
+        fleet's draw consumes it); deterministic tables come from the
+        ``reschedule`` operand, ``one_peer_exp`` one round of its cycle a
+        step.  A dropped round gets identity coefficients."""
+        if self.rounds_per_step == 0:
+            return []
+        n = self.algo.n_learners
+        dev = self.device
+        if mem.partners is None:            # only-active matchings
+            rps = (max(1, self.algo.gossip_rounds)
+                   if self.algo.topology == "random_matching" else 1)
+            self._gen.manual_seed(_step_seed(state.seed, state.step))
+            idx = torch.arange(n, device=dev)
+            out = []
+            for _ in range(rps):
+                partner = topo.masked_pair_partners(self._gen, mem.active,
+                                                    drop=mem.drop_round)
+                self_c = torch.where(partner == idx, 1.0, 0.5).to(
+                    torch.float32)
+                out.append((partner[None].to(torch.int32),
+                             torch.stack([self_c, 1.0 - self_c], dim=1)))
+            return out
+        period, K = mem.partners.shape[0], mem.partners.shape[1]
+        # the rounds a step runs follow from the operand's shape: the whole
+        # cycle, or one round of it for one_peer_exp
+        rps = 1 if self.algo.topology == "one_peer_exp" else period
+        id_c = torch.cat([torch.ones((n, 1), device=dev),
+                          torch.zeros((n, K), device=dev)], dim=1)
+        out = []
+        for j in range(rps):
+            r = j % period if rps % period == 0 else \
+                (state.step * rps + j) % period
+            out.append((mem.partners[r],
+                        torch.where(mem.drop_round, id_c, mem.coefs[r])))
+        return out
+
+    def _mix_member_rounds(self, stacked, rounds, active):
+        """Unfused elastic mixing of a stacked tree or a flat store.
+        Matchings keep the pair-gather form (solo rows, every inactive one
+        among them, bitwise untouched); deterministic rounds realize each
+        round's matrix, with the quarantined rows zeroed before the einsum
+        and restored after, so a non-finite parked row cannot bleed through
+        its 0-weight column (0 * NaN is NaN in a product, not in a
+        where)."""
+        out = stacked
+        randomized = self._schedule is not None and self._schedule.randomized
+        for partners, coefs in rounds:
+            if randomized:      # drop and solo already in the partners
+                out = mix_pair_gather(out, partners[0])
+                continue
+            n = partners.shape[1]
+            ar = torch.arange(n, device=partners.device)
+            m = torch.zeros((n, n), dtype=torch.float32,
+                            device=partners.device)
+            m.index_put_((ar, ar), coefs[:, 0], accumulate=True)
+            for k in range(partners.shape[0]):
+                m.index_put_((ar, partners[k].long()), coefs[:, 1 + k],
+                             accumulate=True)
+            safe = _select(active, out, tree_map(torch.zeros_like, out))
+            out = _select(active, mix_einsum(safe, m), out)
+        return out
+
+    def _member_update(self, w, g, opt_state, rounds, active):
+        """The unfused elastic DPSGD update of either engine: (new
+        weights, new optimizer state), the dead learners' rows of both
+        kept bitwise."""
+        if self.algo.gossip_order == "mix_then_descend":
+            mixed = self._mix_member_rounds(w, rounds, active)
+            updates, opt_new = self._opt_update(g, opt_state, w, mixed)
+            stepped = apply_updates(mixed, updates)
+        else:                                           # descend_then_mix
+            updates, opt_new = self._opt_update(g, opt_state, w, w)
+            stepped = self._mix_member_rounds(apply_updates(w, updates),
+                                              rounds, active)
+        return (_select(active, stepped, w),
+                _select(active, opt_new, opt_state))
+
     def _noise(self, state: TrainState, like, noise):
         """SSGD*'s weight noise for this step, laid out like ``like``
         (stacked): ``noise`` when given (a stacked tree, e.g. the
@@ -498,6 +628,23 @@ class MultiLearnerTrainer:
                                               dtype=x.dtype), like, noise)
         self._noise_gen.manual_seed(_noise_seed(state.seed, state.step))
         return tree_gaussian_like(self._noise_gen, like, self.algo.noise_std)
+
+    def _async_masks(self, state: TrainState):
+        """AD-PSGD's (active, fresh, stale_seen) for this tick: who
+        completes a local step (the injected straggler's law, or each
+        member's ``slow_every`` divisor and liveness), who is forced to
+        publish at the staleness bound, and the buffer ages gossip reads.
+        A dead learner neither steps nor publishes its quarantined rows."""
+        algo, mem, age = self.algo, state.members, state.age
+        if mem is None:
+            active = straggler_active_mask(
+                state.step, algo.n_learners, algo.slow_learner,
+                algo.slow_factor, device=self.device)
+            fresh = age >= algo.max_staleness
+            return active, fresh, torch.where(fresh, 0, age)
+        active = member_active_mask(state.step, mem.active, mem.slow_every)
+        fresh = (age >= algo.max_staleness) & mem.active
+        return active, fresh, torch.where(fresh | ~mem.active, 0, age)
 
     def _grads(self, bound, batch) -> torch.Tensor:
         """Forward + backward per learner, one at a time; gradients land in
@@ -529,12 +676,14 @@ class MultiLearnerTrainer:
         tables that replace the schedule's draw for this step; ``noise``:
         optional SSGD* weight noise (a stacked tree of tensors) that
         replaces the draw (the parity tests inject the reference's).
-        Returns (new state, StepMetrics)."""
-        if state.members is not None:
-            raise NotImplementedError(
-                "elastic membership arrives with ROADMAP slice 6")
+        Returns (new state, StepMetrics).  A state with ``members`` trains
+        the elastic fleet; injected ``rounds`` then replace its draw (or
+        its tables) too."""
         self._bound(state.params)       # raises on a state not its own
-        rounds = self._rounds(state, rounds)
+        if rounds is None and state.members is not None:
+            rounds = self._member_rounds(state.members, state)
+        else:
+            rounds = self._rounds(state, rounds)
         if self._flat:
             return self._train_step_flat(state, stacked_batch, rounds)
         return self._train_step_tree(state, stacked_batch, rounds, noise)
@@ -552,6 +701,7 @@ class MultiLearnerTrainer:
         w = state.params
         bound = self._bound(w)
         g = self._g
+        mem = state.members
 
         def stack(tree):
             return tree_map(lambda x: x[None].expand((n,) + tuple(x.shape)),
@@ -574,6 +724,11 @@ class MultiLearnerTrainer:
                 stack(learner_mean(g)), state.opt_state, w_b, w_b)
             new_params = mean_broadcast(apply_updates(w_b, updates))
 
+        elif algo.algo == "dpsgd" and mem is not None:  # elastic fleet
+            losses = self._grads(bound, stacked_batch)
+            new_params, opt_state = self._member_update(
+                w, g, state.opt_state, rounds, mem.active)
+
         elif algo.algo == "dpsgd":
             losses = self._grads(bound, stacked_batch)
             if algo.gossip_order == "mix_then_descend":
@@ -588,10 +743,7 @@ class MultiLearnerTrainer:
                                              rounds, state.step)
 
         else:                                           # adpsgd
-            active = straggler_active_mask(state.step, n, algo.slow_learner,
-                                           algo.slow_factor, device=dev)
-            fresh = age >= algo.max_staleness
-            stale_seen = torch.where(fresh, 0, age)
+            active, fresh, stale_seen = self._async_masks(state)
             stale_mean = torch.mean(stale_seen.to(torch.float32))
             stale_max = torch.max(stale_seen).to(torch.float32)
             (partners, _), = rounds
@@ -607,18 +759,30 @@ class MultiLearnerTrainer:
             clock = clock + active.to(torch.int32)
 
         new_params = _copy_tree(w, new_params)
-        g_mean = learner_mean(g)
+        gsq = _per_learner_grad_sq(g)
+        if mem is None:
+            nact = torch.full((), float(n), device=dev)
+            loss, gsq_mean = torch.mean(losses), torch.mean(gsq)
+            g_mean, sigma = learner_mean(g), learner_var(new_params)
+        else:       # live-only statistics: quarantined rows are excluded
+            act = mem.active
+            nact = torch.clamp(torch.sum(act), min=1).to(torch.float32)
+            loss = torch.sum(torch.where(act, losses, 0.0)) / nact
+            gsq_mean = torch.sum(torch.where(act, gsq, 0.0)) / nact
+            g_mean = masked_learner_mean(g, act)
+            sigma = masked_learner_var(new_params, act)
         metrics = StepMetrics(
-            loss=torch.mean(losses),
+            loss=loss,
             grad_norm=torch.sqrt(tree_norm_sq(g_mean)),
-            sigma_w_sq=learner_var(new_params),
+            sigma_w_sq=sigma,
             staleness_mean=stale_mean,
             staleness_max=stale_max,
-            n_active=torch.full((), float(n), device=dev),
-            grad_sq_mean=torch.mean(_per_learner_grad_sq(g)),
+            n_active=nact,
+            grad_sq_mean=gsq_mean,
         )
         return TrainState(new_params, opt_state, state.step + 1, state.seed,
-                          buffer=buffer, age=age, clock=clock), metrics
+                          buffer=buffer, age=age, clock=clock,
+                          members=mem), metrics
 
     def _train_step_flat(self, state: TrainState, stacked_batch, rounds):
         """The flat engine: the same algorithms on the (n, T, 128) store,
@@ -633,6 +797,7 @@ class MultiLearnerTrainer:
         w = state.params
         w_next = self._other(w, self._w)
         g = self._g
+        mem = state.members
 
         if algo.algo == "ssgd":
             torch.mean(w, dim=0, out=self._wa)
@@ -646,7 +811,11 @@ class MultiLearnerTrainer:
         elif algo.algo == "dpsgd":
             losses = self._grads(self._bound(w), stacked_batch)
             if self._fused is not None:
-                # leading rounds mix only; the last fuses the update
+                # leading rounds mix only; the last fuses the update.  An
+                # elastic fleet's dead rows get the kernel's active column
+                # 0: copied into each output, so whichever store the next
+                # step reads holds them unchanged
+                act = None if mem is None else mem.active
                 g_upd, wd = g, None
                 if len(rounds) > 1 and self._fused.weight_decay:
                     # decay the PRE-mix local weights, as the reference does
@@ -655,12 +824,21 @@ class MultiLearnerTrainer:
                 cur = w
                 for partners, coefs in rounds[:-1]:
                     cur = kops.flat_gossip_mix(
-                        cur, partners, coefs, out=self._other(cur, self._w),
+                        cur, partners, coefs, active=act,
+                        out=self._other(cur, self._w),
                         backend=self.kernel_backend)
                 partners, coefs = rounds[-1]
                 new_params, opt_state = self._fused_step(
                     cur, cur, g_upd, state.opt_state, partners, coefs,
-                    out=self._other(cur, self._w), weight_decay=wd)
+                    out=self._other(cur, self._w), active=act,
+                    weight_decay=wd)
+                if mem is not None:
+                    opt_state = self._select_nonflat(act, opt_state,
+                                                     state.opt_state)
+            elif mem is not None:                       # elastic, unfused
+                stepped, opt_state = self._member_update(
+                    w, g, state.opt_state, rounds, mem.active)
+                new_params = w_next.copy_(stepped)
             elif algo.gossip_order == "mix_then_descend":
                 mixed = self._mix_sched(w, rounds, state.step)
                 updates, opt_state = self._opt_update(g, state.opt_state, w,
@@ -673,10 +851,7 @@ class MultiLearnerTrainer:
                     apply_updates(w, updates), rounds, state.step))
 
         else:                                           # adpsgd
-            active = straggler_active_mask(state.step, n, algo.slow_learner,
-                                           algo.slow_factor, device=dev)
-            fresh = age >= algo.max_staleness
-            stale_seen = torch.where(fresh, 0, age)
+            active, fresh, stale_seen = self._async_masks(state)
             stale_mean = torch.mean(stale_seen.to(torch.float32))
             stale_max = torch.max(stale_seen).to(torch.float32)
             losses = self._grads(self._bound(w), stacked_batch)
@@ -706,19 +881,35 @@ class MultiLearnerTrainer:
 
         # centered two-pass variance on the flat buffer (pads contribute 0)
         gsq = torch.sum(torch.square(g), dim=(1, 2))
-        g_mean = torch.mean(g, dim=0)
-        dev_w = new_params - torch.mean(new_params, dim=0)
+        if mem is None:
+            nact = torch.full((), float(n), device=dev)
+            loss, gsq_mean = torch.mean(losses), torch.mean(gsq)
+            g_mean = torch.mean(g, dim=0)
+            dev_w = new_params - torch.mean(new_params, dim=0)
+            sigma = torch.sum(torch.square(dev_w)) / n
+        else:       # live-only statistics: quarantined rows are excluded
+            act = mem.active
+            m3 = act[:, None, None]
+            nact = torch.clamp(torch.sum(act), min=1).to(torch.float32)
+            loss = torch.sum(torch.where(act, losses, 0.0)) / nact
+            gsq_mean = torch.sum(torch.where(act, gsq, 0.0)) / nact
+            g_mean = torch.sum(torch.where(m3, g, 0.0), dim=0) / nact
+            w_mean = torch.sum(torch.where(m3, new_params, 0.0),
+                               dim=0) / nact
+            dev_w = torch.where(m3, new_params - w_mean[None], 0.0)
+            sigma = torch.sum(torch.square(dev_w)) / nact
         metrics = StepMetrics(
-            loss=torch.mean(losses),
+            loss=loss,
             grad_norm=torch.sqrt(torch.sum(torch.square(g_mean))),
-            sigma_w_sq=torch.sum(torch.square(dev_w)) / n,
+            sigma_w_sq=sigma,
             staleness_mean=stale_mean,
             staleness_max=stale_max,
-            n_active=torch.full((), float(n), device=dev),
-            grad_sq_mean=torch.mean(gsq),
+            n_active=nact,
+            grad_sq_mean=gsq_mean,
         )
         return TrainState(new_params, opt_state, state.step + 1, state.seed,
-                          buffer=buffer, age=age, clock=clock), metrics
+                          buffer=buffer, age=age, clock=clock,
+                          members=mem), metrics
 
     # -- multi-step loop -----------------------------------------------------
     def run_steps(self, state: TrainState, stacked_batches, k: int = None,

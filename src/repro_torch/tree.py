@@ -5,12 +5,21 @@ objects) at the leaves — what the port needs in place of
 Dicts are walked in sorted key order at every level, which is the order
 ``jax.tree_util.tree_flatten`` uses, so a flattened tree here lines up leaf
 for leaf with the reference's.  ``None`` is an empty subtree, as in JAX.
+A NamedTuple is walked field by field and rebuilt as itself.
+``tree_flatten_with_path`` names each leaf by the path JAX gives it (dict
+key, sequence index or field name), so ``"/".join`` of a path is the key
+the reference's checkpoints store.
 """
 from __future__ import annotations
 
 from typing import Any, Callable, List, Tuple
 
-__all__ = ["tree_flatten", "tree_unflatten", "tree_leaves", "tree_map"]
+__all__ = ["tree_flatten", "tree_unflatten", "tree_leaves", "tree_map",
+           "tree_flatten_with_path"]
+
+
+def _is_namedtuple(x) -> bool:
+    return isinstance(x, tuple) and hasattr(type(x), "_fields")
 
 
 def tree_flatten(tree) -> Tuple[List[Any], Any]:
@@ -29,6 +38,8 @@ def tree_flatten(tree) -> Tuple[List[Any], Any]:
             sub, d = tree_flatten(x)
             leaves += sub
             defs.append(d)
+        if _is_namedtuple(tree):
+            return leaves, ("namedtuple", type(tree), tuple(defs))
         return leaves, (type(tree).__name__, None, tuple(defs))
     if tree is None:
         return [], ("none", None, ())
@@ -56,6 +67,8 @@ def tree_unflatten(treedef, leaves):
         pos += c
     if kind == "dict":
         return dict(zip(keys, out))
+    if kind == "namedtuple":
+        return keys(*out)
     return tuple(out) if kind == "tuple" else out
 
 
@@ -67,3 +80,21 @@ def tree_map(fn: Callable, tree, *rest):
     leaves, treedef = tree_flatten(tree)
     others = [tree_leaves(r) for r in rest]
     return tree_unflatten(treedef, [fn(*xs) for xs in zip(leaves, *others)])
+
+
+def tree_flatten_with_path(tree, prefix=()) -> List[Tuple[tuple, Any]]:
+    """-> [(path, leaf)], in ``tree_flatten``'s leaf order; a path is the
+    tuple of dict keys, sequence indices and NamedTuple field names down
+    to the leaf, as ``jax.tree_util.tree_flatten_with_path`` gives them."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in tree_flatten_with_path(tree[k], prefix + (k,))]
+    if _is_namedtuple(tree):
+        return [x for f, v in zip(type(tree)._fields, tree)
+                for x in tree_flatten_with_path(v, prefix + (f,))]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree)
+                for x in tree_flatten_with_path(v, prefix + (i,))]
+    if tree is None:
+        return []
+    return [(prefix, tree)]

@@ -102,3 +102,35 @@ def test_table5_twin(capsys):
         t5.check([["ssgd", 0.25, 3.2, 3.3], ["dpsgd", 0.25, 0.4, 0.44]])
     with pytest.raises(RuntimeError, match="non-finite"):
         t5.check([["ssgd", 0.5, float("nan"), 3.3]])
+
+
+def test_fig3_twin(capsys):
+    from repro_torch.bench import fig3_straggler as f3
+    out, lines = _run("fig3_straggler", capsys)
+    assert lines[0] == ("algo,straggle_x,us_per_step_measured,"
+                        "us_per_tick_with_straggler,final_loss,"
+                        "staleness_max_seen")
+    rows = out["rows"]
+    assert [(r[0], r[1]) for r in rows] == [("dpsgd_sync", 5), ("adpsgd", 5)]
+    assert all(math.isfinite(r[4]) for r in rows)
+    # the straggler rides the elastic fleet: slow every 5th tick, never
+    # evicted, its staleness capped by tau
+    sup = out["runs"][("adpsgd", 5)]["supervisor"]
+    assert sup.report.interventions == 0
+    assert int(sup.membership.slow_every[0]) == 5
+    assert rows[1][5] == f3.TAU - 1
+    assert "5x-straggler tick ms: sync=" in lines[-1]
+    # the check holds the reference's full-settings result
+    good = [["dpsgd_sync", 1, 20.0, 20.0, 6e-4, 0.0],
+            ["adpsgd", 1, 21.0, 21.0, 6e-4, 0.0],
+            ["dpsgd_sync", 5, 20.0, 100.0, 6e-4, 0.0],
+            ["adpsgd", 5, 21.0, 21.0, 9e-4, 3.0]]
+    f3.check(good)
+    for row, col, bad, match in ((3, 4, 0.5, "not below"),
+                                 (3, 5, 4.0, "staleness"),
+                                 (1, 4, 7e-4, "without a straggler"),
+                                 (3, 3, 200.0, "not shorter")):
+        rows = [list(r) for r in good]
+        rows[row][col] = bad
+        with pytest.raises(RuntimeError, match=match):
+            f3.check(rows)

@@ -10,8 +10,8 @@ masked learner statistics it reads, against the reference, on the CPU.
     snapshot, the served tokens, the staleness and the served divergence
     agree (float32 1e-4: two training steps apart, as
     tests/test_torch_trainer.py holds the transformer's steps);
-  * a state whose ``members.active`` marks a learner dead (set by hand:
-    the port's trainer takes elastic membership with ROADMAP slice 6)
+  * a state whose ``members.active`` marks a learner dead (set by hand;
+    tests/test_torch_membership.py drives it through ``set_membership``)
     averages only the live rows, mirroring tests/test_membership.py's
     ``test_bridge_snapshot_excludes_dead_rows``.
 """

@@ -244,14 +244,31 @@ def test_unported_trainer_paths_raise_naming_their_slice(kw, raises):
 
 
 def test_unported_trainer_methods_raise_naming_their_slice():
+    """Elastic membership (slice 6) raised until it was ported: now a
+    state with ``members`` trains and ``train_fc(fault_plan=...)`` runs
+    under a supervisor, and no port module raises ``NotImplementedError``
+    naming slice 6."""
     from repro_torch.bench.common import train_fc
+    from repro_torch.core import FaultPlan, Membership
+    from repro_torch.data import ShardedLoader, TemplateImages
     from repro_torch.models import fcnet
     tr = _fc_trainer(device="cpu")
     state = tr.init(0, fcnet.init_params(torch.Generator().manual_seed(0)))
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        tr.train_step(state._replace(members=object()), {})
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        train_fc("dpsgd", 0.1, steps=2, fault_plan=object(), device="cpu")
+    mem = Membership(4)
+    mem.crash(2)
+    state = tr.set_membership(state, mem)
+    loader = ShardedLoader(TemplateImages(), n_learners=4, local_batch=8,
+                           device="cpu")
+    state, m = tr.train_step(state, loader.batch(0))
+    assert bool(torch.isfinite(m.loss)) and float(m.n_active) == 3
+    out = train_fc("dpsgd", 0.1, n=4, local_batch=8, steps=3,
+                   fault_plan=FaultPlan.crash_rejoin(1, 0, 2), device="cpu")
+    assert out["supervisor"].report.rejoins == [(2, 1)]
+    assert all(torch.isfinite(torch.tensor(out["losses"])))
+    for path in PORT_FILES:
+        text = path.read_text()
+        assert not ("NotImplementedError" in text and "slice 6" in text), \
+            path
 
 
 def test_probe_hooks_fire_on_the_steps_their_schedule_makes_due():
