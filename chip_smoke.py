@@ -26,7 +26,9 @@ Phases (any failure raises and the script exits non-zero):
      arithmetic of the kernel that runs is kept beside it); the gossip
      update at the training shape (n=4, T=1,056,920, K=1, momentum), on a
      ring with weight decay and an inactive NaN row, in AD-PSGD publish
-     mode, and as a mixing-only round (K=3); the reorthogonalization
+     mode, as a mixing-only round (K=3), and at the launch path's n = 1
+     (a received (2, T, 128) remote stack; publish mode with a received
+     row); the reorthogonalization
      kernels (Lanczos CGS2) at the transformer-100m probe shape (M = 9,
      T = 1,056,920), on a ragged T, M = 1, a partial mask and an
      orthonormal (QR) basis, on vectors drawn on the card from a seeded
@@ -196,12 +198,39 @@ Phases (any failure raises and the script exits non-zero):
      after its retries, and one crash on every deterministic topology;
      (d) the Fig. 3 twin at its full settings, held to what the
      reference's run shows.
+ 16. the launch path (``repro_torch.launch``, one learner per rank on
+     ``torch.distributed``): (a) 4 gloo ranks spawned together, sharing
+     the one card (the transport is gloo over TCP loopback, staged
+     through pinned host memory, not NCCL), transformer-100m at full
+     width and depth with phase 4's recipe, rank r from its own weights
+     (seed SEED + r, carried in as stacked numpy through
+     ``rank_state_from_numpy``): DPSGD on random_pair (matchings drawn on
+     the host) for 3 steps and on ring (K = 2) for 2, AD-PSGD (staleness
+     4, learner 0 three times slower) for 4 ticks; every step's gossip
+     through the fused kernel at n = 1 (launches summed over the ranks =
+     ranks x steps x rounds), one send and one receive per live slot, K
+     stores received a round (beside ``analytic``'s ring bytes); rank 0
+     gathers every rank's rows (and AD-PSGD's buffers) and holds them
+     within 1e-5 of a single-process ``MultiLearnerTrainer`` fed the same
+     batches and tables, with ``kernel_backend="ref"`` (the kernel's
+     plain version); ms a step (host clock ending in a sync) split
+     into compute, exchange and kernel, and each rank's peak memory;
+     (b) world size 1 over NCCL: an SSGD step (its gradient all_reduce)
+     and a solo DPSGD step against the trainer at n = 1, each under
+     ``torch.cuda.set_sync_debug_mode("error")`` (no host sync); with no
+     neighbour, no point-to-point op and no gossip kernel runs there.
+ Phase 2 also holds the gossip kernel at the launch path's shapes: n = 1
+ with a received (2, T, 128) stack as its remote (the ring), and n = 1 in
+ publish mode (AD-PSGD).
+
+``python3 chip_smoke.py --only N`` runs phase N alone (2: every kernel
+check, 3-7, 10, 13-16) and prints its record and the last line.
 Each path runs with every kernel's launch count set to 0 just before it
 and read just after.  The last lines are the serve (100m, gemma2,
 granite), train (with the bridge), probe, FC, Table-1, gemma2,
 flash-training, pytree-engine, paper-experiment, granite-moe, jamba,
-xlstm, qwen2-vl, seamless and elastic numbers, the card, the kernels
-record and ``{"ok": true, "device": {...}}``.
+xlstm, qwen2-vl, seamless, elastic and launch numbers, the card, the
+kernels record and ``{"ok": true, "device": {...}}``.
 Without CUDA the script exits 1 before printing any result.
 """
 from __future__ import annotations
@@ -430,6 +459,19 @@ FAULT_N, FAULT_LR, FAULT_BATCH, FAULT_STEPS = 5, 0.5, 200, 60
 # a sticky hang under the supervisor's defaults (staleness bound 4, grace
 # 2, 2 retries): retried past 8 and 16 silent ticks, evicted past 32
 HANG_EVICTED_AT = 4 * 2 * 2 ** 2
+# phase 16: the launch path (launch/train.py) on torch.distributed.  a: 4
+# gloo ranks sharing the one card (NCCL puts no two ranks of one
+# communicator on one device), transformer-100m at full width and depth
+# with phase 4's recipe, rank r from its own weights (seed SEED + r):
+# (case, steps) DPSGD on random_pair (matchings drawn on the host) and on
+# ring (K = 2), AD-PSGD with a 3x straggler; each held against the
+# single-process trainer (plain kernels) fed the same batches and tables
+# within TRAIN_REF_ATOL.  b: world size 1 over NCCL, an SSGD and a solo
+# DPSGD step against the trainer at n = 1, with no host sync
+LAUNCH_RANKS = 4
+LAUNCH_CASES = (("dpsgd_random_pair", 3), ("dpsgd_ring", 2), ("adpsgd", 4))
+LAUNCH_STALENESS, LAUNCH_SLOW, LAUNCH_SLOW_FACTOR = 4, 0, 3
+LAUNCH_TIMEOUT_S = 600      # the gloo group's timeout and the phase's wait
 # jamba's decode shape in phase 2 (H 32 on KV 8, hd 128, window 4,096)
 # and granite-moe's (H 24 on KV 8, hd 64), 8 slots up to 8,192 tokens
 ZOO_DECODE = {"granite_moe": (24, 8, 64, {}),
@@ -1253,7 +1295,7 @@ def _max_err(a, b) -> float:
 
 
 def gossip_cases():
-    """The four cases of the gossip kernel's check, as (name, kwargs of
+    """The six cases of the gossip kernel's check, as (name, kwargs of
     ops.flat_gossip_update, rows that must come back bitwise unchanged)."""
     rng = np.random.default_rng(SEED)
     T_train, T = TRAIN_ROWS, CASE_ROWS
@@ -1314,6 +1356,26 @@ def gossip_cases():
     w, p, c = _cuda_arrays(w, partners.numpy(), coefs)
     out.append(("d_mix_only_exp", dict(w=w, remote=w, grads=w, momentum=None,
                                        partners=p, coefs=c, lr=0.0), []))
+    # (e) the launch path's DPSGD on the ring (phase 16): one rank's row,
+    # n = 1, its two received neighbour rows as a (2, T, 128) remote
+    w, g, mu, remote = normal(1, T_train, 128), normal(1, T_train, 128), \
+        normal(1, T_train, 128), normal(2, T_train, 128)
+    coefs = np.array([[1 / 3, 1 / 3, 1 / 3, 1.0, 1.0]], np.float32)
+    w, g, mu, remote, p, c = _cuda_arrays(
+        w, g, mu, remote, np.array([[0], [1]], np.int32), coefs)
+    out.append(("e_launch_ring_n1", dict(w=w, remote=remote, grads=g,
+                                         momentum=mu, partners=p, coefs=c,
+                                         lr=TRAIN_LR, beta=0.9), []))
+    # (f) the launch path's AD-PSGD tick (phase 16): publish mode at n = 1,
+    # the partner's chosen row received as a (1, T, 128) remote, fresh
+    w, g, mu, remote, buf = (normal(1, T_train, 128) for _ in range(5))
+    coefs = np.array([[0.5, 0.5, 1.0, 1.0, 1.0, 1.0]], np.float32)
+    w, g, mu, remote, buf, p, c = _cuda_arrays(
+        w, g, mu, remote, buf, np.array([[0]], np.int32), coefs)
+    out.append(("f_launch_publish_n1", dict(w=w, remote=remote, grads=g,
+                                            momentum=mu, partners=p,
+                                            coefs=c, lr=TRAIN_LR, beta=0.9,
+                                            buffer=buf), []))
     return out
 
 
@@ -1352,6 +1414,26 @@ def gossip_phase():
                   f"{name}: NaN leaked past the ring neighbours")
         errs[name] = err
     print(f"gossip_mix max_abs_err per case {json.dumps(errs)}", flush=True)
+
+    # the launch path's shapes (n = 1, a received remote stack): kernel and
+    # plain version by CUDA events, bound by the rows read and written
+    launch_shapes = {}
+    for name, kw, _ in cases[4:]:
+        row_bytes = kw["w"].numel() * 4
+        # in: w, g, mu and the remote rows; out: w', mu' and, publishing
+        # with a fresh partner (case f), buffer' (the old buffer unread)
+        rows = 3 + kw["remote"].shape[0] + 2 + ("buffer" in kw)
+        launch_shapes[name] = {
+            "ms": time_ms(lambda: ops.flat_gossip_update(**kw,
+                                                         backend="cuda"),
+                          [()], iters=20),
+            "plain_ms": time_ms(lambda: ops.flat_gossip_update(
+                **kw, backend="ref"), [()], iters=3),
+            "bound_ms": 1e3 * rows * row_bytes / HBM_BYTES_PER_S,
+            "remote_rows": kw["remote"].shape[0],
+            "publish": "buffer" in kw}
+    print(f"gossip_mix at the launch path's shapes "
+          f"{json.dumps(launch_shapes)}", flush=True)
 
     # timing at the training shape: each buffer alone is 43x the L2
     _, kw, _ = cases[0]
@@ -1406,6 +1488,7 @@ def gossip_phase():
                     "pass"),
         "shape": {"n": n, "T": T, "K": 1, "momentum": True,
                   "remote": "w"},
+        "launch_shapes": launch_shapes,
     }
 
 
@@ -3645,7 +3728,419 @@ def elastic_phase(kernels):
         "fc_elastic_faults": faults_gossip, "fig3_straggler": fig3_gossip}
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# phase 16: the launch path on torch.distributed
+# ---------------------------------------------------------------------------
+
+def _launch_opt():
+    from repro_torch.optim import scale_by_schedule, sgd, warmup_linear_scale
+    return scale_by_schedule(sgd(TRAIN_LR, momentum=0.9),
+                             warmup_linear_scale(10, 1.0))
+
+
+def _tree_paths(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_tree_paths(v, f"{prefix}{k}/"))
+        return out
+    return {prefix[:-1]: tree}
+
+
+def _save_stacked(api, wdir):
+    """Each rank's initial weights (transformer-100m from seed SEED + r, on
+    the card), stacked over ranks as the reference's stacked state is: one
+    .npy per leaf and an index of the leaves' paths."""
+    trees = [_tree_paths(api.param_tree(api.init(SEED + r)))
+             for r in range(LAUNCH_RANKS)]
+    paths = sorted(trees[0])
+    for i, path in enumerate(paths):
+        np.save(Path(wdir) / f"{i}.npy",
+                np.stack([t[path].cpu().numpy() for t in trees]))
+    (Path(wdir) / "index.json").write_text(json.dumps(paths))
+
+
+def _load_stacked(wdir):
+    """``_save_stacked``'s tree, every leaf memory-mapped."""
+    tree = {}
+    paths = json.loads((Path(wdir) / "index.json").read_text())
+    for i, path in enumerate(paths):
+        node = tree
+        *head, leaf = path.split("/")
+        for part in head:
+            node = node.setdefault(part, {})
+        node[leaf] = np.load(Path(wdir) / f"{i}.npy", mmap_mode="r")
+    return tree
+
+
+def _launch_step(name, api):
+    from repro_torch.launch.train import (make_adpsgd_train_step,
+                                          make_dpsgd_train_step)
+    if name == "adpsgd":
+        return make_adpsgd_train_step(
+            api, _launch_opt(), max_staleness=LAUNCH_STALENESS,
+            slow_learner=LAUNCH_SLOW, slow_factor=LAUNCH_SLOW_FACTOR)
+    return make_dpsgd_train_step(api, _launch_opt(),
+                                 topology=name.split("_", 1)[1])
+
+
+def _launch_loader(cfg):
+    from repro_torch.data import ShardedLoader, SyntheticTokenStream
+    return ShardedLoader(SyntheticTokenStream(vocab=cfg.vocab),
+                         n_learners=LAUNCH_RANKS, local_batch=TRAIN_BATCH,
+                         extra_args=(TRAIN_SEQ,), seed=SEED)
+
+
+def launch_rank(rank, port, wdir, queue):
+    """One gloo rank of phase 16a, run in a spawned process: puts (rank,
+    record, None) on ``queue``, or (rank, None, the traceback)."""
+    import traceback
+    try:
+        queue.put((rank, _launch_rank(rank, port, wdir), None))
+    except BaseException:
+        queue.put((rank, None, traceback.format_exc()))
+        raise
+
+
+def _launch_rank(rank, port, wdir):
+    """Train every case of LAUNCH_CASES as rank ``rank``: the first step
+    warms up, the others are timed (host clock ending in a sync, split by
+    the step's own timing into compute, exchange and kernel).  Rank 0
+    gathers every rank's final rows and holds them against the trainer."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import gossip_mix
+    from repro_torch.launch import init_learner_group
+    from repro_torch.launch.train import rank_state_from_numpy
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_learner_group(rank, LAUNCH_RANKS, f"tcp://127.0.0.1:{port}",
+                       backend="gloo", timeout_s=LAUNCH_TIMEOUT_S)
+    cfg = get_config("transformer-100m")
+    api = build_model(cfg)
+    params = _load_stacked(wdir)
+    loader = _launch_loader(cfg)
+    kernel = gossip_mix.gossip_mix_update_flat
+    kernel.launches = 0
+    records, finals = {}, {}
+    for name, steps in LAUNCH_CASES:
+        batches = [tree_map(lambda x: x[rank], loader.batch(t))
+                   for t in range(steps)]
+        step = _launch_step(name, api)
+        state = rank_state_from_numpy(
+            step, params, buffer=params if name == "adpsgd" else None,
+            seed=SEED)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = kernel.launches
+        losses, walls, rounds = [], [], []
+        for t in range(steps):
+            if t == 1:
+                step.timing = {}
+            t0 = time.perf_counter()
+            state, m = step(state, batches[t])
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            losses.append(m["loss"])
+            rounds.append(step.last_rounds)
+        timed = steps - 1
+        records[name] = {
+            "steps": steps, "timed_steps": timed,
+            "ms_per_step": 1e3 * sum(walls[1:]) / timed,
+            "first_step_ms": 1e3 * walls[0],
+            "parts_ms_per_step": {k: 1e3 * v / timed
+                                  for k, v in step.timing.items()},
+            "max_memory_allocated_gb": torch.cuda.max_memory_allocated()
+            / 1e9,
+            "launches": kernel.launches - before,
+            "rounds": rounds, "sends": step.sends, "recvs": step.recvs,
+            "bytes_received": step.bytes_received,
+            "store_bytes": state.params.numel()
+            * state.params.element_size(),
+            "losses": torch.stack(losses).tolist()}
+        finals[name] = [state.params[0].cpu()] + (
+            [state.buffer[0].cpu()] if name == "adpsgd" else [])
+        del step, state, batches
+        torch.cuda.empty_cache()
+    record = {"cases": records}
+    gathered = {}
+    t0 = time.perf_counter()
+    for name, rows in finals.items():
+        for j, row in enumerate(rows):
+            out = ([torch.empty_like(row) for _ in range(LAUNCH_RANKS)]
+                   if rank == 0 else None)
+            dist.gather(row, out, dst=0)
+            gathered[(name, j)] = out
+    record["gather_s"] = time.perf_counter() - t0
+    del finals
+    if rank == 0:
+        record["against_trainer"] = _launch_against_trainer(
+            api, params, loader, gathered)
+    dist.destroy_process_group()
+    return record
+
+
+def _launch_against_trainer(api, params, loader, gathered):
+    """The single-process ``MultiLearnerTrainer`` (4 learners on the card,
+    ``kernel_backend="ref"``: the gossip kernel's plain version) from the
+    same weights, fed the same batches and tables (the host-drawn
+    matchings, the hypercube for AD-PSGD): each case's max abs gap to the
+    ranks' final rows, which kernel #2 made at n = 1."""
+    from repro_torch.core import AlgoConfig, MultiLearnerTrainer
+    from repro_torch.core.dpsgd import hypercube_tables
+    from repro_torch.core.flatstate import flat_meta
+    from repro_torch.launch.train import drawn_rounds
+    from repro_torch.models.convert import tree_from_jax
+    from repro_torch.tree import tree_map
+
+    stacked = tree_from_jax(params, device="cuda")
+    single = tree_map(lambda x: x[0], stacked)
+    out = {}
+    for name, steps in LAUNCH_CASES:
+        if name == "adpsgd":
+            algo = AlgoConfig(algo="adpsgd", topology="random_pair",
+                              n_learners=LAUNCH_RANKS,
+                              max_staleness=LAUNCH_STALENESS,
+                              slow_learner=LAUNCH_SLOW,
+                              slow_factor=LAUNCH_SLOW_FACTOR)
+        else:
+            algo = AlgoConfig(algo="dpsgd", topology=name.split("_", 1)[1],
+                              n_learners=LAUNCH_RANKS)
+        tr = MultiLearnerTrainer(api.loss_fn, _launch_opt(), algo,
+                                 kernel_backend="ref",
+                                 params_from_tree=api.params_from_tree)
+        state = tr.init(SEED, single)
+        state.params.copy_(flat_meta(single).flatten(stacked))
+        if state.buffer is not None:
+            state.buffer.copy_(state.params)
+        for t in range(steps):
+            rounds = ([hypercube_tables(t, LAUNCH_RANKS)]
+                      if name == "adpsgd" else
+                      drawn_rounds(SEED, t, LAUNCH_RANKS)
+                      if name == "dpsgd_random_pair" else None)
+            state, _ = tr.train_step(state, loader.batch(t), rounds)
+        rec = {}
+        for j, (what, want) in enumerate(
+                (("params", state.params), ("buffer", state.buffer))):
+            if (name, j) in gathered:
+                got = torch.stack(gathered[(name, j)]).to("cuda")
+                rec[f"{what}_max_abs_err"] = float(
+                    (got - want).abs().max())
+                del got
+        out[name] = rec
+        del tr, state
+        torch.cuda.empty_cache()
+    return out
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _launch_ranks(wdir):
+    """Phase 16a's ranks, spawned together; returns {rank: record}.  A
+    failed rank fails the phase, and every rank is joined or ended."""
+    import queue as queues
+
+    ctx = torch.multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    port = _free_port()
+    procs = [ctx.Process(target=launch_rank, args=(r, port, wdir, results))
+             for r in range(LAUNCH_RANKS)]
+    for p in procs:
+        p.start()
+    out = {}
+    try:
+        deadline = time.monotonic() + LAUNCH_TIMEOUT_S
+        while len(out) < LAUNCH_RANKS:
+            left = deadline - time.monotonic()
+            try:
+                rank, record, err = results.get(timeout=max(left, 1))
+            except queues.Empty:
+                raise RuntimeError(f"launch ranks silent for "
+                                   f"{LAUNCH_TIMEOUT_S} s; got {sorted(out)}")
+            check(err is None, f"launch rank {rank} failed:\n{err}")
+            out[rank] = record
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.terminate()
+                p.join()
+    check(all(p.exitcode == 0 for p in procs),
+          f"launch rank exit codes {[p.exitcode for p in procs]}")
+    return out
+
+
+def _launch_nccl(api, wdir):
+    """Phase 16b: world size 1 over NCCL in this process: one SSGD step
+    (its gradient all_reduce through NCCL) and one solo DPSGD step, each
+    against the trainer (plain kernels) at n = 1 from the same weights and
+    batch.  Each step runs under ``torch.cuda.set_sync_debug_mode("error")``,
+    so a host sync in it fails the phase.  At world size 1 the DPSGD step
+    has no neighbour: no point-to-point op and no gossip kernel runs here
+    (they wait for a machine with more than one card)."""
+    import torch.distributed as dist
+
+    from repro_torch.core import AlgoConfig, MultiLearnerTrainer
+    from repro_torch.launch import init_learner_group
+    from repro_torch.launch.train import (make_dpsgd_train_step,
+                                          make_ssgd_train_step,
+                                          rank_state_from_numpy)
+    from repro_torch.models.convert import tree_from_jax
+    from repro_torch.tree import tree_map
+
+    init_learner_group(0, 1, f"tcp://127.0.0.1:{_free_port()}",
+                       device=torch.device("cuda", 0), timeout_s=120)
+    out = {"backend": dist.get_backend()}
+    try:
+        params = _load_stacked(wdir)
+        single = tree_from_jax(tree_map(lambda a: a[0], params),
+                               device="cuda")
+        stacked = tree_map(lambda x: x[:1], _launch_loader(api.cfg).batch(0))
+        batch = tree_map(lambda x: x[0], stacked)
+        warm = torch.ones(1, device="cuda")   # the communicator, made now
+        dist.all_reduce(warm)
+        for algo, make in (("ssgd", make_ssgd_train_step),
+                           ("dpsgd", make_dpsgd_train_step)):
+            step = make(api, _launch_opt())
+            state = rank_state_from_numpy(step, params, seed=SEED)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                state, m = step(state, batch)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            tr = MultiLearnerTrainer(
+                api.loss_fn, _launch_opt(),
+                AlgoConfig(algo=algo, topology="random_pair", n_learners=1),
+                engine="flat", kernel_backend="ref",
+                params_from_tree=api.params_from_tree)
+            ts, tm = tr.train_step(tr.init(SEED, single), stacked)
+            err = float((state.params - ts.params).abs().max())
+            check(err <= TRAIN_REF_ATOL,
+                  f"nccl {algo} step and the trainer differ by {err}")
+            check(np.isfinite(float(m["loss"])), f"nccl {algo} loss")
+            out[algo] = {"ms_first_step": ms, "max_abs_err": err,
+                         "host_syncs_in_step": 0,
+                         "all_reduces": step.collectives,
+                         "sends": step.sends, "recvs": step.recvs,
+                         "loss": float(m["loss"]),
+                         "trainer_loss": float(tm.loss)}
+            del step, state, tr, ts
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def launch_phase(kernels):
+    """Phase 16: a-b.  Returns (record, gossip launches by path)."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import analytic
+    from repro_torch.models import build_model
+
+    cfg = get_config("transformer-100m")
+    api = build_model(cfg)
+    with tempfile.TemporaryDirectory() as wdir:
+        t0 = time.perf_counter()
+        _save_stacked(api, wdir)
+        torch.cuda.empty_cache()
+        setup_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ranks = _launch_ranks(wdir)
+        ranks_s = time.perf_counter() - t0
+        nccl = _launch_nccl(api, wdir)
+
+    store = ranks[0]["cases"]["dpsgd_ring"]["store_bytes"]
+    record = {
+        "transport": "gloo over TCP loopback, each exchange staged through "
+                     "pinned host memory; 4 ranks sharing one H100 (not "
+                     "NCCL)",
+        "model": cfg.name, "ranks": LAUNCH_RANKS, "local_batch": TRAIN_BATCH,
+        "seq": TRAIN_SEQ, "lr": TRAIN_LR, "weights_setup_s": setup_s,
+        "ranks_wall_s": ranks_s, "store_bytes": store,
+        "analytic_ring_link_bytes_per_rank_round":
+            analytic.gossip_link_bytes_per_chip(cfg, LAUNCH_RANKS,
+                                                LAUNCH_RANKS, "ppermute"),
+        "cases": {}, "nccl_world_size_1": nccl}
+    launches = {}
+    for name, steps in LAUNCH_CASES:
+        K = 2 if name == "dpsgd_ring" else 1
+        per = [ranks[r]["cases"][name] for r in range(LAUNCH_RANKS)]
+        launches[name] = sum(c["launches"] for c in per)
+        check(launches[name] == LAUNCH_RANKS * steps,
+              f"{name}: {launches[name]} gossip launches, not "
+              f"{LAUNCH_RANKS} ranks x {steps} steps x 1 round")
+        for r, c in enumerate(per):
+            check(c["rounds"] == [[(K, K)]] * steps,
+                  f"{name} rank {r}: point-to-point ops {c['rounds']}, "
+                  f"not one send and one receive per live slot ({K})")
+            check(c["bytes_received"] == steps * K * store,
+                  f"{name} rank {r}: {c['bytes_received']} bytes received")
+            check(all(np.isfinite(c["losses"])),
+                  f"{name} rank {r}: losses {c['losses']}")
+        gaps = ranks[0]["against_trainer"][name]
+        check(all(v <= TRAIN_REF_ATOL for v in gaps.values()),
+              f"{name}: the ranks and the trainer differ by {gaps}")
+        record["cases"][name] = {
+            "steps": steps, "slots_per_round": K,
+            "bytes_received_per_rank_round": K * store,
+            "gossip_launches": launches[name],
+            "against_trainer": gaps,
+            "ms_per_step_by_rank": [c["ms_per_step"] for c in per],
+            "first_step_ms_by_rank": [c["first_step_ms"] for c in per],
+            "parts_ms_per_step_by_rank": [c["parts_ms_per_step"]
+                                          for c in per],
+            "max_memory_allocated_gb_by_rank": [
+                c["max_memory_allocated_gb"] for c in per],
+            "losses_rank0": per[0]["losses"]}
+    record["gather_s_rank0"] = ranks[0]["gather_s"]
+    return record, {f"launch_{k}_4_gloo_ranks": v
+                    for k, v in launches.items()}
+
+
+# --only: one phase alone, its record printed (no kernels line)
+ONLY = {
+    "2": lambda k: {"decode": decode_attention_phase(),
+                    "gossip": gossip_phase(), "reorth": reorth_phase(),
+                    "flash": flash_phase(),
+                    "gossip_single": gossip_single_phase(k)},
+    "3": lambda k: serve_phase(k)[0],
+    "4": lambda k: train_phase(k)[0],
+    "5": fc_phase,
+    "6": table1_phase,
+    "7": lambda k: gemma2_phase(k)[0],
+    "10": lambda k: paper_phase(k)[0],
+    "13": lambda k: xlstm_phase(k)[0],
+    "14": lambda k: {"vlm": vlm_phase(), "audio": audio_phase()},
+    "15": lambda k: elastic_phase(k)[0],
+    "16": lambda k: launch_phase(k)[0],
+}
+
+
+def parse_args(argv):
+    import argparse
+    ap = argparse.ArgumentParser(description="Drive the port on one GPU.")
+    ap.add_argument("--only", choices=sorted(ONLY, key=int),
+                    help="run one phase alone (default: every phase)")
+    return ap.parse_args(argv)
+
+
+def main(argv=None) -> int:
+    args = parse_args(sys.argv[1:] if argv is None else argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
               "NVIDIA GPU", file=sys.stderr)
@@ -3671,6 +4166,14 @@ def main() -> int:
                reorth.reorth_dots, reorth.reorth_axpy,
                gossip_mix.gossip_mix_update,
                flash_attention.flash_attention_fwd]
+    if args.only is not None:
+        print(json.dumps({f"phase_{args.only}": ONLY[args.only](kernels)}),
+              flush=True)
+        print(card, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
 
     decode_record = decode_attention_phase()
     gossip_record = gossip_phase()
@@ -3740,6 +4243,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     elastic, elastic_gossip = elastic_phase(kernels)
     print(json.dumps({"elastic": elastic}), flush=True)
+    torch.cuda.empty_cache()
+    launch, launch_gossip = launch_phase(kernels)
+    print(json.dumps({"launch": launch}), flush=True)
     decode_record["launches"] = sum(serve_launches.values())
     decode_record["launches_by_path"] = serve_launches
     flash_record["launches_by_path"].update(zoo_flash)
@@ -3749,7 +4255,8 @@ def main() -> int:
         "transformer_100m_bridge_training": bridge_launches[
             "gossip_mix_update_flat"],
         **pytree_gossip, **paper_gossip,
-        "xlstm_350m_dpsgd_training": xlstm_gossip, **elastic_gossip}
+        "xlstm_350m_dpsgd_training": xlstm_gossip, **elastic_gossip,
+        **launch_gossip}
     gossip_record["launches"] = sum(
         gossip_record["launches_by_path"].values())
     for record in (dots_record, axpy_record):

@@ -7,13 +7,15 @@ run on ``cuda`` unless the caller asks for ``device="cpu"``
 takes its plain PyTorch version, on a CUDA tensor it launches the
 hand-written kernel or raises.
 
-Ported so far (ROADMAP slices 1-3): ``configs`` (transformer-100m),
-``models`` (dense decoder, paged decode, the FC net), ``serve``
-(``ServeEngine``), ``core`` (``MultiLearnerTrainer``'s flat engine, its
-probe seam, diagnostics, smoothing), ``optim``, ``data``, ``landscape``
-(probes, AutoLR), ``bench`` (Table 1) and ``kernels``: paged decode
-attention, the fused gossip + momentum-SGD update and the Lanczos
-reorthogonalization, in CUDA C++.
+Ported so far (ROADMAP slices 1-6 and 7a): ``configs`` (the reference's
+registry), ``models`` (every family, paged decode, the FC net),
+``serve`` (``ServeEngine``, the consensus bridge), ``core``
+(``MultiLearnerTrainer``'s two engines, elastic membership, fault plans,
+diagnostics, smoothing), ``optim``, ``data``, ``landscape`` (probes,
+AutoLR), ``checkpoint``, ``launch`` (one learner per rank on
+``torch.distributed``), ``bench`` (the paper twins) and ``kernels``:
+paged decode attention, flash attention, the fused gossip +
+momentum-SGD updates and the Lanczos reorthogonalization, in CUDA C++.
 """
 from .device import resolve_device
 

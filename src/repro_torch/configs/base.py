@@ -80,6 +80,63 @@ class ModelConfig:
     def q_per_kv(self) -> int:
         return self.n_heads // max(self.n_kv_heads, 1)
 
+    def n_params(self) -> int:
+        """Analytic parameter count, the reference's formula (the 6ND
+        model flops and the byte counts of ``launch/analytic.py``)."""
+        d, h, kv, hd, ff, v = (self.d_model, self.n_heads, self.n_kv_heads,
+                               self.head_dim_, self.d_ff, self.padded_vocab)
+        attn = d * h * hd + 2 * d * kv * hd + h * hd * d
+        if self.family == "ssm":
+            per_layer = self._xlstm_params()
+        elif self.family == "hybrid":
+            per_layer = self._hybrid_params()
+        else:
+            mlp = 3 * d * ff
+            if self.n_experts:
+                moe = self.n_experts * 3 * d * ff + d * self.n_experts
+                frac_moe = 1.0 / self.moe_every
+                mlp = frac_moe * moe + (1 - frac_moe) * mlp
+            per_layer = attn + mlp + 2 * d
+        total = self.n_layers * per_layer \
+            + v * d * (1 if self.tie_embeddings else 2)
+        if self.enc_layers:     # encoder layers + decoder cross-attention
+            total += self.enc_layers * (attn + 3 * d * ff + 2 * d)
+            total += self.n_layers * attn
+        return int(total)
+
+    def n_active_params(self) -> int:
+        """Active (per-token) parameters: a MoE counts its top-k experts."""
+        if not self.n_experts:
+            return self.n_params()
+        d, ff = self.d_model, self.d_ff
+        total_moe = self.n_layers / self.moe_every * (
+            self.n_experts * 3 * d * ff)
+        active_moe = self.n_layers / self.moe_every * (
+            self.experts_per_tok * 3 * d * ff)
+        return int(self.n_params() - total_moe + active_moe)
+
+    def _xlstm_params(self) -> int:
+        d = self.d_model
+        m = 2 * d * 2 * d + 3 * 2 * d + 2 * d * d + d * 2 * d
+        s = 4 * (d * d + d * d) + 2 * d * 4 * d
+        return (m + s) // 2 + 2 * d
+
+    def _hybrid_params(self) -> int:
+        d, ff = self.d_model, self.d_ff
+        di = self.ssm_expand * d
+        mamba = 2 * d * di + di * self.ssm_conv + di * (
+            2 * self.ssm_state + di // 16) + di * d
+        attn = (self.n_heads + 2 * self.n_kv_heads) * self.head_dim_ * d \
+            + self.n_heads * self.head_dim_ * d
+        n_attn = self.n_layers // 8
+        n_mamba = self.n_layers - n_attn
+        mlp_dense = 3 * d * ff
+        mlp_moe = self.n_experts * 3 * d * ff + d * self.n_experts
+        n_moe = self.n_layers // self.moe_every if self.moe_every else 0
+        mlps = n_moe * mlp_moe + (self.n_layers - n_moe) * mlp_dense
+        return (n_mamba * mamba + n_attn * attn + mlps
+                + 2 * d * self.n_layers) // self.n_layers
+
     def smoke_config(self) -> "ModelConfig":
         """Reduced same-family variant for CPU tests, identical to the
         reference's: <=2 (periods of) layers, d_model<=256, <=4 experts."""

@@ -69,6 +69,13 @@ class FlatMeta:
             return tuple(leaf.shape[:leaf.dim() - len(shape)])
         return ()
 
+    def wire_dtype(self) -> torch.dtype:
+        """The single dtype all leaves share, or float32 for a mixed tree:
+        what the flat gossip exchange puts on the wire (a uniformly bf16
+        model moves 2 bytes an element; the mixing runs in float32)."""
+        return self.dtypes[0] if len(set(self.dtypes)) == 1 \
+            else torch.float32
+
     def flatten(self, tree, *, device=None) -> torch.Tensor:
         """Tree (leaves ``lead + shape``) -> ``lead + (T, 128)`` float32
         buffer on ``device`` (default: the leaves' device).  Writes each

@@ -155,6 +155,90 @@ def _copy_tree(dst, src):
     return dst
 
 
+def cast_leaves(meta: FlatMeta, device) -> dict:
+    """Per leaf slot of another dtype than float32 (bf16): a persistent
+    autograd leaf of its own dtype and its gradient, what ``bind_learner``
+    binds in place of a float32 store view."""
+    return {j: (torch.empty(shape, dtype=dt, device=device).requires_grad_(),
+                torch.zeros(shape, dtype=dt, device=device))
+            for j, (shape, dt) in enumerate(zip(meta.shapes, meta.dtypes))
+            if dt != torch.float32}
+
+
+def bind_learner(meta: FlatMeta, casts, make_params, w_leaves,
+                 g_leaves) -> _Bound:
+    """The loss_fn's params object for one learner, from its leaves in a
+    store (``w_leaves``) and in the grad store (``g_leaves``), in tree
+    order.  A leaf in its recorded dtype becomes an autograd leaf sharing
+    the store's memory, its ``.grad`` the matching grad leaf; a leaf of
+    another dtype (a bf16 leaf of the float32 flat store) is bound through
+    the persistent cast leaf and cast grad of its slot (``casts``, from
+    ``cast_leaves``), copied in and out around each forward/backward."""
+    pw, pg, bound_casts = [], [], []
+    for j, (w, g) in enumerate(zip(w_leaves, g_leaves)):
+        if w.dtype == meta.dtypes[j]:
+            pw.append(w.detach().requires_grad_())
+            pg.append(g)
+        else:
+            cw, cg = casts[j]
+            pw.append(cw)
+            pg.append(cg)
+            bound_casts.append((w, cw, cg, g))
+    pw = make_params(tree_unflatten(meta.treedef, pw))
+    pg = make_params(tree_unflatten(meta.treedef, pg))
+    for a, b in zip(_param_leaves(pw), _param_leaves(pg)):
+        a.grad = b.detach()
+    return _Bound(pw, tuple(bound_casts))
+
+
+def backward_into(loss_fn, bound: _Bound, batch) -> torch.Tensor:
+    """One learner's forward and backward on ``batch``: its gradient adds
+    into the grad leaves ``bound`` was bound to (zero them first), a cast
+    leaf's written back after the backward.  Returns the detached loss."""
+    with torch.no_grad():
+        for src, cw, cg, _ in bound.casts:
+            cw.copy_(src)
+            cg.zero_()
+    with torch.enable_grad():
+        loss = loss_fn(bound.params, batch)
+        loss.backward()
+    with torch.no_grad():
+        for _, _, cg, dst in bound.casts:
+            dst.copy_(cg)
+    return loss.detach()
+
+
+def fused_update(f, w, remote, grads, opt_state, partners, coefs, *, out,
+                 active=None, buffer=None, buffer_out=None, nbr_fresh=None,
+                 publish=None, weight_decay=None, backend: str = "auto"):
+    """One gossip + SGD pass of the fused recipe ``f`` (``FusedSGD``)
+    through ``ops.flat_gossip_update``, threading the optimizer state: the
+    kernel's coefficient table is ``coefs`` (n, K + 1) with the recipe's lr
+    scale and the ``active`` column (and in publish mode the ``nbr_fresh``
+    and ``publish`` columns) appended, all device tensors.  Returns
+    (w_new, opt_state[, buffer_new])."""
+    n = w.shape[0]
+    ones = torch.ones((n,), dtype=torch.float32, device=w.device)
+    scale = ones * f.scale(opt_state)
+    act = ones if active is None else active.to(torch.float32)
+    cols = [coefs, scale[:, None], act[:, None]]
+    if buffer is not None:
+        cols += [nbr_fresh.to(torch.float32)[:, None],
+                 publish.to(torch.float32)[:, None]]
+    table = torch.cat(cols, dim=1)
+    wd = f.weight_decay if weight_decay is None else weight_decay
+    res = kops.flat_gossip_update(
+        w, remote, grads, f.read_mu(opt_state), partners, table, lr=f.lr,
+        beta=f.beta, weight_decay=wd, buffer=buffer, out=out,
+        buffer_out=buffer_out, backend=backend)
+    opt_state = f.bump(opt_state)
+    if res[1] is not None:
+        opt_state = f.write_mu(opt_state, res[1])
+    if buffer is not None:
+        return res[0], opt_state, res[2]
+    return res[0], opt_state
+
+
 def _per_learner_grad_sq(grads) -> torch.Tensor:
     """(n,) float32: ||g_i||^2 per learner, summed leaf by leaf."""
     return sum(torch.sum(torch.square(g.float()),
@@ -245,6 +329,7 @@ class MultiLearnerTrainer:
                 and self._schedule is not None):
             self._fused = f
         self._meta: Optional[FlatMeta] = None   # set at init()
+        self._casts = {}                        # flat engine: cast_leaves
         self._gen = torch.Generator(device=self.device)
         self._noise_gen = torch.Generator(device=self.device)
 
@@ -270,29 +355,9 @@ class MultiLearnerTrainer:
             self.params_from_tree(tree)
 
     def _bind(self, w_leaves, g_leaves) -> _Bound:
-        """The loss_fn's params object for one learner, from its leaves in
-        a store (``w_leaves``) and in the grad store (``g_leaves``), in
-        tree order.  A leaf in its recorded dtype becomes an autograd leaf
-        sharing the store's memory, its ``.grad`` the matching grad leaf; a
-        leaf of another dtype (a bf16 leaf of the float32 flat store) is
-        bound through the persistent cast leaf and cast grad of its slot
-        (``_casts``), copied in and out around each forward/backward."""
-        meta = self._meta
-        pw, pg, casts = [], [], []
-        for j, (w, g) in enumerate(zip(w_leaves, g_leaves)):
-            if w.dtype == meta.dtypes[j]:
-                pw.append(w.detach().requires_grad_())
-                pg.append(g)
-            else:
-                cw, cg = self._casts[j]
-                pw.append(cw)
-                pg.append(cg)
-                casts.append((w, cw, cg, g))
-        pw = self._make_params(tree_unflatten(meta.treedef, pw))
-        pg = self._make_params(tree_unflatten(meta.treedef, pg))
-        for a, b in zip(_param_leaves(pw), _param_leaves(pg)):
-            a.grad = b.detach()
-        return _Bound(pw, tuple(casts))
+        """One learner's binding (``bind_learner``) to a store's leaves."""
+        return bind_learner(self._meta, self._casts, self._make_params,
+                            w_leaves, g_leaves)
 
     def _bind_all(self, store) -> List[_Bound]:
         """Every learner's binding to ``store`` (flat or stacked tree)."""
@@ -388,13 +453,7 @@ class MultiLearnerTrainer:
         dev = self.device
         meta = self._meta = flat_meta(params_single)
         if self._flat:
-            self._casts = {
-                j: (torch.empty(shape, dtype=dt, device=dev
-                                ).requires_grad_(),
-                    torch.zeros(shape, dtype=dt, device=dev))
-                for j, (shape, dt) in enumerate(zip(meta.shapes,
-                                                    meta.dtypes))
-                if dt != torch.float32}
+            self._casts = cast_leaves(meta, dev)
             one = meta.flatten(params_single, device=dev)
             shape = (n, meta.rows, LANE)
             self._w = [torch.empty(shape, device=dev) for _ in range(2)]
@@ -437,32 +496,12 @@ class MultiLearnerTrainer:
             return self.optimizer.update(grads, opt_state, params, mixed)
         return self.optimizer.update(grads, opt_state, params)
 
-    def _fused_step(self, w, remote, grads, opt_state, partners, coefs, *,
-                    out, active=None, buffer=None, buffer_out=None,
-                    nbr_fresh=None, publish=None, weight_decay=None):
-        """Dispatch the gossip + SGD kernel and thread the optimizer state.
-        Returns (w_new, opt_state[, buffer_new])."""
-        f = self._fused
-        n = w.shape[0]
-        ones = torch.ones((n,), dtype=torch.float32, device=w.device)
-        scale = ones * f.scale(opt_state)
-        act = ones if active is None else active.to(torch.float32)
-        cols = [coefs, scale[:, None], act[:, None]]
-        if buffer is not None:
-            cols += [nbr_fresh.to(torch.float32)[:, None],
-                     publish.to(torch.float32)[:, None]]
-        table = torch.cat(cols, dim=1)
-        wd = f.weight_decay if weight_decay is None else weight_decay
-        res = kops.flat_gossip_update(
-            w, remote, grads, f.read_mu(opt_state), partners, table,
-            lr=f.lr, beta=f.beta, weight_decay=wd, buffer=buffer, out=out,
-            buffer_out=buffer_out, backend=self.kernel_backend)
-        opt_state = f.bump(opt_state)
-        if res[1] is not None:
-            opt_state = f.write_mu(opt_state, res[1])
-        if buffer is not None:
-            return res[0], opt_state, res[2]
-        return res[0], opt_state
+    def _fused_step(self, w, remote, grads, opt_state, partners, coefs,
+                    **kw):
+        """``fused_update`` with this trainer's recipe and backend."""
+        return fused_update(self._fused, w, remote, grads, opt_state,
+                            partners, coefs, backend=self.kernel_backend,
+                            **kw)
 
     def _select_nonflat(self, mask, new, old):
         """Per-learner select on the small optimizer leaves (schedule
@@ -648,25 +687,13 @@ class MultiLearnerTrainer:
 
     def _grads(self, bound, batch) -> torch.Tensor:
         """Forward + backward per learner, one at a time; gradients land in
-        the grad store through the bound views (a cast leaf's gradient is
-        written into it after its backward).  Returns the (n,) losses."""
+        the grad store through the bound views (``backward_into``).
+        Returns the (n,) losses."""
         for g in tree_leaves(self._g):
             g.zero_()
-        losses = []
-        with torch.enable_grad():
-            for i, b in enumerate(bound):
-                with torch.no_grad():
-                    for src, cw, cg, _ in b.casts:
-                        cw.copy_(src)
-                        cg.zero_()
-                loss = self.loss_fn(b.params,
-                                    tree_map(lambda x: x[i], batch))
-                loss.backward()
-                with torch.no_grad():
-                    for _, _, cg, dst in b.casts:
-                        dst.copy_(cg)
-                losses.append(loss.detach())
-        return torch.stack(losses)
+        return torch.stack([backward_into(self.loss_fn, b,
+                                          tree_map(lambda x: x[i], batch))
+                            for i, b in enumerate(bound)])
 
     # -- one training step ----------------------------------------------------
     def train_step(self, state: TrainState, stacked_batch, rounds=None,

@@ -81,6 +81,16 @@ def check_outputs(inputs, outputs):
 
 
 def _check(w, remote, grads, mu, buffer, partners, coefs, out, buffer_out):
+    if w.dim() != 3 or w.shape[-1] != 128:
+        raise ValueError(f"w must be (n, T, 128), got {tuple(w.shape)}")
+    # the partner ids are trusted, so the remote stack must hold every row
+    # they may name: w's n rows, or any R >= 1 at n = 1 (the launch path)
+    n = w.shape[0]
+    if remote.dim() != 3 or remote.shape[1:] != w.shape[1:] \
+            or remote.shape[0] < 1 or (n != 1 and remote.shape[0] != n):
+        raise ValueError(f"remote must be ({n}, {w.shape[1]}, 128), or "
+                         f"(R >= 1, {w.shape[1]}, 128) at n = 1; got "
+                         f"{tuple(remote.shape)}")
     if w.device.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got w on "
                          f"{w.device} (ops.flat_gossip_update sends CPU "
@@ -93,18 +103,15 @@ def _check(w, remote, grads, mu, buffer, partners, coefs, out, buffer_out):
             raise ValueError(f"{name} must be on {w.device}, got {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if w.dim() != 3 or w.shape[-1] != 128:
-        raise ValueError(f"w must be (n, T, 128), got {tuple(w.shape)}")
     for name, t in data.items():
         if t.dtype != torch.float32:
             raise ValueError(f"{name} must be float32, got {t.dtype}")
-        if t.shape != w.shape:
+        if name != "remote" and t.shape != w.shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, w "
                              f"{tuple(w.shape)}")
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned (the kernel "
                              "loads float4)")
-    n = w.shape[0]
     if partners.dtype != torch.int32 or partners.dim() != 2 \
             or partners.shape[1] != n:
         raise ValueError(f"partners must be (K, {n}) int32, got "
@@ -129,9 +136,13 @@ def gossip_mix_update_flat(w, remote, grads, momentum, partners, coefs, *,
                            weight_decay: float = 0.0,
                            has_momentum: bool = True, buffer=None,
                            out=None, buffer_out=None):
-    """w, remote, grads, momentum, buffer: (n, T, 128) float32 on one CUDA
-    device; partners (K, n) int32 with ids in [0, n) (trusted: checking
-    them would need a host sync); coefs (n, K + 3), or (n, K + 5) in
+    """w, grads, momentum, buffer: (n, T, 128) float32 on one CUDA device;
+    remote: (R, T, 128) float32, the rows the partner ids index — ``w``
+    itself (R = n) on one device, or, at n = 1 only, the K rows a rank
+    received from its neighbours (R = K) on the launch path; partners
+    (K, n) int32 with ids in [0, R) (trusted: checking them would need a
+    host sync; a stale read in publish mode takes ``buffer[partner]``, so
+    there they lie in [0, n) too); coefs (n, K + 3), or (n, K + 5) in
     publish mode (``buffer`` given, K = 1).
 
     Returns (w_new, momentum[, buffer_new]): ``w_new`` is ``out`` (fresh

@@ -121,6 +121,10 @@ def flat_gossip_update(w, remote, grads, momentum, partners, coefs, *,
                        backend: str = "auto"):
     """Batched fused gossip + SGD update on the persistent (n, T, 128) store
     (DESIGN §11): one pass of ``kernels/gossip_mix.py`` over every learner.
+    ``remote`` is the (R, T, 128) stack the partner ids ``(K, n)`` index:
+    ``w`` itself (R = n) for a fleet on one device, or one rank's K
+    received neighbour rows (R = K, n = 1) on the launch path
+    (``launch/train.py``).
 
     ``momentum=None`` selects the momentum-free update; otherwise the
     momentum is updated IN PLACE.  ``buffer`` (AD-PSGD) switches on publish
@@ -152,22 +156,24 @@ def flat_gossip_update(w, remote, grads, momentum, partners, coefs, *,
 
 
 def flat_gossip_mix(w, partners, coefs, *, active=None, out=None,
-                    backend: str = "auto"):
+                    remote=None, backend: str = "auto"):
     """One mixing-only gossip round on the flat (n, T, 128) store.
 
-    ``partners``: (K, n) int32; ``coefs``: (n, K + 1) float32 ``[self,
-    neighbours...]`` — one row of a compiled GossipSchedule.  Multi-round
-    schedules run their leading rounds through this and fuse the optimizer
-    update into the last round only.  The same kernel with lr = 0 and ``w``
-    as the (unused) gradient operand.  ``active`` ((n,) bool): inactive
-    rows are copied unchanged.
+    ``partners``: (K, n) int32 ids into ``remote`` (default ``w``; on the
+    launch path a rank's (K, T, 128) received rows); ``coefs``: (n, K + 1)
+    float32 ``[self, neighbours...]`` — one row of a compiled
+    GossipSchedule.  Multi-round schedules run their leading rounds
+    through this and fuse the optimizer update into the last round only.
+    The same kernel with lr = 0 and ``w`` as the (unused) gradient
+    operand.  ``active`` ((n,) bool): inactive rows are copied unchanged.
     """
     n = w.shape[0]
     ones = torch.ones((n, 1), dtype=torch.float32, device=w.device)
     act = ones if active is None else active.to(torch.float32)[:, None]
     full = torch.cat([coefs.to(torch.float32), ones, act], dim=1)
-    return flat_gossip_update(w, w, w, None, partners, full, lr=0.0,
-                              out=out, backend=backend)[0]
+    return flat_gossip_update(w, w if remote is None else remote, w, None,
+                              partners, full, lr=0.0, out=out,
+                              backend=backend)[0]
 
 
 def reorthogonalize(basis, w, mask, *, backend: str = "auto"):

@@ -68,8 +68,8 @@ def probe_landscape(loss_fn: Callable, params, stacked_batch,
     covariance terms come from the learner spread.  ``gen`` draws the
     Lanczos start vector, then the Hutchinson probes; ``q0`` (a tree) and
     ``probes`` (a list of trees) replace those draws.  (The reference's
-    ``stacked=False`` single-replica form serves its launch path, which
-    arrives with ROADMAP slice 7.)"""
+    ``stacked=False`` single-replica form serves its sharded probe step,
+    which arrives with ROADMAP slice 7b.)"""
     pft = params_from_tree
     w_a = learner_mean(params)
     sig_sq = learner_var(params)

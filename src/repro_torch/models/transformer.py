@@ -211,7 +211,7 @@ def _mlp(lp: LayerParams, x, cfg: ModelConfig, mlp: str):
     """The layer's FFN half: x + mlp(rms_norm(x)) (x itself for "none").
     ``moe_backend`` "shard_map" takes the einsum path on one device, as
     the reference does without a ``model`` mesh axis (its all-to-all
-    arrives with ROADMAP slice 7)."""
+    arrives with ROADMAP slice 7b)."""
     if mlp == "none":
         return x
     h = rms_norm(x, lp.norm2, cfg.norm_eps)
