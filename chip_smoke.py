@@ -42,7 +42,7 @@ Phases (any failure raises and the script exits non-zero):
      (8 slots, page 16, max_len 256) runs 16 requests to completion; every
      request must finish with its budget, every logit must be finite, the
      attention kernel must have launched 12 times per engine step, and the
-     first 3 steps' logits must match the port on the CPU (plain versions,
+     first 2 steps' logits must match the port on the CPU (plain versions,
      same weights);
   3b. gemma2-27b served the same way at full width, depth cut to one
      local/global period (2 layers, 2.31 B bf16 parameters, bf16 K/V
@@ -139,9 +139,9 @@ Phases (any failure raises and the script exits non-zero):
      classes, SSGD against DPSGD at lr 0.25, 0.5 and 1.0, 120 steps; both
      converge at 0.25, as the reference's own run does), each printing its
      ``derived`` line and its gossip launches;
- 11. granite-moe-3b-a800m at full width and full depth (32 layers, 40
-     experts top-8, 3.37 B bf16 parameters from a seeded torch.Generator)
-     served as phase 3b serves gemma2 (32 decode launches a step; logits
+ 11. granite-moe-3b-a800m at full width, 16 of its 32 layers (40
+     experts top-8, 1.7 B bf16 parameters from a seeded torch.Generator)
+     served as phase 3b serves gemma2 (16 decode launches a step; logits
      within 2e-2 and the control outside it; the CPU
      steps replay the card's expert choices, and at most a quarter of the
      tokens may have picked another set of experts on the CPU; the error
@@ -163,7 +163,7 @@ Phases (any failure raises and the script exits non-zero):
      ``reset_slot`` zeroes one slot), paged decode of a 64-token prompt
      against ``api.apply`` (bf16 within 0.12, float32 within 1e-4), then
      trained with DPSGD (4 learners, random_pair, seq 256, local batch 2,
-     2 steps: 1 gossip launch a step, the store equal to
+     1 step: 1 gossip launch, the store equal to
      ``kernel_backend="ref"`` within 1e-5);
  14. qwen2-vl-7b (28 layers) and seamless-m4t-large-v2 (24 + 24 layers)
      at full width and depth in bf16, one after the other: qwen2-vl's
@@ -205,8 +205,8 @@ Phases (any failure raises and the script exits non-zero):
      width and depth with phase 4's recipe, rank r from its own weights
      (seed SEED + r, carried in as stacked numpy through
      ``rank_state_from_numpy``): DPSGD on random_pair (matchings drawn on
-     the host) for 3 steps and on ring (K = 2) for 2, AD-PSGD (staleness
-     4, learner 0 three times slower) for 4 ticks; every step's gossip
+     the host) for 2 steps and on ring (K = 2) for 2, AD-PSGD (staleness
+     4, learner 0 three times slower) for 3 ticks; every step's gossip
      through the fused kernel at n = 1 (launches summed over the ranks =
      ranks x steps x rounds), one send and one receive per live slot, K
      stores received a round (beside ``analytic``'s ring bytes); rank 0
@@ -219,18 +219,41 @@ Phases (any failure raises and the script exits non-zero):
      and a solo DPSGD step against the trainer at n = 1, each under
      ``torch.cuda.set_sync_debug_mode("error")`` (no host sync); with no
      neighbour, no point-to-point op and no gossip kernel runs there.
+ 17. the model axis (a learner spanning the ranks of a ``DeviceMesh``,
+     ``launch/train.py`` with ``mesh=``): 4 gloo ranks sharing the card
+     again.  (a) a (data 2, model 2) mesh, transformer-100m at full width
+     and depth with phase 4's recipe (one row a model rank): DPSGD on
+     ring for 3 steps, SSGD for 3 and AD-PSGD for 2 ticks, each rank
+     storing its shard of every leaf as the reference's ``leaf_spec``
+     cuts it; a step gathers the shards over the model group, runs its
+     rows, reduce-scatters the gradient (3 model-group collectives a
+     step) and gossips its shard with the rank at the same model
+     coordinate of the partner learner through kernel #2; the learners'
+     gathered stores within 1e-5 of the single-process trainer at n = 2
+     (plain kernel); ms a step split into compute, model (the gather,
+     reduce-scatter and all-reduce), exchange and kernel, the bytes of
+     each, peak memory; (b) the sharded probe on (a)'s DPSGD learners and
+     on SSGD's replica (``stacked=False``), its Lanczos basis a shard per
+     rank through kernels #4 / #5, against the single-process
+     ``probe_landscape`` with the same draws (sharpness within 1e-4);
+     (c) a (1, 4) mesh: one granite-moe-3b-a800m MoE block at full width
+     in bf16 through the expert-parallel all-to-all
+     (``models/moe_shardmap.py``), 4,096 tokens, forward and backward
+     against the einsum path on the same tokens, its bf16 tier held
+     against its control.
  Phase 2 also holds the gossip kernel at the launch path's shapes: n = 1
  with a received (2, T, 128) stack as its remote (the ring), and n = 1 in
  publish mode (AD-PSGD).
 
 ``python3 chip_smoke.py --only N`` runs phase N alone (2: every kernel
-check, 3-7, 10, 13-16) and prints its record and the last line.
+check, 3-7, 10, 13-17) and prints its record and the last line.
 Each path runs with every kernel's launch count set to 0 just before it
 and read just after.  The last lines are the serve (100m, gemma2,
 granite), train (with the bridge), probe, FC, Table-1, gemma2,
 flash-training, pytree-engine, paper-experiment, granite-moe, jamba,
-xlstm, qwen2-vl, seamless, elastic and launch numbers, the card, the
-kernels record and ``{"ok": true, "device": {...}}``.
+xlstm, qwen2-vl, seamless, elastic, launch and mesh numbers, each phase's
+wall seconds, the card, the kernels record and ``{"ok": true, "device":
+{...}}``.
 Without CUDA the script exits 1 before printing any result.
 """
 from __future__ import annotations
@@ -249,7 +272,7 @@ import torch
 SEED = 0
 N_SLOTS, PAGE, MAX_LEN = 8, 16, 256
 N_REQUESTS = 16
-CPU_STEPS = 3
+CPU_STEPS = 2
 KERNEL_ATOL = 1e-5
 # logits over 12 float32 layers on the card against the CPU: the sums run
 # in other orders, so the two agree to ~1e-5 relative, not bitwise
@@ -353,7 +376,8 @@ GEMMA_BF16_RTOL = 2e-2
 # steps one mantissa bit below bf16 (``held``: the control's best step must
 # fall outside it).  The difference grows with depth as sqrt(layers)
 # (granite-moe: 1.3e-3 after one layer, 8.6e-3 after 8, 1.67e-2 after all
-# 32).  On an H100 (run 18c): gemma2 (2 layers) 4.5-5.3e-3, control
+# 32; phase 11 serves 16 since PR 22).  On an H100 (run 18c, over 3 CPU
+# steps; 2 since PR 22): gemma2 (2 layers) 4.5-5.3e-3, control
 # 2.09e-2; granite-20b (2) 3.9-4.7e-3, control 1.50e-2; granite-moe (32)
 # 1.64-1.76e-2, control 6.62e-2; jamba (8) 1.04-1.21e-2, control 2.92e-2.
 # 2e-2 let a 2-layer model's control pass, so those hold 1e-2
@@ -393,15 +417,17 @@ FLASH_TRAIN_LOSS_RTOL = 1e-5
 BRIDGE_MEAN_ATOL = 1e-6
 BRIDGE_STEPS = 2
 BRIDGE_PROBE = (2, 64)
-# phases 11-12: granite-moe-3b-a800m at full width and depth (32 layers;
-# 40 experts top-8, 24 query heads on 8 kv heads, hd 64) and
+# phases 11-12: granite-moe-3b-a800m at full width, 16 of 32 layers (40
+# experts top-8, 24 query heads on 8 kv heads, hd 64; the full depth ran
+# to PR 21, cut for the run's time limit when phase 17 came) and
 # jamba-v0.1-52b at full width, depth cut to one period (8 layers: 7
 # mamba, 1 attention with a 4,096 window and no RoPE; 4 MoE layers of 16
 # experts top-2), both bf16, served as phase 3b serves gemma2 and
 # prefilled through the flash route against the chunked route (the last
 # GEMMA_LAST positions within GEMMA_BF16_RTOL)
 ZOO = (   # (record key, config, layers, why, prefill length)
-    ("serve_granite_moe", "granite-moe-3b-a800m", 32, "full depth", 4096),
+    ("serve_granite_moe", "granite-moe-3b-a800m", 16,
+     "16 of 32 layers, for the run's time limit", 4096),
     ("serve_jamba", "jamba-v0.1-52b", 8,
      "one period: 7 mamba + 1 attention layers, 4 of them MoE", 8192),
 )
@@ -428,7 +454,7 @@ XLSTM_SERVE_RTOL = 5e-2
 XLSTM_PREFILL = 64          # prompt of the decode-against-prefill check
 XLSTM_DECODE_RTOL = 0.12
 XLSTM_DECODE_F32_RTOL = 1e-4
-XLSTM_TRAIN_SEQ, XLSTM_TRAIN_STEPS = 256, 2
+XLSTM_TRAIN_SEQ, XLSTM_TRAIN_STEPS = 256, 1
 # 14: qwen2-vl-7b (28 layers) and seamless-m4t-large-v2 (24 + 24) at full
 # depth: prefill / encode, then greedy decode_step held against apply on
 # the same tokens; then both at full width with depth cut to 2 (2 + 2)
@@ -452,7 +478,7 @@ CUT_RTOL = 1.2e-2
 # checkpoint of that fleet, beside a torn newer copy (its first
 # CKPT_TORN_BYTES); c: the FC net under supervised fault plans at
 # benchmarks/faults.py's settings; d: the Fig. 3 twin
-ELASTIC_WINDOW, ELASTIC_DEAD = 2, 1
+ELASTIC_WINDOW, ELASTIC_DEAD = 1, 1
 ADMIT_RTOL = 1e-6
 CKPT_TORN_BYTES = 1 << 20
 FAULT_N, FAULT_LR, FAULT_BATCH, FAULT_STEPS = 5, 0.5, 200, 60
@@ -469,9 +495,33 @@ HANG_EVICTED_AT = 4 * 2 * 2 ** 2
 # within TRAIN_REF_ATOL.  b: world size 1 over NCCL, an SSGD and a solo
 # DPSGD step against the trainer at n = 1, with no host sync
 LAUNCH_RANKS = 4
-LAUNCH_CASES = (("dpsgd_random_pair", 3), ("dpsgd_ring", 2), ("adpsgd", 4))
+LAUNCH_CASES = (("dpsgd_random_pair", 2), ("dpsgd_ring", 2), ("adpsgd", 3))
 LAUNCH_STALENESS, LAUNCH_SLOW, LAUNCH_SLOW_FACTOR = 4, 0, 3
 LAUNCH_TIMEOUT_S = 600      # the gloo group's timeout and the phase's wait
+# phase 17: the model axis (launch/train.py with mesh=, launch/shardstore.py,
+# models/moe_shardmap.py), 4 gloo ranks sharing the card as in phase 16.
+# a: transformer-100m at full width and depth on a (data 2, model 2) mesh
+# with phase 4's recipe (local batch 2: one row a model rank), learner i
+# from seed SEED + i: (case, steps) DPSGD on ring, SSGD and AD-PSGD (a 3x
+# straggler), each learner's gathered store held against the
+# single-process trainer at n = 2 (plain kernels) within TRAIN_REF_ATOL.
+# b: the sharded probe (MESH_PROBE: Lanczos iterations, Hutchinson
+# samples) on a's DPSGD state (stacked) and SSGD state (stacked=False),
+# against the single-process probe_landscape with the same draws (its
+# reorthogonalization the plain version, as the reference's sharded probe
+# runs it): sharpness within MESH_PROBE_RTOL.  c: one granite-moe-3b-a800m
+# MoE block at full width (d 1,536, 40 experts top-8, ff 512, bf16) on a
+# (1, 4) mesh, MOE_EP_TOKENS tokens (each rank a quarter), forward and
+# backward through the expert-parallel all-to-all at a capacity that drops
+# nothing (MOE_EP_CF), against the einsum moe_forward on the same rank's
+# tokens (MOE_EINSUM_CF drops nothing either): output, dx and the summed
+# dw1 within MOE_EP_RTOL, y and dx held against their control.
+MESH_SHAPE = (2, 2)
+MESH_CASES = (("dpsgd_ring", 2), ("ssgd", 2), ("adpsgd", 2))
+MESH_PROBE = (2, 1)
+MESH_PROBE_RTOL = 1e-4
+MOE_EP_TOKENS, MOE_EP_CF, MOE_EINSUM_CF = 4096, 4.0, 5.0
+MOE_EP_RTOL = 8e-3
 # jamba's decode shape in phase 2 (H 32 on KV 8, hd 128, window 4,096)
 # and granite-moe's (H 24 on KV 8, hd 64), 8 slots up to 8,192 tokens
 ZOO_DECODE = {"granite_moe": (24, 8, 64, {}),
@@ -931,7 +981,10 @@ class CoarseBF16(torch.overrides.TorchFunctionMode):
     significant bits, nearest): a run one bit less precise than bf16
     throughout, the control that a bf16 tier must reject.  Views and
     in-place results (storage shared with an argument) pass unchanged, so
-    writes through them still reach their base."""
+    writes through them still reach their base.  A result that requires
+    grad keeps its graph (the rounding added as a detached difference),
+    so a differentiated run's backward runs on its coarse forward (the
+    backward's own products, in autograd's engine, are not rounded)."""
 
     def __torch_function__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
@@ -943,8 +996,11 @@ class CoarseBF16(torch.overrides.TorchFunctionMode):
                and a.untyped_storage().data_ptr() == ptr
                for a in (*args, *(kwargs or {}).values())):
             return out
-        bits = out.view(torch.int16).to(torch.int32)
-        return ((bits + 1) // 2 * 2).to(torch.int16).view(torch.bfloat16)
+        bits = out.detach().view(torch.int16).to(torch.int32)
+        coarse = ((bits + 1) // 2 * 2).to(torch.int16).view(torch.bfloat16)
+        if out.requires_grad:   # keep the graph: out + (coarse - out)
+            return out + (coarse - out.detach())
+        return coarse
 
 
 def module_on(params, device):
@@ -1864,10 +1920,14 @@ def bridge_phase(run, kernels):
 
 def probe_phase(trainer, state, api, loader, kernels):
     """The full-width landscape probe on the trained state, through the
-    trainer's probe seam, then the same probe with the plain reorth and
-    ``trainer.diagnostics``.  Returns (record, {kernel: launches})."""
+    trainer's probe seam, then its Lanczos with the plain reorth from the
+    same start vector, and ``trainer.diagnostics``.  Returns (record,
+    {kernel: launches})."""
+    from repro_torch.core.util import learner_mean
     from repro_torch.kernels.reorth import reorth_axpy, reorth_dots
-    from repro_torch.landscape import ProbeSchedule, make_trainer_probe
+    from repro_torch.landscape import (ProbeSchedule, lanczos_pytree,
+                                       make_trainer_probe, sharpness)
+    from repro_torch.landscape.probe import probe_seed
 
     def probe_fn(reorth):
         return make_trainer_probe(
@@ -1900,10 +1960,17 @@ def probe_phase(trainer, state, api, loader, kernels):
     util = [float(x.split(",")[0]) for x in samples if "," in x]
     clocks = sorted(float(x.split(",")[1]) for x in samples if "," in x)
 
+    # the sharpness again with the plain reorth: the probe's Lanczos alone,
+    # from the start vector its generator drew first
     for k in kernels:
         k.launches = 0
     t0 = time.perf_counter()
-    ref_res = probe_fn("ref")(trainer.state_view(state), batch)
+    gen = torch.Generator(device="cuda").manual_seed(
+        probe_seed(SEED, state.step))
+    ref_lam = float(sharpness(lanczos_pytree(
+        api.loss_fn, learner_mean(trainer.state_view(state).params), batch,
+        m=PROBE_ITERS, gen=gen, reorth="ref",
+        params_from_tree=api.params_from_tree)))
     torch.cuda.synchronize()
     ref_s = time.perf_counter() - t0
     ref_launches = {k.__name__: k.launches for k in kernels}
@@ -1914,17 +1981,15 @@ def probe_phase(trainer, state, api, loader, kernels):
     diag_s = time.perf_counter() - t0
 
     fields = {f: float(v) for f, v in res._asdict().items()}
-    ref_fields = {f: float(v) for f, v in ref_res._asdict().items()}
     diag_fields = {f: float(v) for f, v in diag._asdict().items()}
     check(all(np.isfinite(list(fields.values()))),
           f"non-finite probe result {fields}")
     check(all(np.isfinite(list(diag_fields.values()))),
           f"non-finite diagnostics {diag_fields}")
-    rel = abs(fields["sharpness"] - ref_fields["sharpness"]) / abs(
-        ref_fields["sharpness"])
+    rel = abs(fields["sharpness"] - ref_lam) / abs(ref_lam)
     check(rel <= PROBE_RTOL,
           f"probe sharpness {fields['sharpness']} differs from the plain "
-          f"reorth run's {ref_fields['sharpness']} by {rel} relative")
+          f"reorth run's {ref_lam} by {rel} relative")
     want = 2 * PROBE_ITERS          # two CGS sweeps per Lanczos step
     check(launches["reorth_dots"] == want == launches["reorth_axpy"],
           f"reorth launches in the probe {launches}, want {want} each")
@@ -1948,7 +2013,7 @@ def probe_phase(trainer, state, api, loader, kernels):
         "sm_clock_mhz_median": clocks[len(clocks) // 2] if clocks else None,
         "max_memory_allocated_gb": peak_gb,
         "result": fields,
-        "ref_reorth_result": ref_fields, "ref_reorth_wall_s": ref_s,
+        "ref_reorth_sharpness": ref_lam, "ref_reorth_lanczos_wall_s": ref_s,
         "sharpness_rel_diff_vs_ref_reorth": rel,
         "diagnostics": diag_fields, "diagnostics_wall_s": diag_s,
         "kernel_launches": launches,
@@ -3101,7 +3166,7 @@ def xlstm_train(api, kernels):
             "bf16_leaves": sum(d == torch.bfloat16 for d in meta.dtypes),
             "step_wall_ms": step_ms, "losses": losses,
             "max_memory_allocated_gb": peak_gb, "kernel_launches": launches,
-            "ref_backend_max_abs_diff_after_2_steps": err,
+            f"ref_backend_max_abs_diff_after_{XLSTM_TRAIN_STEPS}_steps": err,
             "tier_abs": TRAIN_REF_ATOL}, launches["gossip_mix_update_flat"]
 
 
@@ -3747,12 +3812,12 @@ def _tree_paths(tree, prefix=""):
     return {prefix[:-1]: tree}
 
 
-def _save_stacked(api, wdir):
-    """Each rank's initial weights (transformer-100m from seed SEED + r, on
-    the card), stacked over ranks as the reference's stacked state is: one
-    .npy per leaf and an index of the leaves' paths."""
+def _save_stacked(api, wdir, n=LAUNCH_RANKS):
+    """Each learner's initial weights (transformer-100m from seed SEED + r,
+    on the card), stacked over the n learners as the reference's stacked
+    state is: one .npy per leaf and an index of the leaves' paths."""
     trees = [_tree_paths(api.param_tree(api.init(SEED + r)))
-             for r in range(LAUNCH_RANKS)]
+             for r in range(n)]
     paths = sorted(trees[0])
     for i, path in enumerate(paths):
         np.save(Path(wdir) / f"{i}.npy",
@@ -4066,9 +4131,9 @@ def launch_phase(kernels):
 
     store = ranks[0]["cases"]["dpsgd_ring"]["store_bytes"]
     record = {
-        "transport": "gloo over TCP loopback, each exchange staged through "
-                     "pinned host memory; 4 ranks sharing one H100 (not "
-                     "NCCL)",
+        "transport": "gloo over TCP loopback, every collective (each "
+                     "exchange, the loss all_reduce) staged through pinned "
+                     "host memory; 4 ranks sharing one H100 (not NCCL)",
         "model": cfg.name, "ranks": LAUNCH_RANKS, "local_batch": TRAIN_BATCH,
         "seq": TRAIN_SEQ, "lr": TRAIN_LR, "weights_setup_s": setup_s,
         "ranks_wall_s": ranks_s, "store_bytes": store,
@@ -4112,6 +4177,477 @@ def launch_phase(kernels):
                     for k, v in launches.items()}
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the model axis (a learner over several ranks of a DeviceMesh)
+# ---------------------------------------------------------------------------
+
+def _mesh_loader(cfg):
+    from repro_torch.data import ShardedLoader, SyntheticTokenStream
+    return ShardedLoader(SyntheticTokenStream(vocab=cfg.vocab),
+                         n_learners=MESH_SHAPE[0], local_batch=TRAIN_BATCH,
+                         extra_args=(TRAIN_SEQ,), seed=SEED)
+
+
+def _mesh_step(name, api, mesh):
+    from repro_torch.launch.train import (make_adpsgd_train_step,
+                                          make_dpsgd_train_step,
+                                          make_ssgd_train_step)
+    if name == "adpsgd":
+        return make_adpsgd_train_step(
+            api, _launch_opt(), mesh=mesh, max_staleness=LAUNCH_STALENESS,
+            slow_learner=LAUNCH_SLOW, slow_factor=LAUNCH_SLOW_FACTOR)
+    if name == "ssgd":
+        return make_ssgd_train_step(api, _launch_opt(), mesh=mesh)
+    return make_dpsgd_train_step(api, _launch_opt(), mesh=mesh,
+                                 topology=name.split("_", 1)[1])
+
+
+def mesh_rank(rank, port, wdir, queue):
+    """One gloo rank of phase 17, run in a spawned process: puts (rank,
+    record, None) on ``queue``, or (rank, None, the traceback)."""
+    import traceback
+    try:
+        queue.put((rank, _mesh_rank(rank, port, wdir), None))
+    except BaseException:
+        queue.put((rank, None, traceback.format_exc()))
+        raise
+
+
+def _probe_draws(api, full_meta):
+    """The probe's Lanczos start vector and Hutchinson probes as full trees,
+    drawn alike on every rank from one seed."""
+    from repro_torch.core.util import tree_gaussian_like
+    from repro_torch.landscape.hvp import tree_rademacher_like
+    like = full_meta.view_tree(torch.zeros((full_meta.rows, 128),
+                                           device="cuda"))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    q0 = tree_gaussian_like(gen, like, 1.0)
+    return q0, [tree_rademacher_like(gen, like)
+                for _ in range(MESH_PROBE[1])]
+
+
+def _mesh_rank(rank, port, wdir):
+    """Phase 17 as rank ``rank``: a (data 2, model 2) mesh trains every case
+    of MESH_CASES (the first step warms up, the others are timed; the
+    learners' gathered stores go to rank 0, which holds them against the
+    trainer), probes after the DPSGD and SSGD cases, then a (1, 4) mesh
+    runs granite-moe's MoE block through the all-to-all."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import gossip_mix, reorth
+    from repro_torch.launch import init_learner_group
+    from repro_torch.launch.mesh import learner_rank, make_mesh, model_rank
+    from repro_torch.launch.train import (gather_learner, make_probe_step,
+                                          rank_state_from_numpy)
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_learner_group(rank, LAUNCH_RANKS, f"tcp://127.0.0.1:{port}",
+                       backend="gloo", timeout_s=LAUNCH_TIMEOUT_S)
+    mesh = make_mesh(MESH_SHAPE, ("data", "model"))
+    i, j = learner_rank(mesh), model_rank(mesh)
+    cfg = get_config("transformer-100m")
+    api = build_model(cfg)
+    params = _load_stacked(wdir)
+    single = tree_map(lambda a: np.broadcast_to(a[:1], a.shape), params)
+    loader = _mesh_loader(cfg)
+    kernel = gossip_mix.gossip_mix_update_flat
+    records, finals, probes = {}, {}, {}
+    draws = None
+    for name, steps in MESH_CASES:
+        batches = [tree_map(lambda x: x[i], loader.batch(t))
+                   for t in range(steps)]
+        step = _mesh_step(name, api, mesh)
+        state = rank_state_from_numpy(
+            step, single if name == "ssgd" else params,
+            buffer=params if name == "adpsgd" else None, seed=SEED)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernel.launches = 0
+        losses, walls, model = [], [], []
+        for t in range(steps):
+            if t == 1:
+                step.timing = {}
+            m0 = step.model_bytes
+            t0 = time.perf_counter()
+            state, m = step(state, batches[t])
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            losses.append(m["loss"])
+            model.append(step.model_bytes - m0)
+        launches = kernel.launches
+        timed = steps - 1
+        records[name] = {
+            "steps": steps, "timed_steps": timed,
+            "ms_per_step": 1e3 * sum(walls[1:]) / timed,
+            "first_step_ms": 1e3 * walls[0],
+            "parts_ms_per_step": {k: 1e3 * v / timed
+                                  for k, v in step.timing.items()},
+            "max_memory_allocated_gb": torch.cuda.max_memory_allocated()
+            / 1e9,
+            "launches": launches,
+            "model_collectives_per_step": step.model_collectives / steps,
+            "model_bytes_per_step": model[-1],
+            "gossip_bytes_per_step": step.bytes_received / steps,
+            "rounds": step.last_rounds, "store_bytes":
+                state.params.numel() * state.params.element_size(),
+            "losses": torch.stack(losses).tolist()}
+        finals[name] = [gather_learner(step, state.params).cpu()] + (
+            [gather_learner(step, state.buffer).cpu()]
+            if name == "adpsgd" else [])
+        if name in ("dpsgd_ring", "ssgd"):
+            if draws is None:
+                draws = _probe_draws(api, step._layout.full)
+            stacked = name != "ssgd"
+            probe = make_probe_step(api, mesh, alpha=TRAIN_LR,
+                                    stacked=stacked,
+                                    lanczos_iters=MESH_PROBE[0],
+                                    hutchinson_samples=MESH_PROBE[1])
+            reorth.reorth_dots.launches = reorth.reorth_axpy.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = probe(state.params, batches[0], q0=draws[0],
+                      probes=draws[1])
+            torch.cuda.synchronize()
+            probes["stacked" if stacked else "single"] = {
+                "wall_s": time.perf_counter() - t0,
+                "result": {f: float(getattr(r, f)) for f in r._fields},
+                "reorth_dots_launches": reorth.reorth_dots.launches,
+                "reorth_axpy_launches": reorth.reorth_axpy.launches,
+                "model_collectives": probe.model.calls,
+                "learner_collectives": probe.learners.calls,
+                "model_bytes": probe.model.bytes,
+                "learner_bytes": probe.learners.bytes}
+            del probe
+        del step, state, batches
+        torch.cuda.empty_cache()
+    record = {"cases": records, "probe": probes, "learner": i,
+              "model_rank": j}
+    # each learner's gathered store, from its model rank 0 to rank 0
+    gathered = {}
+    for name, rows in finals.items():
+        for k, row in enumerate(rows):
+            if rank == 0:
+                got = [row]
+                for r in range(1, MESH_SHAPE[0]):
+                    got.append(torch.empty_like(row))
+                    dist.recv(got[-1], src=r * MESH_SHAPE[1])
+                gathered[(name, k)] = got
+            elif j == 0:
+                dist.send(row, dst=0)
+    del finals
+    if rank == 0:
+        record["against_trainer"] = _mesh_against_trainer(
+            api, params, loader, gathered, draws)
+    del draws, gathered
+    torch.cuda.empty_cache()
+    record["moe"] = _mesh_moe(make_mesh((1, LAUNCH_RANKS),
+                                        ("data", "model")), rank)
+    dist.destroy_process_group()
+    return record
+
+
+def _mesh_against_trainer(api, params, loader, gathered, draws):
+    """The single-process trainer (n = 2 learners, plain gossip kernel)
+    from the same weights and batches: each case's max abs gap to the
+    learners' gathered stores; then the single-process probe_landscape of
+    the DPSGD learners (and of SSGD's replica, ``stacked=False``) with the
+    same draws, its reorthogonalization the plain version."""
+    from repro_torch.core import AlgoConfig, MultiLearnerTrainer
+    from repro_torch.core.dpsgd import hypercube_tables
+    from repro_torch.core.flatstate import flat_meta
+    from repro_torch.landscape import probe_landscape
+    from repro_torch.models.convert import tree_from_jax
+    from repro_torch.tree import tree_map
+
+    n = MESH_SHAPE[0]
+    stacked = tree_from_jax(params, device="cuda")
+    single = tree_map(lambda x: x[0], stacked)
+    meta = flat_meta(single)
+    out = {}
+    for name, steps in MESH_CASES:
+        kw = {}
+        if name == "adpsgd":
+            algo = AlgoConfig(algo="adpsgd", topology="random_pair",
+                              n_learners=n, max_staleness=LAUNCH_STALENESS,
+                              slow_learner=LAUNCH_SLOW,
+                              slow_factor=LAUNCH_SLOW_FACTOR)
+        elif name == "ssgd":
+            algo = AlgoConfig(algo="ssgd", n_learners=n)
+            kw = dict(engine="flat")
+        else:
+            algo = AlgoConfig(algo="dpsgd", topology=name.split("_", 1)[1],
+                              n_learners=n)
+        tr = MultiLearnerTrainer(api.loss_fn, _launch_opt(), algo,
+                                 kernel_backend="ref",
+                                 params_from_tree=api.params_from_tree, **kw)
+        state = tr.init(SEED, single)
+        if name != "ssgd":
+            state.params.copy_(meta.flatten(stacked))
+        if state.buffer is not None:
+            state.buffer.copy_(state.params)
+        for t in range(steps):
+            rounds = ([hypercube_tables(t, n)] if name == "adpsgd"
+                      else None)
+            state, _ = tr.train_step(state, loader.batch(t), rounds)
+        rec = {}
+        for k, (what, want) in enumerate(
+                (("params", state.params), ("buffer", state.buffer))):
+            if (name, k) in gathered:
+                got = torch.stack(gathered[(name, k)]).to("cuda")
+                rec[f"{what}_max_abs_err"] = float((got - want).abs().max())
+                del got
+        if name in ("dpsgd_ring", "ssgd"):
+            rows = torch.stack(gathered[(name, 0)]).to("cuda")
+            tree = meta.unflatten(rows if name != "ssgd" else rows[0])
+            t0 = time.perf_counter()
+            r = probe_landscape(
+                api.loss_fn, tree, loader.batch(0), alpha=TRAIN_LR,
+                lanczos_iters=MESH_PROBE[0],
+                hutchinson_samples=MESH_PROBE[1], reorth="ref",
+                params_from_tree=api.params_from_tree, q0=draws[0],
+                probes=draws[1], stacked=name != "ssgd")
+            torch.cuda.synchronize()
+            rec["probe"] = {f: float(getattr(r, f)) for f in r._fields}
+            rec["probe_wall_s"] = time.perf_counter() - t0
+            del rows, tree
+        out[name] = rec
+        del tr, state
+        torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_moe(mesh, rank):
+    """Phase 17c on one rank of the (1, 4) mesh: granite-moe's MoE block,
+    this rank's MOE_EP_TOKENS / 4 tokens, forward and backward through the
+    all-to-all against the einsum path on the same tokens (and the
+    all-to-all run one mantissa bit below bf16, the control).  Returns the
+    rank's readings."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe_shardmap as ms
+    from repro_torch.models.moe import init_moe_params, moe_forward
+    from repro_torch.models.shard_hints import use_mesh
+
+    cfg = get_config("granite-moe-3b-a800m")
+    d, E, k = cfg.d_model, cfg.n_experts, cfg.experts_per_tok
+    M = LAUNCH_RANKS
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = init_moe_params(gen, d, cfg.d_ff, E, torch.bfloat16)
+    x_all = torch.randn((1, MOE_EP_TOKENS, d), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+    dy_all = torch.randn((1, MOE_EP_TOKENS, d), generator=gen,
+                         device="cuda")
+    T = MOE_EP_TOKENS // M
+    x0 = x_all[:, rank * T:(rank + 1) * T].contiguous()
+    dy = dy_all[:, rank * T:(rank + 1) * T].contiguous()
+
+    def run(fn):
+        for p in params.parameters():
+            p.grad = None
+        x = x0.clone().requires_grad_()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = fn(x)
+        torch.sum(y.float() * dy).backward()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return (y.detach(), x.grad, params.w1.grad.float(),
+                params.router.grad.clone(), wall)
+
+    stats = {}
+
+    def ep(x):
+        with use_mesh(mesh):
+            return ms.moe_forward_shardmap(params, x, n_experts=E, top_k=k,
+                                           capacity_factor=MOE_EP_CF,
+                                           stats=stats)
+
+    def einsum(x):
+        return moe_forward(params, x, n_experts=E, top_k=k,
+                           capacity_factor=MOE_EINSUM_CF)
+
+    ep(x0)                                        # warm-up
+    calls0 = ms.all_to_all.calls
+    y, dx, dw1, drouter, ep_s = run(ep)
+    calls = ms.all_to_all.calls - calls0
+    yr, dxr, dw1r, drouterr, einsum_s = run(einsum)
+    with CoarseBF16():
+        yc, dxc, dw1c, _, _ = run(ep)
+    for g in (dw1, dw1r, dw1c):       # every rank's tokens' contributions
+        host = g.cpu()
+        dist.all_reduce(host)
+        g.copy_(host)
+    return {"tokens_per_rank": T, "local_experts": E // M,
+            "cap_send": stats["cap_send"], "cap_expert": stats["cap_expert"],
+            "dropped": int(stats["dropped_send"]) + int(
+                stats["dropped_expert"]),
+            "all_to_all_calls_fwd_bwd": calls,
+            "ep_fwd_bwd_ms": 1e3 * ep_s, "einsum_fwd_bwd_ms": 1e3 * einsum_s,
+            "y_rel": _rel(y, yr), "y_rel_control": _rel(yc, yr),
+            "dx_rel": _rel(dx, dxr), "dx_rel_control": _rel(dxc, dxr),
+            "dw1_rel": _rel(dw1, dw1r), "dw1_rel_control": _rel(dw1c, dw1r),
+            "drouter_rel": _rel(drouter, drouterr)}
+
+
+def _mesh_ranks(wdir):
+    """Phase 17's ranks, spawned together; returns {rank: record}."""
+    import queue as queues
+
+    ctx = torch.multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    port = _free_port()
+    procs = [ctx.Process(target=mesh_rank, args=(r, port, wdir, results))
+             for r in range(LAUNCH_RANKS)]
+    for p in procs:
+        p.start()
+    out = {}
+    try:
+        deadline = time.monotonic() + LAUNCH_TIMEOUT_S
+        while len(out) < LAUNCH_RANKS:
+            left = deadline - time.monotonic()
+            try:
+                rank, record, err = results.get(timeout=max(left, 1))
+            except queues.Empty:
+                raise RuntimeError(f"mesh ranks silent for "
+                                   f"{LAUNCH_TIMEOUT_S} s; got {sorted(out)}")
+            check(err is None, f"mesh rank {rank} failed:\n{err}")
+            out[rank] = record
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.terminate()
+                p.join()
+    check(all(p.exitcode == 0 for p in procs),
+          f"mesh rank exit codes {[p.exitcode for p in procs]}")
+    return out
+
+
+def mesh_phase(kernels):
+    """Phase 17: a-c.  Returns (record, gossip launches by path, reorth
+    launches by kernel)."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config("transformer-100m")
+    api = build_model(cfg)
+    with tempfile.TemporaryDirectory() as wdir:
+        t0 = time.perf_counter()
+        _save_stacked(api, wdir, MESH_SHAPE[0])
+        del api
+        torch.cuda.empty_cache()
+        setup_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ranks = _mesh_ranks(wdir)
+        ranks_s = time.perf_counter() - t0
+
+    n, M = MESH_SHAPE
+    trainer = ranks[0]["against_trainer"]
+    record = {
+        "transport": "gloo over TCP loopback, every collective (the model "
+                     "group's, the gossip exchange, the learner group's "
+                     "all_reduces, the MoE all-to-all) staged through "
+                     "pinned host memory; 4 ranks sharing one H100 (not "
+                     "NCCL)",
+        "torch": torch.__version__, "model": cfg.name,
+        "mesh": {"data": n, "model": M},
+        "local_batch": TRAIN_BATCH, "rows_per_model_rank": TRAIN_BATCH // M,
+        "seq": TRAIN_SEQ, "lr": TRAIN_LR, "weights_setup_s": setup_s,
+        "ranks_wall_s": ranks_s, "cases": {}}
+    launches = {}
+    for name, steps in MESH_CASES:
+        per = [ranks[r]["cases"][name] for r in range(LAUNCH_RANKS)]
+        launches[name] = sum(c["launches"] for c in per)
+        want = 0 if name == "ssgd" else LAUNCH_RANKS * steps
+        check(launches[name] == want,
+              f"{name}: {launches[name]} gossip launches, not {want}")
+        for r, c in enumerate(per):
+            check(c["model_collectives_per_step"] == 3,
+                  f"{name} rank {r}: {c['model_collectives_per_step']} "
+                  "model-group collectives a step, not 3")
+            if name != "ssgd":
+                check(c["gossip_bytes_per_step"] == c["store_bytes"],
+                      f"{name} rank {r}: {c['gossip_bytes_per_step']} "
+                      f"gossip bytes a step, not one shard store")
+            check(all(np.isfinite(c["losses"])),
+                  f"{name} rank {r}: losses {c['losses']}")
+        gaps = {k: v for k, v in trainer[name].items()
+                if k.endswith("_max_abs_err")}
+        check(all(v <= TRAIN_REF_ATOL for v in gaps.values()),
+              f"{name}: the mesh ranks and the trainer differ by {gaps}")
+        record["cases"][name] = {
+            "steps": steps, "gossip_launches": launches[name],
+            "against_trainer": gaps,
+            "store_bytes_per_rank": per[0]["store_bytes"],
+            "ms_per_step_by_rank": [c["ms_per_step"] for c in per],
+            "first_step_ms_by_rank": [c["first_step_ms"] for c in per],
+            "parts_ms_per_step_by_rank": [c["parts_ms_per_step"]
+                                          for c in per],
+            "model_bytes_per_step_by_rank": [c["model_bytes_per_step"]
+                                             for c in per],
+            "gossip_bytes_per_step_by_rank": [c["gossip_bytes_per_step"]
+                                              for c in per],
+            "max_memory_allocated_gb_by_rank": [
+                c["max_memory_allocated_gb"] for c in per],
+            "losses_rank0": per[0]["losses"]}
+    reorth_launches = {"reorth_dots": 0, "reorth_axpy": 0}
+    probe = {}
+    for tag, case in (("stacked", "dpsgd_ring"), ("single", "ssgd")):
+        per = [ranks[r]["probe"][tag] for r in range(LAUNCH_RANKS)]
+        want = trainer[case]["probe"]
+        got = per[0]["result"]
+        rel = {f: abs(got[f] - want[f]) / max(abs(want[f]), 1e-30)
+               for f in want}
+        check(rel["sharpness"] <= MESH_PROBE_RTOL,
+              f"probe {tag}: sharpness {got['sharpness']} against "
+              f"{want['sharpness']} (rel {rel['sharpness']})")
+        for r, c in enumerate(per):
+            check(c["result"] == got, f"probe {tag}: rank {r} reads "
+                  f"{c['result']}, rank 0 {got}")
+            check(c["reorth_dots_launches"] == 2 * MESH_PROBE[0]
+                  and c["reorth_axpy_launches"] == 2 * MESH_PROBE[0],
+                  f"probe {tag} rank {r}: reorth launches "
+                  f"{c['reorth_dots_launches']} / "
+                  f"{c['reorth_axpy_launches']}")
+            reorth_launches["reorth_dots"] += c["reorth_dots_launches"]
+            reorth_launches["reorth_axpy"] += c["reorth_axpy_launches"]
+        probe[tag] = {"sharded": got, "single_process": want, "rel": rel,
+                      "wall_s_by_rank": [c["wall_s"] for c in per],
+                      "single_process_wall_s": trainer[case]["probe_wall_s"],
+                      "model_collectives": per[0]["model_collectives"],
+                      "learner_collectives": per[0]["learner_collectives"],
+                      "model_bytes_rank0": per[0]["model_bytes"],
+                      "learner_bytes_rank0": per[0]["learner_bytes"]}
+    record["probe"] = probe
+    moe = [ranks[r]["moe"] for r in range(LAUNCH_RANKS)]
+    for r, c in enumerate(moe):
+        check(c["dropped"] == 0, f"moe rank {r}: {c['dropped']} dropped")
+        check(c["all_to_all_calls_fwd_bwd"] == 5,
+              f"moe rank {r}: {c['all_to_all_calls_fwd_bwd']} all-to-alls")
+        check(c["dw1_rel"] <= MOE_EP_RTOL and c["drouter_rel"] <= MOE_EP_RTOL,
+              f"moe rank {r}: dw1 {c['dw1_rel']}, drouter "
+              f"{c['drouter_rel']} past {MOE_EP_RTOL}")
+    worst = max(range(LAUNCH_RANKS), key=lambda r: moe[r]["y_rel"])
+    record["moe_block"] = {
+        "model": "granite-moe-3b-a800m", "mesh": {"data": 1,
+                                                  "model": LAUNCH_RANKS},
+        "tokens": MOE_EP_TOKENS, "by_rank": moe,
+        "y": held("EP MoE output against einsum", moe[worst]["y_rel"],
+                  min(c["y_rel_control"] for c in moe), MOE_EP_RTOL),
+        "dx": held("EP MoE dx against einsum",
+                   max(c["dx_rel"] for c in moe),
+                   min(c["dx_rel_control"] for c in moe), MOE_EP_RTOL)}
+    return record, {f"mesh_2x2_{k}_4_gloo_ranks": v
+                    for k, v in launches.items()}, reorth_launches
+
+
 # --only: one phase alone, its record printed (no kernels line)
 ONLY = {
     "2": lambda k: {"decode": decode_attention_phase(),
@@ -4128,6 +4664,7 @@ ONLY = {
     "14": lambda k: {"vlm": vlm_phase(), "audio": audio_phase()},
     "15": lambda k: elastic_phase(k)[0],
     "16": lambda k: launch_phase(k)[0],
+    "17": lambda k: mesh_phase(k)[0],
 }
 
 
@@ -4175,17 +4712,31 @@ def main(argv=None) -> int:
             "count": torch.cuda.device_count()}}), flush=True)
         return 0
 
+    seconds, last = {}, [time.perf_counter()]
+
+    def mark(phase):
+        """Wall seconds since the previous mark, under ``phase``."""
+        now = time.perf_counter()
+        seconds[phase] = seconds.get(phase, 0.0) + now - last[0]
+        last[0] = now
+
     decode_record = decode_attention_phase()
+    mark("2a_decode")
     gossip_record = gossip_phase()
     torch.cuda.empty_cache()
+    mark("2b_gossip")
     dots_record, axpy_record = reorth_phase()
     torch.cuda.empty_cache()
+    mark("2c_reorth")
     flash_record = flash_phase()
+    mark("2d_flash")
     single_record = gossip_single_phase(kernels)
     torch.cuda.empty_cache()
+    mark("2e_gossip_single")
 
     serve, launches = serve_phase(kernels)
     print(json.dumps({"serve": serve}), flush=True)
+    mark("3_serve_100m")
 
     serve_launches = {"transformer_100m_serving": launches}
     for key, name, layers, why in (
@@ -4198,6 +4749,8 @@ def main(argv=None) -> int:
         serve_launches[name.replace("-", "_") + "_serving"] = launches
         del record
         torch.cuda.empty_cache()
+        mark("3b_serve_gemma2" if key == "serve_gemma2"
+             else "3c_serve_granite")
     train, gossip_record["launches"], probe, probe_launches, \
         bridge_launches = train_phase(kernels)
     serve_launches["transformer_100m_bridge_serving"] = bridge_launches[
@@ -4206,22 +4759,29 @@ def main(argv=None) -> int:
     axpy_record["launches"] = probe_launches["reorth_axpy"]
     print(json.dumps({"train": train}), flush=True)
     print(json.dumps({"probe": probe}), flush=True)
+    mark("4_train_probe_bridge")
     fc = fc_phase(kernels)
     print(json.dumps({"fc": fc}), flush=True)
+    mark("5_fc")
     table1 = table1_phase(kernels)
     print(json.dumps({"table1": table1}), flush=True)
+    mark("6_table1")
     gemma, gemma_launches = gemma2_phase(kernels)
     print(json.dumps({"gemma2": gemma}), flush=True)
+    mark("7_gemma2")
     flash_train, train_launches = flash_train_phase(kernels, train)
     print(json.dumps({"flash_train": flash_train}), flush=True)
+    mark("8_flash_train")
     flash_record["launches"] = gemma_launches + train_launches
     flash_record["launches_by_path"] = {
         "gemma2_prefill_and_loss_backward": gemma_launches,
         "transformer_100m_use_pallas_training": train_launches}
     pytree, pytree_gossip = pytree_phase(kernels, train)
     print(json.dumps({"pytree_engine": pytree}), flush=True)
+    mark("9_pytree_engine")
     paper, paper_gossip, fig2_reorth = paper_phase(kernels)
     print(json.dumps({"paper_fc": paper}), flush=True)
+    mark("10_paper_fc")
     zoo_flash = {}
     for key, name, layers, why, seq in ZOO:
         record, launches = cut_serve_phase(name, layers, why, kernels)
@@ -4235,17 +4795,26 @@ def main(argv=None) -> int:
         print(json.dumps({key: record}), flush=True)
         del record
         torch.cuda.empty_cache()
+        mark("11_granite_moe" if key == "serve_granite_moe" else "12_jamba")
     xlstm, xlstm_gossip = xlstm_phase(kernels)
     print(json.dumps({"ssm_xlstm": xlstm}), flush=True)
     del xlstm
+    mark("13_xlstm")
     print(json.dumps({"vlm_qwen2_vl": vlm_phase()}), flush=True)
     print(json.dumps({"audio_seamless": audio_phase()}), flush=True)
     torch.cuda.empty_cache()
+    mark("14_vlm_audio")
     elastic, elastic_gossip = elastic_phase(kernels)
     print(json.dumps({"elastic": elastic}), flush=True)
     torch.cuda.empty_cache()
+    mark("15_elastic")
     launch, launch_gossip = launch_phase(kernels)
     print(json.dumps({"launch": launch}), flush=True)
+    torch.cuda.empty_cache()
+    mark("16_launch")
+    mesh, mesh_gossip, mesh_reorth = mesh_phase(kernels)
+    print(json.dumps({"mesh": mesh}), flush=True)
+    mark("17_mesh")
     decode_record["launches"] = sum(serve_launches.values())
     decode_record["launches_by_path"] = serve_launches
     flash_record["launches_by_path"].update(zoo_flash)
@@ -4256,16 +4825,19 @@ def main(argv=None) -> int:
             "gossip_mix_update_flat"],
         **pytree_gossip, **paper_gossip,
         "xlstm_350m_dpsgd_training": xlstm_gossip, **elastic_gossip,
-        **launch_gossip}
+        **launch_gossip, **mesh_gossip}
     gossip_record["launches"] = sum(
         gossip_record["launches_by_path"].values())
     for record in (dots_record, axpy_record):
         name = record["name"]
         record["launches_by_path"] = {
             "transformer_100m_probe": record["launches"],
-            "fig2_probes": fig2_reorth[name]}
-        record["launches"] += fig2_reorth[name]
+            "fig2_probes": fig2_reorth[name],
+            "transformer_100m_mesh_2x2_probes_4_gloo_ranks":
+                mesh_reorth[name]}
+        record["launches"] += fig2_reorth[name] + mesh_reorth[name]
 
+    print(json.dumps({"phase_seconds": seconds}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": [decode_record, gossip_record, dots_record,
                                   axpy_record, single_record,

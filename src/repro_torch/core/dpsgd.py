@@ -218,23 +218,48 @@ def round_slots(partners, coefs, rank: int) -> List[Slot]:
 
 
 class HostStaging:
-    """Pinned host buffers a ``gloo`` group stages CUDA rows through: one
-    send row and a receive stack, grown on demand and reused."""
+    """Pinned host buffers that a ``gloo`` group stages CUDA tensors
+    through (gloo reads and writes host memory), keyed by name and reused
+    from call to call: the gossip exchange's send row and receive stack,
+    the model group's collectives, the MoE all-to-all."""
 
     def __init__(self):
-        self.send: Optional[torch.Tensor] = None
-        self.recv: Optional[torch.Tensor] = None
+        self._bufs = {}
 
-    def buffers(self, like: torch.Tensor, rows: int):
-        if self.send is None or self.send.shape != like.shape \
-                or self.send.dtype != like.dtype:
-            self.send = torch.empty(like.shape, dtype=like.dtype,
-                                    pin_memory=True)
-            self.recv = None
-        if self.recv is None or self.recv.shape[0] < rows:
-            self.recv = torch.empty((max(rows, 1),) + tuple(like.shape),
-                                    dtype=like.dtype, pin_memory=True)
-        return self.send, self.recv
+    @staticmethod
+    def needed(group, device) -> bool:
+        """Whether ``group``'s collectives on tensors on ``device`` are
+        staged: a ``gloo`` group and a CUDA device."""
+        import torch.distributed as dist
+        return (dist.get_backend(group) == "gloo"
+                and torch.device(device).type == "cuda")
+
+    def buffer(self, key: str, shape, dtype) -> torch.Tensor:
+        """Buffer ``key`` of ``shape``: kept while its trailing dims and
+        dtype stay and its leading dim suffices (the front rows are then
+        returned), else allocated anew."""
+        shape = tuple(shape)
+        buf = self._bufs.get(key)
+        if buf is None or buf.dtype != dtype or buf.dim() != len(shape) \
+                or tuple(buf.shape[1:]) != shape[1:] \
+                or (shape and buf.shape[0] < shape[0]):
+            buf = self._bufs[key] = torch.empty(shape, dtype=dtype,
+                                                pin_memory=True)
+        return buf[:shape[0]] if shape else buf
+
+    def run(self, op, key: str, out: torch.Tensor, inp: torch.Tensor):
+        """``op(host_out, host_in)``, with ``inp`` copied in and the result
+        copied back into ``out`` (``out is inp``: one buffer).  The stream
+        is synchronized before ``op``, because gloo reads host memory; the
+        result goes back to the card asynchronously, ordered before any
+        later copy into these buffers by the stream."""
+        h_in = self.buffer(key + "/in", inp.shape, inp.dtype)
+        h_out = h_in if out is inp else self.buffer(key + "/out", out.shape,
+                                                    out.dtype)
+        h_in.copy_(inp, non_blocking=True)
+        torch.cuda.current_stream(inp.device).synchronize()  # lint: allow-host-sync
+        op(h_out, h_in)
+        out.copy_(h_out, non_blocking=True)
 
 
 def _pieces(t: torch.Tensor, pieces):
@@ -275,14 +300,16 @@ def exchange(send: torch.Tensor, slots: Sequence[Slot], recv: torch.Tensor,
     if backend == "nccl" and send.device.type != "cuda":
         raise ValueError("an nccl group exchanges CUDA tensors; use a gloo "
                          f"group for tensors on {send.device}")
-    staged = backend == "gloo" and send.device.type == "cuda"
+    staged = HostStaging.needed(group, send.device)
     rows = [s for s in slots if s.mixes]
     wire_send, wire_recv = send, recv
     if staged and staging is None:
         raise ValueError("a gloo group exchanges CUDA tensors through "
                          "pinned host buffers: pass staging=HostStaging()")
     if staged:
-        wire_send, wire_recv = staging.buffers(send, len(rows))
+        wire_send = staging.buffer("send", send.shape, send.dtype)
+        wire_recv = staging.buffer("recv", (max(len(rows), 1),)
+                                   + tuple(send.shape), send.dtype)
         wire_send.copy_(send, non_blocking=True)
         # gloo reads host memory: the copy (and the previous round's
         # copies back) must have landed before any op is posted

@@ -14,7 +14,8 @@ store equals the reference's element for element.
     float32 leaves; a leaf of another dtype comes back as a cast copy, as
     the reference's ``astype`` does.
   * ``views`` returns every leaf as a float32 view of the buffer, whatever
-    its recorded dtype: what the trainer binds and casts from.
+    its recorded dtype: what the trainer binds and casts from
+    (``view_tree``: the same views as a tree).
 
 Gradients reach one flat grad buffer without a parameter-sized ``cat``
 through the trainer's binding (``core/trainer.py``): every float32 leaf
@@ -97,6 +98,11 @@ class FlatMeta:
         return [v[..., off:off + sz].view(lead + shape)
                 for off, sz, shape in zip(self.offsets, self.sizes,
                                           self.shapes)]
+
+    def view_tree(self, flat: torch.Tensor):
+        """``lead + (T, 128)`` buffer -> tree of its leaf views in the
+        buffer's own dtype (``views`` as a tree)."""
+        return tree_unflatten(self.treedef, self.views(flat))
 
     def unflatten(self, flat: torch.Tensor):
         """``lead + (T, 128)`` buffer -> tree of per-leaf views (float32

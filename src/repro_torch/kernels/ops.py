@@ -18,7 +18,7 @@ from .decode_attention import paged_decode_attention_fwd
 from .flash_attention import flash_attention_fwd
 from .gossip_mix import (check_outputs, gossip_mix_update,
                          gossip_mix_update_flat)
-from .reorth import reorth_pass
+from .reorth import reorth_axpy, reorth_dots
 
 BACKENDS = ("auto", "cuda", "ref")
 
@@ -176,7 +176,8 @@ def flat_gossip_mix(w, partners, coefs, *, active=None, out=None,
                               backend=backend)[0]
 
 
-def reorthogonalize(basis, w, mask, *, backend: str = "auto"):
+def reorthogonalize(basis, w, mask, *, backend: str = "auto",
+                    reduce_dots=None):
     """Fully reorthogonalize ``w`` against the masked basis prefix
     (DESIGN §10): two classical Gram-Schmidt sweeps (CGS2, "twice is
     enough").
@@ -186,14 +187,24 @@ def reorthogonalize(basis, w, mask, *, backend: str = "auto"):
     tensor goes through the dots and axpy kernels of
     ``kernels/reorth.py`` (the first sweep writes a fresh tensor, the
     second writes into it in place; ``w`` is not touched); a CPU tensor, or
-    ``backend="ref"``, through ``ref.reorth_ref``.  Returns the new w.
+    ``backend="ref"``, through their plain versions
+    (``ref.reorth_dots_ref`` then ``ref.reorth_axpy_ref``: one sweep of
+    ``ref.reorth_ref``).  Returns the new w.
+
+    ``reduce_dots`` (a function of the (M,) dots) runs between each
+    sweep's dots and its axpy: a basis sharded over ranks passes the sum
+    over its shards (``all_reduce``), so each rank's axpy subtracts the
+    full projections from its shard.
     """
-    if _use_plain(w, backend):
-        w, _ = ref.reorth_ref(basis, w, mask)
-        w, _ = ref.reorth_ref(basis, w, mask)
-        return w
-    w, _ = reorth_pass(basis, w, mask)
-    w, _ = reorth_pass(basis, w, mask, out=w)
+    red = reduce_dots or (lambda d: d)
+    plain = _use_plain(w, backend)
+    for sweep in range(2):
+        if plain:
+            w = ref.reorth_axpy_ref(w, basis,
+                                    red(ref.reorth_dots_ref(basis, w, mask)))
+        else:
+            w = reorth_axpy(w, basis, red(reorth_dots(basis, w, mask)),
+                            out=w if sweep else None)
     return w
 
 

@@ -128,8 +128,8 @@ def reorth_dots_ref(basis, w, mask):
 
 
 def reorth_ref(basis, w, mask):
-    """Same contract as ``kernels.reorth.reorth_pass`` (one CGS sweep), the
-    plain version of ``repro.kernels.ref.reorth_ref``.
+    """One CGS sweep (``kernels.reorth.reorth_dots`` then ``reorth_axpy``),
+    the plain version of ``repro.kernels.ref.reorth_ref``.
 
     basis: (M, T, 128); w: (T, 128); mask: (M,) 0/1.  Returns (w_new,
     dots).  Loops vector by vector, as the reference's oracle does."""

@@ -13,8 +13,9 @@ stream.
     {V, w} (a deterministic two-stage reduction), times ``mask``.
   * ``reorth_axpy(w, basis, dots, out=None)``: w - sum_k d_k v_k in one
     pass; ``out`` may be ``w`` itself (in place).
-  * ``reorth_pass``: the mask-then-axpy composition of the two — one CGS
-    sweep, as the reference's ``reorth_pass``.
+
+One CGS sweep (the reference's ``reorth_pass``) is the dots, then the
+axpy: ``kernels.ops.reorthogonalize`` runs two.
 
 Each wrapper's ``launches`` counts its launches (a plain integer, reset by
 whoever wants to count a run).
@@ -120,13 +121,6 @@ def reorth_axpy(w, basis, dots, out=None):
     _raise_on(lib, err, "reorth_axpy")
     reorth_axpy.launches += 1
     return out
-
-
-def reorth_pass(basis, w, mask, out=None):
-    """One classical Gram-Schmidt sweep through the two kernels:
-    w <- w - sum_{k: mask_k} <v_k, w> v_k.  Returns (w_new, dots)."""
-    dots = reorth_dots(basis, w, mask)
-    return reorth_axpy(w, basis, dots, out=out), dots
 
 
 reorth_dots.launches = 0

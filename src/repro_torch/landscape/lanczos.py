@@ -49,27 +49,34 @@ def _tridiag_eigvals(alphas, betas):
 
 
 def lanczos(matvec_flat: Callable, q0: torch.Tensor, m: int, *,
-            reorth: str = "auto") -> LanczosResult:
+            reorth: str = "auto",
+            reduce: Optional[Callable] = None) -> LanczosResult:
     """m-step Lanczos for a symmetric operator on the (T, 128) flat view.
 
     matvec_flat: (T, 128) -> (T, 128); q0: start vector (need not be
-    normalized).  Makes no host sync until the eigensolve."""
+    normalized).  Makes no host sync until the eigensolve.  ``reduce``
+    sums a tensor of partial inner products over the shards of a vector
+    split across ranks (the sharded probe's ``all_reduce``): the norms,
+    the alphas and the reorthogonalization dots then cover the whole
+    vector while each rank keeps only its (m + 1, T_local, 128) basis."""
     T, lane = q0.shape
     q0 = q0.float()
+    red = (lambda t: t) if reduce is None else reduce
     basis = torch.zeros((m + 1, T, lane), dtype=torch.float32,
                         device=q0.device)
-    torch.div(q0, torch.clamp_min(torch.sqrt(torch.sum(q0 * q0)), _EPS),
+    torch.div(q0, torch.clamp_min(torch.sqrt(red(torch.sum(q0 * q0))), _EPS),
               out=basis[0])
     live = torch.arange(m + 1, device=q0.device)
     alphas, betas = [], []
     for j in range(m):
         w = matvec_flat(basis[j]).float()
-        alphas.append(torch.sum(w * basis[j]))
+        alphas.append(red(torch.sum(w * basis[j])))
         # full reorthogonalization against ALL previous vectors (CGS2) —
         # subsumes the textbook alpha/beta subtraction
         mask = (live <= j).float()
-        w = reorthogonalize(basis, w, mask, backend=reorth)
-        beta_j = torch.sqrt(torch.sum(w * w))
+        w = reorthogonalize(basis, w, mask, backend=reorth,
+                            reduce_dots=reduce)
+        beta_j = torch.sqrt(red(torch.sum(w * w)))
         if j < m - 1:
             betas.append(beta_j)
         # on breakdown (beta ~ 0: an invariant subspace) the normalized

@@ -62,18 +62,26 @@ def probe_landscape(loss_fn: Callable, params, stacked_batch,
                     lanczos_iters: int = 8, hutchinson_samples: int = 4,
                     reorth: str = "auto",
                     params_from_tree: Optional[Callable] = None, q0=None,
-                    probes=None) -> ProbeResult:
+                    probes=None, stacked: bool = True) -> ProbeResult:
     """Measure the landscape at the mean of ``params`` (leaves (n, ...),
     one row per learner) over a superbatch (leaves (n, B, ...)); the
-    covariance terms come from the learner spread.  ``gen`` draws the
-    Lanczos start vector, then the Hutchinson probes; ``q0`` (a tree) and
-    ``probes`` (a list of trees) replace those draws.  (The reference's
-    ``stacked=False`` single-replica form serves its sharded probe step,
-    which arrives with ROADMAP slice 7b.)"""
+    covariance terms come from the learner spread.  ``stacked=False``:
+    ``params`` is a single replica (the SSGD path), so the spread terms
+    are 0 and ``alpha_e_pred`` is ``alpha``; the superbatch is (n, B, ...)
+    either way.  ``gen`` draws the Lanczos start vector, then the
+    Hutchinson probes; ``q0`` (a tree) and ``probes`` (a list of trees)
+    replace those draws.  The same measurement with the learners sharded
+    over a mesh is ``launch.train.make_probe_step``."""
     pft = params_from_tree
-    w_a = learner_mean(params)
-    sig_sq = learner_var(params)
-    t_hc = trace_hc(loss_fn, params, stacked_batch, params_from_tree=pft)
+    if stacked:
+        w_a = learner_mean(params)
+        sig_sq = learner_var(params)
+        t_hc = trace_hc(loss_fn, params, stacked_batch, params_from_tree=pft)
+    else:
+        w_a = params
+        dev = tree_leaves(params)[0].device
+        sig_sq = torch.zeros((), dtype=torch.float32, device=dev)
+        t_hc = torch.zeros((), dtype=torch.float32, device=dev)
 
     # superbatch gradient + per-shard minibatch gradients at w_a
     n = tree_leaves(stacked_batch)[0].shape[0]

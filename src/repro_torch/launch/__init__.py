@@ -1,8 +1,12 @@
-"""The launch path on ``torch.distributed`` — the port of ``repro/launch``
-(slice 7a): the learner group (``mesh``), the production step builders
-with one learner per rank (``train``) and the closed-form FLOP and byte
-counts (``analytic``).  Sharding a learner over several GPUs, the
-sharded probe and the dry run are slice 7b."""
-from .mesh import init_learner_group, learner_rank, n_learners
+"""The launch path on ``torch.distributed`` — the port of ``repro/launch``:
+learner groups and device meshes (``mesh``), the reference's sharding
+rules (``sharding``), a learner's shard store over its model group
+(``shardstore``), the production step builders, one learner a rank or a
+learner spanning a mesh's model axis, the sharded probe and the spec
+builders (``train``), and the closed-form FLOP and byte counts
+(``analytic``).  The dry run is ROADMAP slice 7c."""
+from .mesh import (MeshShape, init_learner_group, init_mesh, learner_rank,
+                   make_mesh, n_learners)
 
-__all__ = ["init_learner_group", "learner_rank", "n_learners"]
+__all__ = ["MeshShape", "init_learner_group", "init_mesh", "learner_rank",
+           "make_mesh", "n_learners"]

@@ -1,5 +1,6 @@
 """Production step builders on ``torch.distributed`` — the port of
-``repro/launch/train.py`` (slice 7a), one learner per rank.
+``repro/launch/train.py``: one learner per rank (slice 7a), or a learner
+spanning the ranks of a mesh's model axis (slice 7b).
 
 Training (the paper's setting):
 
@@ -36,13 +37,34 @@ Training (the paper's setting):
     buffer whose last row carries the loss, one ``all_reduce`` (SUM) of
     it, divided by n, then the optimizer's update.
 
+The model axis (``mesh=``, a ``DeviceMesh`` whose last axis is
+``"model"``; ``launch/mesh.py``): rank (i, j) holds model shard j of
+learner i, every leaf cut as the reference's ``leaf_spec`` places it
+(``launch/shardstore.py``), the shard one flat (1, T_local, 128) store,
+and so are its momentum, buffer and receive stack.  The compute is split
+over the learner's M model ranks by batch rows (FSDP style): the step
+takes the learner's local batch (B rows, the same on its M ranks; B % M
+!= 0 raises ``ValueError``) and runs rows [j B/M, (j+1) B/M); one
+``all_gather`` of the shard stores over the model group assembles the
+full weights, the backward runs on them, one ``reduce_scatter`` (SUM)
+returns the rank's gradient shard, and one ``all_reduce`` sums the
+replicated leaves' gradients with the token count and the loss, so the
+gradient is that of the learner's mean loss over its whole batch.  The
+gossip runs over the learner group at the rank's model coordinate
+(``mesh.learner_group``): rank (i, j) exchanges shard j with rank
+(partner(i), j), and kernel #2 updates the shard.  SSGD all-reduces the
+gradient shard over the learner group.  A mesh of model size 1 is slice
+7a's step exactly.
+
 State: ``LaunchState``, the twin of the reference's ``PjitTrainState``.
 Its step and seed are host integers, and AD-PSGD's ages and clocks are
 host arrays of the whole fleet that every rank advances alike (their law
 is known on the host), so the step reads nothing back to branch on.  A
 step consumes its state, as the reference donates it: the kernel writes
 out of place, so a step keeps two stores (and two buffers) and
-alternates.  Batches are the rank's own shard (B_local, ...).
+alternates; ``jit_train_step`` wraps a step so that a consumed state
+raises when it is used again.  Batches are the rank's own shard
+(B_local, ...), or with a model axis the learner's.
 
 On an ``nccl`` group the step is written to make no host sync: tables are
 host arrays whose coefficient rows are cached on the device (copied once
@@ -52,19 +74,29 @@ state, and the metrics are device tensors (the loss mean an
 on NCCL so far (SSGD and a solo DPSGD step, under
 ``torch.cuda.set_sync_debug_mode("error")``); the point-to-point
 exchange on NCCL waits for a machine with several GPUs.  A ``gloo`` group
-with CUDA tensors stages each exchange through pinned host memory, which
-syncs: the transport the caller chose.  On the CPU (``device="cpu"``,
-``gloo``) every kernel takes its plain version.
+with CUDA tensors stages every collective (each exchange, the model
+group's, the learner group's all_reduces) through pinned host memory
+(``core/dpsgd.HostStaging``), which syncs: the transport the caller
+chose.
+On the CPU (``device="cpu"``, ``gloo``) every kernel takes its plain
+version.
 
 A step counts its traffic (``sends``, ``recvs``, ``bytes_received``,
-``collectives``, ``last_rounds``) and, when ``timing`` is a dict, adds the
-host-clock seconds of its ``compute``, ``exchange`` and ``kernel`` parts
-there, synchronizing the card between them (instrumentation; off by
-default).
+``collectives`` on the learner group; ``model_collectives`` and
+``model_bytes`` on the model group; ``last_rounds``) and, when ``timing``
+is a dict, adds the host-clock seconds of its ``compute``, ``model``
+(the gather, reduce-scatter and all-reduce), ``exchange`` and ``kernel``
+parts there, synchronizing the card between them (instrumentation; off
+by default).
+
+The probe: ``make_probe_step(api, mesh, alpha=, stacked=)`` measures the
+landscape at the learners' mean over their superbatch with every vector
+sharded as the weights are, the Lanczos basis an (m + 1, T_local, 128)
+shard per rank through the reorth kernels.  The spec builders
+(``stacked_param_specs``, ``train_state_specs``,
+``train_state_shardings``) work on the meta device: nothing allocated.
 
 Serving: ``make_prefill_step`` / ``make_decode_step`` wrap the model API.
-``jit_train_step``, ``make_probe_step`` and the spec and sharding builders
-are slice 7b.
 
 # lint: hot-path
 """
@@ -86,20 +118,26 @@ from ..device import resolve_device
 from ..kernels import ops as kops
 from ..models.convert import tree_from_jax
 from ..models.model import ModelAPI
+from ..models.shard_hints import use_mesh
 from ..optim import Optimizer, apply_updates
 from ..tree import tree_map
-from .mesh import learner_rank, n_learners
+from .mesh import (learner_axes, learner_group, learner_rank, mesh_shape,
+                   model_group, model_rank, model_size, n_learners)
+from .shardstore import GroupComm, ShardLayout
 
 __all__ = ["LaunchState", "membership_operands", "drawn_rounds",
            "make_dpsgd_train_step",
            "make_adpsgd_train_step", "make_ssgd_train_step",
-           "rank_state_from_numpy", "make_prefill_step", "make_decode_step"]
+           "rank_state_from_numpy", "gather_learner", "jit_train_step",
+           "make_probe_step", "param_shapes", "stacked_param_specs",
+           "train_state_specs", "train_state_shardings",
+           "make_prefill_step", "make_decode_step"]
 
 _F32 = torch.float32
 
 
 class LaunchState(NamedTuple):
-    params: torch.Tensor       # (1, T, 128): this rank's store
+    params: torch.Tensor       # (1, T, 128): this rank's store (its shard)
     opt_state: Any             # the optimizer's state at n = 1
     step: int                  # a host integer
     seed: int                  # host matchings at step t come from (seed, t)
@@ -135,13 +173,46 @@ def drawn_rounds(seed: int, step: int, n: int, rounds: int = 1):
         for j in range(rounds)]
 
 
+def _split_mesh(group, mesh):
+    """The learner group a step gossips over: ``group``, or the mesh's
+    group at this rank's model coordinate."""
+    if mesh is None:
+        return group
+    if group is not None:
+        raise ValueError("pass a learner group or a mesh, not both")
+    return learner_group(mesh)
+
+
+def _token_count(batch) -> torch.Tensor:
+    """The tokens a batch's loss averages over: its mask's sum (the
+    models' masked mean), or its rows."""
+    if isinstance(batch, dict) and "mask" in batch:
+        return torch.sum(batch["mask"].to(_F32))
+    rows = next(iter(batch.values())) if isinstance(batch, dict) else batch
+    return torch.full((), float(rows.shape[0]), dtype=_F32,
+                      device=rows.device)
+
+
+def _model_rows(batch, M: int, j: int):
+    """Model rank j's rows of a learner's batch (B % M != 0 raises)."""
+    def rows(x):
+        B = x.shape[0]
+        if B % M:
+            raise ValueError(f"the learner's batch of {B} rows does not "
+                             f"split over {M} model ranks")
+        b = B // M
+        return x[j * b:(j + 1) * b]
+    return tree_map(rows, batch)
+
+
 class _RankStep:
     """What every step builder shares: this rank's two stores, its grad
     store and bindings, cached device rows, the receive stacks and the
-    counters."""
+    counters; with a model axis, the shard layout, the learner's full
+    store and gradient, and the model group's collectives."""
 
     def __init__(self, api: ModelAPI, optimizer: Optimizer, group, device,
-                 gossip_fuse: str = "flat"):
+                 gossip_fuse: str = "flat", mesh=None):
         import torch.distributed as dist
 
         if gossip_fuse not in ("flat", "leaf"):
@@ -154,41 +225,88 @@ class _RankStep:
                 "one flat store a rank; train it with MultiLearnerTrainer's "
                 "pytree engine")
         self.device = resolve_device(device)
+        group, self.mesh = _split_mesh(group, mesh), mesh
         self.api, self.optimizer, self.group = api, optimizer, group
         self.gossip_fuse = gossip_fuse
         self.n, self.rank = n_learners(group), learner_rank(group)
+        self.M = 1 if self.mesh is None else model_size(self.mesh)
+        self.j = 0 if self.mesh is None else model_rank(self.mesh)
+        self._comm = (GroupComm(model_group(self.mesh), self.device)
+                      if self.M > 1 else None)
+        self._layout = None
         self.backend = dist.get_backend(group)
         if self.backend == "nccl" and self.device.type != "cuda":
             raise ValueError(f"an nccl group trains CUDA tensors, got "
                              f"device {self.device}; use a gloo group on "
                              "the CPU")
-        self._staging = dp.HostStaging() if (
-            self.backend == "gloo" and self.device.type == "cuda") else None
+        self._staging = (dp.HostStaging()
+                         if dp.HostStaging.needed(group, self.device)
+                         else None)
+        # the learner group's all_reduces (the loss, SSGD's gradient)
+        self._learners = GroupComm(group, self.device)
         self._meta = None
         self._rows, self._idx, self._recv, self._send = {}, {}, {}, {}
         self.sends = self.recvs = self.bytes_received = self.collectives = 0
         self.last_rounds = []      # [(sends, recvs)] of the last step
         self.timing: Optional[dict] = None
 
+    # -- counters of the model group ---------------------------------------
+    @property
+    def model_collectives(self) -> int:
+        return 0 if self._comm is None else self._comm.calls
+
+    @property
+    def model_bytes(self) -> int:
+        return 0 if self._comm is None else self._comm.bytes
+
+    @property
+    def model_kinds(self) -> dict:
+        """The model group's calls by collective."""
+        return {} if self._comm is None else dict(self._comm.kinds)
+
     # -- state --------------------------------------------------------------
     def init(self, params_tree, seed: int = 0) -> LaunchState:
-        """This rank's state from its parameter tree (the reference's
-        layout, e.g. ``api.param_tree(api.init(seed))``)."""
+        """This rank's state from its learner's parameter tree (the
+        reference's layout, e.g. ``api.param_tree(api.init(seed))``); with
+        a model axis the rank keeps its shard of it."""
         dev = self.device
-        meta = self._meta = flat_meta(params_tree)
+        if self.M > 1:
+            lay = self._layout = ShardLayout(params_tree, self.M, self.j)
+            meta = self._meta = lay.local
+        else:
+            meta = self._meta = flat_meta(params_tree)
         shape = (1, meta.rows, LANE)
         self._w = [torch.empty(shape, device=dev) for _ in range(2)]
-        self._w[0].copy_(meta.flatten(params_tree, device=dev)[None])
+        self._w[0].copy_(self.local_store(params_tree))
         self._g = self._grad_store(shape)
         self._pieces = (None if self.gossip_fuse == "flat"
                         else list(zip(meta.offsets, meta.sizes)))
-        casts = cast_leaves(meta, dev)
-        g_leaves = [x[0] for x in meta.views(self._g)]
-        self._bound = [bind_learner(meta, casts, self.api.params_from_tree,
-                                    [x[0] for x in meta.views(w)], g_leaves)
-                       for w in self._w]
+        if self.M > 1:
+            full = lay.full
+            self._w_full = torch.zeros((full.rows, LANE), device=dev)
+            self._g_full = torch.zeros((full.rows, LANE), device=dev)
+            self._stack = torch.zeros((self.M, meta.rows, LANE), device=dev)
+            self._rep = torch.zeros((lay.n_rep + 2,), device=dev)
+            self._bound_full = bind_learner(
+                full, cast_leaves(full, dev), self.api.params_from_tree,
+                full.views(self._w_full), full.views(self._g_full))
+        else:
+            casts = cast_leaves(meta, dev)
+            g_leaves = [x[0] for x in meta.views(self._g)]
+            self._bound = [bind_learner(meta, casts,
+                                        self.api.params_from_tree,
+                                        [x[0] for x in meta.views(w)],
+                                        g_leaves)
+                           for w in self._w]
         return LaunchState(self._w[0], self.optimizer.init(self._w[0]), 0,
                            seed, **self._extra_state())
+
+    def local_store(self, tree) -> torch.Tensor:
+        """A learner's full tree as this rank's (1, T_local, 128) float32
+        store: its shard (the whole tree without a model axis)."""
+        if self._layout is not None:
+            return self._layout.flatten_local(tree, device=self.device)[None]
+        return self._meta.flatten(tree, device=self.device)[None]
 
     def _grad_store(self, shape):
         return torch.zeros(shape, device=self.device)
@@ -207,10 +325,43 @@ class _RankStep:
     def _other(self, w):
         return self._w[1 - self._store(w)]
 
-    def _grads(self, w, batch) -> torch.Tensor:
-        b = self._bound[self._store(w)]
-        self._g.zero_()
-        return backward_into(self.api.loss_fn, b, batch)
+    def _grads(self, w, batch, t: float):
+        """This rank's gradient into ``self._g``; returns (the learner's
+        loss, the clock after the parts it timed from ``t``).  With a
+        model axis: gather the shards, run this rank's rows on the full
+        weights, reduce-scatter the gradient, all-reduce the replicated
+        leaves' gradient with the token count and the loss."""
+        if self.M == 1:
+            b = self._bound[self._store(w)]
+            self._g.zero_()
+            loss = backward_into(self.api.loss_fn, b, batch)
+            return loss, self._lap("compute", t)
+        self._store(w)
+        rows = _model_rows(batch, self.M, self.j)
+        lay, comm = self._layout, self._comm
+        comm.all_gather(w[0], self._stack)
+        lay.assemble(self._stack, self._w_full)
+        t = self._lap("model", t)
+        count = _token_count(rows)
+        self._g_full.zero_()
+        with use_mesh(self.mesh):
+            # the sum of this rank's token losses: the learner's mean is
+            # this over the learner's token count, summed below
+            loss = backward_into(
+                lambda p, b: self.api.loss_fn(p, b) * count,
+                self._bound_full, rows)
+        t = self._lap("compute", t)
+        lay.pack(self._g_full, self._stack)
+        comm.reduce_scatter(self._stack, self._g[0])
+        rep = self._rep
+        lay.pack_rep(self._g_full, rep)
+        rep[-2] = count
+        rep[-1] = loss
+        comm.all_reduce(rep)
+        lay.rep_tail(self._g).copy_(rep[:lay.n_rep])
+        total = torch.clamp(rep[-2], min=1.0)
+        self._g.div_(total)
+        return rep[-1] / total, self._lap("model", t)
 
     # -- cached device operands ---------------------------------------------
     def _row(self, values) -> torch.Tensor:
@@ -295,10 +446,8 @@ class _RankStep:
         """The group's mean loss: the live ranks' losses summed by one
         ``all_reduce`` (a dead rank adds 0, selected: a non-finite loss
         stays out), divided by ``denom`` (default n)."""
-        import torch.distributed as dist
-
         buf = (loss if live else torch.zeros_like(loss)).reshape(1).to(_F32)
-        dist.all_reduce(buf, group=self.group)
+        self._learners.all_reduce(buf)
         self.collectives += 1
         return buf[0] / (self.n if denom is None else denom)
 
@@ -309,8 +458,8 @@ class _RankStep:
 
 class _DPSGDStep(_RankStep):
     def __init__(self, api, optimizer, group, topology, gossip_backend,
-                 gossip_fuse, gossip_rounds, device):
-        super().__init__(api, optimizer, group, device, gossip_fuse)
+                 gossip_fuse, gossip_rounds, device, mesh):
+        super().__init__(api, optimizer, group, device, gossip_fuse, mesh)
         if gossip_backend not in ("einsum", "ppermute"):
             raise ValueError(f"gossip_backend must be 'einsum' or "
                              f"'ppermute', got {gossip_backend!r}")
@@ -358,9 +507,7 @@ class _DPSGDStep(_RankStep):
     def __call__(self, state: LaunchState, batch, rounds=None):
         self.last_rounds = []
         w = state.params
-        t = self._clock()
-        loss = self._grads(w, batch)
-        t = self._lap("compute", t)
+        loss, t = self._grads(w, batch, self._clock())
         tables = self.step_tables(state.step, state.seed, rounds)
         wire = self._meta.wire_dtype()
         g, opt_state = self._g, state.opt_state
@@ -418,7 +565,7 @@ def make_dpsgd_train_step(api: ModelAPI, optimizer: Optimizer, group=None,
                           topology: str = "random_pair",
                           gossip_backend: str = "einsum",
                           gossip_fuse: str = "flat", gossip_rounds: int = 1,
-                          device=None) -> Callable:
+                          device=None, mesh=None) -> Callable:
     """This rank's DPSGD step: ``step(state, batch, rounds=None) ->
     (state, {"loss"})``, with ``step.init(params_tree, seed)`` for the
     first state.
@@ -434,9 +581,13 @@ def make_dpsgd_train_step(api: ModelAPI, optimizer: Optimizer, group=None,
     n), coefs (n, K + 1))`` host tables) replaces the draw, as
     ``MultiLearnerTrainer.train_step(rounds=...)`` does.  An optimizer
     that assumes a static mixing matrix raises ``ValueError`` on a
-    time-varying schedule (the reference's check)."""
+    time-varying schedule (the reference's check).
+
+    ``mesh`` (a ``DeviceMesh`` ending in ``"model"``): the learner spans
+    its model group, the step takes the learner's batch and gossips shard
+    by shard over the learner group (module docstring)."""
     return _DPSGDStep(api, optimizer, group, topology, gossip_backend,
-                      gossip_fuse, gossip_rounds, device)
+                      gossip_fuse, gossip_rounds, device, mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -445,8 +596,8 @@ def make_dpsgd_train_step(api: ModelAPI, optimizer: Optimizer, group=None,
 
 class _ADPSGDStep(_RankStep):
     def __init__(self, api, optimizer, group, max_staleness, slow_learner,
-                 slow_factor, gossip_fuse, elastic, device):
-        super().__init__(api, optimizer, group, device, gossip_fuse)
+                 slow_factor, gossip_fuse, elastic, device, mesh):
+        super().__init__(api, optimizer, group, device, gossip_fuse, mesh)
         dp.hypercube_partner(0, 0, self.n)      # a power-of-two group
         wants_mixed = getattr(optimizer, "wants_mixed", False)
         if wants_mixed and getattr(optimizer, "static_mixing_only", False):
@@ -500,9 +651,7 @@ class _ADPSGDStep(_RankStep):
         r = self.rank
         w, buffer = state.params, state.buffer
         active, fresh, live, gate = self.masks(state)
-        t = self._clock()
-        loss = self._grads(w, batch)
-        t = self._lap("compute", t)
+        loss, t = self._grads(w, batch, self._clock())
         partners, coefs = dp.hypercube_tables(state.step, self.n, gate)
         # the sender chooses what its partner mixes: live weights at the
         # staleness bound, its published buffer otherwise
@@ -575,7 +724,8 @@ def _keep_small(new, old):
 def make_adpsgd_train_step(api: ModelAPI, optimizer: Optimizer, group=None,
                            *, max_staleness: int = 4, slow_learner: int = -1,
                            slow_factor: int = 1, gossip_fuse: str = "flat",
-                           elastic: bool = False, device=None) -> Callable:
+                           elastic: bool = False, device=None,
+                           mesh=None) -> Callable:
     """This rank's asynchronous-gossip tick: ``step(state, batch) ->
     (state, metrics)`` (``loss``, ``staleness_max``; elastic adds
     ``n_active``).
@@ -586,10 +736,10 @@ def make_adpsgd_train_step(api: ModelAPI, optimizer: Optimizer, group=None,
     ticks; the injected straggler ``slow_learner`` completes (and
     publishes) only every ``slow_factor`` ticks.  ``elastic=True`` reads
     the state's membership operands (``membership_operands``) instead of
-    the static straggler.  The group's size must be a power of two
-    (``ValueError``)."""
+    the static straggler.  The group's size (the learner count) must be
+    a power of two (``ValueError``).  ``mesh``: as DPSGD's."""
     return _ADPSGDStep(api, optimizer, group, max_staleness, slow_learner,
-                       slow_factor, gossip_fuse, elastic, device)
+                       slow_factor, gossip_fuse, elastic, device, mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -603,15 +753,11 @@ class _SSGDStep(_RankStep):
         return self._g_ext[:shape[1]].view(shape)
 
     def __call__(self, state: LaunchState, batch):
-        import torch.distributed as dist
-
         self.last_rounds = []
         w = state.params
-        t = self._clock()
-        loss = self._grads(w, batch)
+        loss, t = self._grads(w, batch, self._clock())
         self._g_ext[-1, 0] = loss
-        t = self._lap("compute", t)
-        dist.all_reduce(self._g_ext, group=self.group)
+        self._learners.all_reduce(self._g_ext)
         self.collectives += 1
         self._g_ext.div_(self.n)
         t = self._lap("exchange", t)
@@ -625,12 +771,14 @@ class _SSGDStep(_RankStep):
 
 
 def make_ssgd_train_step(api: ModelAPI, optimizer: Optimizer, group=None,
-                         device=None) -> Callable:
+                         device=None, mesh=None) -> Callable:
     """This rank's SSGD step on replicated weights: ``step(state, batch)
     -> (state, {"loss"})``.  The mean of the ranks' gradients over equal
     shards equals the reference's gradient of the global batch's mean
-    loss up to the order of a sum."""
-    return _SSGDStep(api, optimizer, group, device)
+    loss up to the order of a sum.  ``mesh``: the weights are sharded
+    over the model axis and replicated over the learners; the gradient
+    shard is all-reduced over the learner group."""
+    return _SSGDStep(api, optimizer, group, device, mesh=mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -641,29 +789,348 @@ def rank_state_from_numpy(step, params, *, momentum=None, buffer=None,
                           age=None, seed: int = 0) -> LaunchState:
     """This rank's launch state from the reference's STACKED state as numpy
     arrays (leaves (n, ...), e.g. ``np.asarray`` of a ``PjitTrainState``'s
-    leaves): row ``rank`` of ``params`` (and of ``momentum`` and, for
-    AD-PSGD, ``buffer``), through ``models/convert.py``; ``age`` is the
-    fleet's (n,) ages.  ``momentum`` needs a fused recipe (its momentum
-    slot)."""
+    leaves): row ``rank`` (this rank's learner) of ``params`` (and of
+    ``momentum`` and, for AD-PSGD, ``buffer``), through
+    ``models/convert.py``, cut to this rank's shard under a model axis;
+    ``age`` is the fleet's (n,) ages.  ``momentum`` needs a fused recipe
+    (its momentum slot)."""
     r, dev = step.rank, step.device
 
     def row(tree):
         return tree_from_jax(tree_map(lambda a: a[r], tree), device=dev)
 
     state = step.init(row(params), seed)
-    meta = step._meta
     if momentum is not None:
         f = step.optimizer.fused
         if f is None or f.read_mu(state.opt_state) is None:
             raise ValueError("momentum given for an optimizer with no "
                              "fused momentum slot")
-        f.read_mu(state.opt_state).copy_(
-            meta.flatten(row(momentum), device=dev)[None])
+        f.read_mu(state.opt_state).copy_(step.local_store(row(momentum)))
     if buffer is not None:
-        state.buffer.copy_(meta.flatten(row(buffer), device=dev)[None])
+        state.buffer.copy_(step.local_store(row(buffer)))
     if age is not None:
         state = state._replace(age=np.array(age, dtype=np.int32))
     return state
+
+
+def gather_learner(step, store: torch.Tensor) -> torch.Tensor:
+    """A learner's full (T, 128) store (the ``FlatMeta`` of its whole
+    tree) from its ranks' (1, T_local, 128) shard stores ``store`` (the
+    parameters, the momentum or the buffer): an ``all_gather`` over the
+    model group, every rank of it calling.  Without a model axis, a copy
+    of the rank's store.  For checks and checkpoints, off the step."""
+    if step.M == 1:
+        return store[0].clone()
+    lay = step._layout
+    stack = torch.empty((step.M,) + tuple(store.shape[1:]),
+                        dtype=store.dtype, device=store.device)
+    GroupComm(model_group(step.mesh), step.device).all_gather(store[0],
+                                                              stack)
+    full = torch.zeros((lay.full.rows, LANE), dtype=store.dtype,
+                       device=store.device)
+    lay.assemble(stack, full)
+    return full
+
+
+# ---------------------------------------------------------------------------
+# donation: a consumed state is not used again
+# ---------------------------------------------------------------------------
+
+class _Donating:
+    """``jit_train_step``'s wrapper: calls the step and remembers the
+    state it returned; a call on any other state of this step (a state
+    already consumed) raises ``ValueError``.  ``init`` and the other
+    attributes are the step's."""
+
+    def __init__(self, step):
+        self._step, self._live = step, None
+
+    def __getattr__(self, name):
+        return getattr(self._step, name)
+
+    def init(self, *args, **kwargs):
+        self._live = None
+        return self._step.init(*args, **kwargs)
+
+    def __call__(self, state: LaunchState, *args, **kwargs):
+        live = self._live
+        if live is not None and (state.step != live.step
+                                 or state.params is not live.params):
+            raise ValueError(
+                f"this state (step {state.step}) was consumed by an earlier "
+                f"call: train the state the step returned (step "
+                f"{live.step}), as a donated state")
+        state, metrics = self._step(state, *args, **kwargs)
+        self._live = state
+        return state, metrics
+
+
+def jit_train_step(step_fn: Callable) -> Callable:
+    """The reference's ``jax.jit(step, donate_argnums=(0,))``: the step
+    already runs eagerly and writes its two alternating stores in place,
+    so this only enforces donation.  A consumed state raises if reused;
+    rebind it: ``state, m = step(state, batch)``.  A state edited with
+    ``_replace`` (membership operands) stays the live one.  It does not
+    call ``torch.compile``."""
+    return _Donating(step_fn)
+
+
+# ---------------------------------------------------------------------------
+# the landscape probe on the mesh
+# ---------------------------------------------------------------------------
+
+class _MeshProbe:
+    """``make_probe_step``'s probe: rank (i, j) holds shard j of every
+    vector.  The replicated tail of a vector lives on model rank 0 only
+    (zeros on the others), so an inner product is each rank's local sum,
+    all-reduced over the model group."""
+
+    def __init__(self, api, mesh, alpha, stacked, lanczos_iters,
+                 hutchinson_samples, reorth, device):
+        self.device = resolve_device(device)
+        self.api, self.mesh, self.alpha = api, mesh, alpha
+        self.stacked, self.reorth = stacked, reorth
+        self.m, self.n_hutch = lanczos_iters, hutchinson_samples
+        self.M, self.j = model_size(mesh), model_rank(mesh)
+        self.n = n_learners(mesh)
+        self.layout = ShardLayout(param_shapes(api), self.M, self.j)
+        self.model = GroupComm(model_group(mesh), self.device)
+        self.learners = GroupComm(learner_group(mesh), self.device)
+
+    def _owned(self, v: torch.Tensor) -> torch.Tensor:
+        if self.j:
+            self.layout.rep_tail(v).zero_()
+        return v
+
+    def _dot(self, a, b) -> torch.Tensor:
+        return self.model.all_reduce(torch.sum(a * b).reshape(1))[0]
+
+    def _local(self, tree) -> torch.Tensor:
+        return self._owned(self.layout.flatten_local(tree,
+                                                     device=self.device))
+
+    def _full_tree(self, v_local):
+        """The full tree (float32 views of a fresh full store) of a
+        sharded vector."""
+        lay = self.layout
+        self.model.all_gather(v_local, self._stack)
+        full = torch.zeros((lay.full.rows, LANE), device=self.device)
+        lay.assemble(self._stack, full)
+        return full, lay.full.view_tree(full)
+
+    def _reduce_full(self, full: torch.Tensor) -> torch.Tensor:
+        """A full (T, 128) vector of this rank's rows -> the sharded sum
+        over the model group (replicated tail on model rank 0)."""
+        lay = self.layout
+        lay.pack(full, self._stack, rep_slot=0)
+        out = torch.empty((lay.local.rows, LANE), device=self.device)
+        return self.model.reduce_scatter(self._stack, out)
+
+    def __call__(self, params, batch, gen: Optional[torch.Generator] = None,
+                 *, q0=None, probes=None):
+        from ..core.util import tree_gaussian_like, value_and_grad
+        from ..landscape.hvp import make_hvp_fn, tree_rademacher_like
+        from ..landscape.lanczos import lanczos
+        from ..landscape.predictor import predict_alpha_e
+        from ..landscape.probe import ProbeResult
+
+        lay, dev, n = self.layout, self.device, self.n
+        T = lay.local.rows
+        w = params.reshape(T, LANE).to(_F32)
+        rows = _model_rows(batch, self.M, self.j)
+        self._stack = torch.zeros((self.M, T, LANE), device=dev)
+        count = _token_count(rows)
+        total = torch.clamp(self.model.all_reduce(count.reshape(1).clone()),
+                            min=1.0)[0]
+        # this rank's rows weigh count / total in its learner's mean loss
+        share = count / total
+
+        def weighted(p, b):
+            return self.api.loss_fn(p, b) * share
+
+        if self.stacked:
+            w_a = self.learners.all_reduce(w.clone()) / n
+        else:
+            w_a = w.clone()
+        _, w_tree = self._full_tree(w_a)
+        pft = self.api.params_from_tree
+        with use_mesh(self.mesh):
+            matvec = make_hvp_fn(weighted, w_tree,
+                                 tree_map(lambda x: x[None], rows),
+                                 params_from_tree=pft)
+
+        def hv(v):
+            _, v_tree = self._full_tree(v)
+            out = torch.zeros((lay.full.rows, LANE), device=dev)
+            with use_mesh(self.mesh):
+                matvec(v_tree, out=lay.full.view_tree(out))
+            return self.learners.all_reduce(self._reduce_full(out)) / n
+
+        zero = torch.zeros((), dtype=_F32, device=dev)
+        if self.stacked:
+            rows_all = torch.empty((n, T, LANE), device=dev)
+            self.learners.all_gather(w, rows_all)
+            devs = [self._owned(rows_all[i] - w_a) for i in range(n)]
+            del rows_all
+            sig_sq = sum(self._dot(d, d) for d in devs) / n
+            t_hc = sum(self._dot(d, hv(d)) for d in devs) / n
+            del devs
+        else:
+            sig_sq = t_hc = zero
+
+        # the learners' gradients at w_a, their mean and spread
+        with use_mesh(self.mesh):
+            _, g_tree = value_and_grad(weighted, w_tree, rows, pft)
+        g_i = self._reduce_full(lay.full.flatten(g_tree).reshape(-1, LANE))
+        g0 = self.learners.all_reduce(g_i.clone()) / n
+        g_norm_sq = self._dot(g0, g0)
+        dev_sq = self.learners.all_reduce(
+            self._dot(g_i - g0, g_i - g0).reshape(1))[0]
+        gns = dev_sq / max(n - 1, 1) / torch.clamp_min(g_norm_sq, 1e-30)
+
+        if q0 is None:
+            if gen is None:
+                gen = torch.Generator(device=dev).manual_seed(0)
+            q0 = tree_gaussian_like(gen, w_tree, 1.0)
+        res = lanczos(hv, self._local(q0), self.m, reorth=self.reorth,
+                      reduce=lambda t: self.model.all_reduce(t))
+        lam = res.eigenvalues[-1]
+        del res
+        if probes is None:
+            probes = [tree_rademacher_like(gen, w_tree)
+                      for _ in range(self.n_hutch)]
+        t_h = torch.mean(torch.stack([
+            self._dot(z, hv(z)) for z in map(self._local, probes)]))
+        del self._stack
+        return ProbeResult(
+            sharpness=lam, trace_h=t_h, trace_hc=t_hc, sigma_w_sq=sig_sq,
+            grad_norm=torch.sqrt(g_norm_sq), gns=gns,
+            alpha_e_pred=predict_alpha_e(self.alpha, t_hc, sig_sq))
+
+
+def make_probe_step(api: ModelAPI, mesh, *, alpha: float, stacked: bool,
+                    lanczos_iters: int = 8, hutchinson_samples: int = 4,
+                    reorth: str = "auto", device=None) -> Callable:
+    """``probe(params, batch, gen=None, *, q0=None, probes=None) ->
+    landscape.ProbeResult`` on the mesh, every rank calling: ``params``
+    is this rank's (1, T_local, 128) shard store (a DPSGD / AD-PSGD
+    state's ``params``, or SSGD's with ``stacked=False``), ``batch`` its
+    learner's batch (the step's).
+
+    The measurement is the reference's ``probe_landscape`` at the
+    learners' mean w_a (an ``all_reduce`` over the learner group) over
+    the superbatch of the learners' batches: an HVP is each rank's HVP of
+    its rows (weighted in its learner's mean loss) on the gathered full
+    weights, reduce-scattered over the model group and all-reduced over
+    the learners.  The Lanczos basis is each rank's (m + 1, T_local, 128)
+    shard, reorthogonalized through kernels #4 / #5 (``reorth``; the
+    dots all-reduced over the model group between the dots and the axpy
+    of each CGS2 sweep).  ``Tr(HC)`` all-gathers the learners' shards
+    over the learner group (n shards at once, transient).
+    ``stacked=False`` (SSGD, a single replica): the spread terms are 0.
+    ``gen`` draws the Lanczos start vector, then the Hutchinson probes,
+    as full trees on every rank alike; ``q0`` / ``probes`` (full trees)
+    replace the draws."""
+    return _MeshProbe(api, mesh, alpha, stacked, lanczos_iters,
+                      hutchinson_samples, reorth, device)
+
+
+# ---------------------------------------------------------------------------
+# spec builders (shapes only: the meta device, nothing allocated)
+# ---------------------------------------------------------------------------
+
+class _OnMeta(torch.overrides.TorchFunctionMode):
+    """Every factory call's ``device`` becomes ``meta``."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = dict(kwargs or {})
+        if "device" in kwargs:
+            kwargs["device"] = "meta"
+        return func(*args, **kwargs)
+
+
+def param_shapes(api: ModelAPI):
+    """One learner's parameter tree (the reference's layout) on the meta
+    device: shapes and dtypes, nothing allocated (the meta device runs
+    each initializer op through Python: ~25 s for qwen3-moe-235b-a22b's
+    128 experts a layer)."""
+    from ..models import build_model
+    cpu = build_model(api.cfg, device="cpu")
+    with torch.device("meta"), _OnMeta():
+        return cpu.param_tree(cpu.init(0))
+
+
+def _meta_like(x, lead=()):
+    return torch.empty(tuple(lead) + tuple(x.shape), dtype=x.dtype,
+                       device="meta")
+
+
+def stacked_param_specs(api: ModelAPI, L: int):
+    """``param_shapes`` with a leading learner dim of L."""
+    return tree_map(lambda x: _meta_like(x, (L,)), param_shapes(api))
+
+
+def train_state_specs(api: ModelAPI, optimizer: Optimizer, mesh, *,
+                      algo: str, elastic: bool = False) -> LaunchState:
+    """A ``LaunchState`` of meta tensors: the reference's
+    ``train_state_specs``.  DPSGD / AD-PSGD stack every leaf of the
+    parameters and the optimizer state over the L learners; SSGD keeps
+    one replica.  AD-PSGD adds the buffer and the (L,) ages and clocks,
+    ``elastic`` the membership operands."""
+    L = n_learners(mesh_shape(mesh))
+    single = param_shapes(api)
+    with torch.device("meta"), _OnMeta():
+        opt = optimizer.init(single)
+    extra = {}
+    if algo in ("dpsgd", "adpsgd"):
+        p = tree_map(lambda x: _meta_like(x, (L,)), single)
+        opt = tree_map(lambda x: _meta_like(x, (L,)), opt)
+        if algo == "adpsgd":
+            extra.update(buffer=p, age=_meta_like(torch.empty(
+                (L,), dtype=torch.int32, device="meta")),
+                clock=_meta_like(torch.empty((L,), dtype=torch.int32,
+                                             device="meta")))
+        if elastic:
+            extra.update(
+                active=torch.empty((L,), dtype=torch.bool, device="meta"),
+                slow_every=torch.empty((L,), dtype=torch.int32,
+                                       device="meta"),
+                drop_round=torch.empty((), dtype=torch.bool, device="meta"))
+    else:
+        p = single
+    return LaunchState(params=p, opt_state=opt, step=0, seed=0, **extra)
+
+
+def train_state_shardings(state_specs: LaunchState, mesh, *,
+                          algo: str) -> LaunchState:
+    """The specs of ``train_state_specs``' leaves: the reference's
+    ``train_state_shardings``.  The optimizer state mirrors the
+    parameters where it has more than one dim; its scalars (and stacked
+    scalars) are replicated."""
+    from ..tree import tree_flatten, tree_flatten_with_path, tree_unflatten
+    from .sharding import P, leaf_spec, params_sharding
+
+    stacked = algo in ("dpsgd", "adpsgd")
+    lax = learner_axes(mesh)
+    size = mesh_shape(mesh).shape["model"]
+    p = params_sharding(state_specs.params, mesh, stacked=stacked)
+
+    def opt_spec(path, leaf):
+        if leaf.dim() <= 1:
+            return P(*([None] * leaf.dim()))
+        return leaf_spec(path, leaf, size,
+                         learner_axes=lax if stacked else None)
+
+    _, treedef = tree_flatten(state_specs.opt_state)
+    o = tree_unflatten(treedef, [
+        opt_spec(pa, leaf)
+        for pa, leaf in tree_flatten_with_path(state_specs.opt_state)])
+    extra = {}
+    if algo == "adpsgd":
+        extra.update(buffer=p, age=P(lax), clock=P(lax))
+    if state_specs.active is not None:
+        extra.update(active=P(lax), slow_every=P(lax), drop_round=P())
+    return LaunchState(params=p, opt_state=o, step=P(), seed=P(), **extra)
 
 
 # ---------------------------------------------------------------------------

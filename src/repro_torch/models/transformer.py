@@ -40,6 +40,7 @@ from .layers import (apply_mrope, apply_rope, dense_init, dtype_of,
 from .mamba import (init_mamba_cache, init_mamba_params, mamba_decode,
                     mamba_forward)
 from .moe import init_moe_params, moe_forward
+from .moe_shardmap import moe_forward_shardmap, shardmap_applicable
 from .xlstm import (init_mlstm_cache, init_mlstm_params, init_slstm_cache,
                     init_slstm_params, mlstm_block_decode,
                     mlstm_block_forward, slstm_block_decode,
@@ -209,13 +210,20 @@ def logits_from_hidden(params: TransformerParams, cfg: ModelConfig, x):
 
 def _mlp(lp: LayerParams, x, cfg: ModelConfig, mlp: str):
     """The layer's FFN half: x + mlp(rms_norm(x)) (x itself for "none").
-    ``moe_backend`` "shard_map" takes the einsum path on one device, as
-    the reference does without a ``model`` mesh axis (its all-to-all
-    arrives with ROADMAP slice 7b)."""
+    ``moe_backend`` "shard_map" takes the expert-parallel all-to-all
+    (``models/moe_shardmap.py``) under a mesh whose model axis divides the
+    experts and the sequence, and the einsum path otherwise (one device,
+    no model axis), as the reference does."""
     if mlp == "none":
         return x
     h = rms_norm(x, lp.norm2, cfg.norm_eps)
     if mlp == "moe":
+        if cfg.moe_backend == "shard_map" and shardmap_applicable(
+                cfg.n_experts, h.shape[1]):
+            return x + moe_forward_shardmap(
+                lp.mlp, h, n_experts=cfg.n_experts,
+                top_k=cfg.experts_per_tok,
+                capacity_factor=cfg.capacity_factor)
         return x + moe_forward(lp.mlp, h, n_experts=cfg.n_experts,
                                top_k=cfg.experts_per_tok,
                                capacity_factor=cfg.capacity_factor)

@@ -5,7 +5,8 @@ objects) at the leaves — what the port needs in place of
 Dicts are walked in sorted key order at every level, which is the order
 ``jax.tree_util.tree_flatten`` uses, so a flattened tree here lines up leaf
 for leaf with the reference's.  ``None`` is an empty subtree, as in JAX.
-A NamedTuple is walked field by field and rebuilt as itself.
+A NamedTuple is walked field by field and rebuilt as itself; a tuple
+type with ``_tree_leaf = True`` (a partition spec) is a leaf.
 ``tree_flatten_with_path`` names each leaf by the path JAX gives it (dict
 key, sequence index or field name), so ``"/".join`` of a path is the key
 the reference's checkpoints store.
@@ -22,6 +23,12 @@ def _is_namedtuple(x) -> bool:
     return isinstance(x, tuple) and hasattr(type(x), "_fields")
 
 
+def _is_leaf_tuple(x) -> bool:
+    """A tuple type that marks itself a leaf (``_tree_leaf``), as a
+    partition spec does."""
+    return getattr(type(x), "_tree_leaf", False)
+
+
 def tree_flatten(tree) -> Tuple[List[Any], Any]:
     """-> (leaves, treedef).  ``None`` is an empty subtree, as in JAX."""
     if isinstance(tree, dict):
@@ -32,7 +39,7 @@ def tree_flatten(tree) -> Tuple[List[Any], Any]:
             leaves += sub
             defs.append(d)
         return leaves, ("dict", tuple(keys), tuple(defs))
-    if isinstance(tree, (list, tuple)):
+    if isinstance(tree, (list, tuple)) and not _is_leaf_tuple(tree):
         leaves, defs = [], []
         for x in tree:
             sub, d = tree_flatten(x)
@@ -92,7 +99,7 @@ def tree_flatten_with_path(tree, prefix=()) -> List[Tuple[tuple, Any]]:
     if _is_namedtuple(tree):
         return [x for f, v in zip(type(tree)._fields, tree)
                 for x in tree_flatten_with_path(v, prefix + (f,))]
-    if isinstance(tree, (list, tuple)):
+    if isinstance(tree, (list, tuple)) and not _is_leaf_tuple(tree):
         return [x for i, v in enumerate(tree)
                 for x in tree_flatten_with_path(v, prefix + (i,))]
     if tree is None:

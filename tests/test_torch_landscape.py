@@ -214,6 +214,29 @@ def test_hutchinson_and_trace_hc_match_reference():
         rtol=PROBE_RTOL)
 
 
+def test_single_replica_probe_matches_reference_with_injected_draws():
+    """``stacked=False``: the SSGD path's single replica, the spread terms
+    0 and the prediction the lr itself, as the reference's."""
+    params, batch = _fc(n=3)
+    key = jax.random.PRNGKey(6)
+    want = jl.probe_landscape(jax_fcnet.loss_fn, params, batch, key,
+                              alpha=0.5, lanczos_iters=6,
+                              hutchinson_samples=3, stacked=False,
+                              reorth="ref")
+    q0, probes = _ref_draws(key, params, 3)
+    got = pl.probe_landscape(fcnet.loss_fn, _torch(params),
+                             _torch_batch(batch), alpha=0.5,
+                             lanczos_iters=6, hutchinson_samples=3,
+                             q0=_torch(q0), stacked=False,
+                             probes=[_torch(p) for p in probes])
+    assert float(got.trace_hc) == float(got.sigma_w_sq) == 0.0
+    assert float(got.alpha_e_pred) == 0.5
+    for field in pl.ProbeResult._fields:
+        np.testing.assert_allclose(float(getattr(got, field)),
+                                   float(getattr(want, field)),
+                                   rtol=PROBE_RTOL, err_msg=field)
+
+
 def test_probe_landscape_matches_reference_with_injected_draws():
     stacked, batch = _stacked_fc()
     key = jax.random.PRNGKey(4)

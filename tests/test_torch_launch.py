@@ -749,6 +749,33 @@ def test_matrix_round_realizes_the_matrix():
             np.testing.assert_array_equal(m, s.step_mats[v])
 
 
+@pytest.mark.parametrize("shapes,allocs", [
+    ([(4, 3), (2, 3), (4, 3)], 1),          # the front rows of one buffer
+    ([(2, 3), (5, 3), (3, 3)], 2),          # grown once
+    ([(4, 3), (4, 5)], 2),                  # other trailing dims
+    ([(), ()], 1),                          # a scalar
+    ([(3,), ()], 2),
+], ids=["front", "grow", "trailing", "scalar", "rank"])
+def test_host_staging_keeps_a_buffer_while_it_fits(monkeypatch, shapes,
+                                                   allocs):
+    """``HostStaging.buffer`` reuses a buffer while its trailing dims and
+    dtype stay and its leading dim suffices; every buffer is pinned."""
+    empty, made = torch.empty, []
+
+    def pinned(*a, pin_memory=False, **kw):
+        assert pin_memory
+        made.append(empty(*a, **kw))
+        return made[-1]
+
+    monkeypatch.setattr(torch, "empty", pinned)
+    st = dp.HostStaging()
+    for shape in shapes:
+        assert tuple(st.buffer("k", shape, torch.float32).shape) == shape
+    assert len(made) == allocs
+    st.buffer("k", shapes[-1], torch.float64)
+    assert len(made) == allocs + 1
+
+
 def test_nccl_refuses_cpu_tensors(monkeypatch):
     from repro_torch.launch import init_learner_group
     with pytest.raises(ValueError, match="nccl"):
