@@ -240,7 +240,22 @@ Phases (any failure raises and the script exits non-zero):
      in bf16 through the expert-parallel all-to-all
      (``models/moe_shardmap.py``), 4,096 tokens, forward and backward
      against the einsum path on the same tokens, its bf16 tier held
-     against its control.
+     against its control; (d) the per-period gather (``gather="period"``)
+     on (a)'s mesh: DPSGD on ring and SSGD from (a)'s initial state, each
+     period gathered as the forward reaches it and again in its
+     checkpointed recompute, held to (a)'s ``"whole"`` shards (1e-6;
+     bitwise is what the card gives if the gap reads 0), each rank's
+     peak memory beside the dry run's prediction, kernel #2's launches;
+     (e) the sequence-sharded decode on a (1, 4) mesh: transformer-100m
+     at full width, 8 sequences, a 256-row buffer cut 4 ways, 264 steps
+     (a wrap), logits within 1e-4 relative of the single-process
+     ``decode_step`` on the card with the same weights; then gemma2-27b
+     at 2 layers in bf16 (softcap, GQA, a local layer), 72 steps of a
+     64-row buffer, its tier held against its control; collectives,
+     bytes and ms a step; (f) the sharded prefill on (a)'s mesh:
+     transformer-100m with ``use_pallas``, each rank's row of 512 tokens
+     through kernel #6 on the gathered weights, within 1e-5 relative of
+     the single-process flash prefill of the same row.
  Phase 2 also holds the gossip kernel at the launch path's shapes: n = 1
  with a received (2, T, 128) stack as its remote (the ring), and n = 1 in
  publish mode (AD-PSGD).
@@ -311,6 +326,12 @@ REORTH_RESIDUAL = 1e-4      # of ||w||: tests/test_landscape.py's bound
 PROBE_ITERS, PROBE_SAMPLES = 8, 4
 PROBE_RTOL = 1e-4
 TABLE1_SCALE, TABLE1_STEPS = 4, 120     # nB = 2000, lr = 0.5
+# phase 10's topology ablation: steps a topology.  What the phase holds
+# (every schedule fused, rounds x steps gossip launches, measured_gap >=
+# gap_bound from a 16-step window of the schedule) does not depend on the
+# length, so it runs the twin's --smoke length (130 to PR 22; cut for the
+# run's time when phase 17 grew in PR 23)
+ABLATION_STEPS = 40
 # flash attention. float32: the reference's own sweep tiers
 # (tests/test_kernels.py) — the sums run in another order than the plain
 # version's einsum, so 2e-6 holds to S = 256 and 1e-5 above. bf16: both
@@ -522,6 +543,26 @@ MESH_PROBE = (2, 1)
 MESH_PROBE_RTOL = 1e-4
 MOE_EP_TOKENS, MOE_EP_CF, MOE_EINSUM_CF = 4096, 4.0, 5.0
 MOE_EP_RTOL = 8e-3
+# d: (case, steps) with gather="period" from a's initial state, each rank's
+# shard within MESH_PERIOD_ATOL of a's gather="whole" shard (the same
+# float32 operations on the same values; a reduce of two ranks is one
+# addition either way)
+MESH_PERIOD_CASES = (("dpsgd_ring", 2), ("ssgd", 2))
+MESH_PERIOD_ATOL = 1e-6
+# e: the sequence-sharded decode on (1, 4): SEQ_DECODE_B sequences, a
+# buffer of SEQ_DECODE_BUF rows (a quarter a rank), SEQ_DECODE_STEPS steps
+# (past a wrap); transformer-100m in float32 against the single-process
+# decode_step on the card (the merge of 4 float32 partials rounds
+# otherwise than one softmax), then gemma2-27b at GEMMA_LAYERS in bf16
+# over a GEMMA_SEQ_BUF-row buffer (both layers' own: the window is 4,096)
+SEQ_DECODE_MESH = (1, 4)
+SEQ_DECODE_B, SEQ_DECODE_BUF, SEQ_DECODE_STEPS = 8, 256, 264
+SEQ_DECODE_RTOL = 1e-4
+GEMMA_SEQ_BUF, GEMMA_SEQ_STEPS = 64, 72
+GEMMA_SEQ_RTOL = 1e-2
+# f: the sharded prefill against the single-process flash prefill of the
+# same rows (the same kernel on the same gathered weights)
+MESH_PREFILL_RTOL = 1e-5
 # jamba's decode shape in phase 2 (H 32 on KV 8, hd 128, window 4,096)
 # and granite-moe's (H 24 on KV 8, hd 64), 8 slots up to 8,192 tokens
 ZOO_DECODE = {"granite_moe": (24, 8, 64, {}),
@@ -2824,7 +2865,7 @@ def paper_phase(kernels):
     rows, t0 = [], time.perf_counter()
     for name in ablation_topology.TOPOLOGIES:
         zero()
-        r = ablation_topology.run_topology(name)
+        r = ablation_topology.run_topology(name, steps=ABLATION_STEPS)
         launches = read()
         want = r["rounds_per_step"] * r["steps"]
         check(launches["gossip_mix_update_flat"] == want,
@@ -4188,18 +4229,21 @@ def _mesh_loader(cfg):
                          extra_args=(TRAIN_SEQ,), seed=SEED)
 
 
-def _mesh_step(name, api, mesh):
+def _mesh_step(name, api, mesh, gather="whole"):
     from repro_torch.launch.train import (make_adpsgd_train_step,
                                           make_dpsgd_train_step,
                                           make_ssgd_train_step)
     if name == "adpsgd":
         return make_adpsgd_train_step(
             api, _launch_opt(), mesh=mesh, max_staleness=LAUNCH_STALENESS,
-            slow_learner=LAUNCH_SLOW, slow_factor=LAUNCH_SLOW_FACTOR)
+            slow_learner=LAUNCH_SLOW, slow_factor=LAUNCH_SLOW_FACTOR,
+            gather=gather)
     if name == "ssgd":
-        return make_ssgd_train_step(api, _launch_opt(), mesh=mesh)
+        return make_ssgd_train_step(api, _launch_opt(), mesh=mesh,
+                                    gather=gather)
     return make_dpsgd_train_step(api, _launch_opt(), mesh=mesh,
-                                 topology=name.split("_", 1)[1])
+                                 topology=name.split("_", 1)[1],
+                                 gather=gather)
 
 
 def mesh_rank(rank, port, wdir, queue):
@@ -4255,7 +4299,7 @@ def _mesh_rank(rank, port, wdir):
     single = tree_map(lambda a: np.broadcast_to(a[:1], a.shape), params)
     loader = _mesh_loader(cfg)
     kernel = gossip_mix.gossip_mix_update_flat
-    records, finals, probes = {}, {}, {}
+    records, finals, probes, whole_shards = {}, {}, {}, {}
     draws = None
     for name, steps in MESH_CASES:
         batches = [tree_map(lambda x: x[i], loader.batch(t))
@@ -4298,6 +4342,8 @@ def _mesh_rank(rank, port, wdir):
         finals[name] = [gather_learner(step, state.params).cpu()] + (
             [gather_learner(step, state.buffer).cpu()]
             if name == "adpsgd" else [])
+        if name in dict(MESH_PERIOD_CASES):
+            whole_shards[name] = state.params.clone()
         if name in ("dpsgd_ring", "ssgd"):
             if draws is None:
                 draws = _probe_draws(api, step._layout.full)
@@ -4344,8 +4390,20 @@ def _mesh_rank(rank, port, wdir):
             api, params, loader, gathered, draws)
     del draws, gathered
     torch.cuda.empty_cache()
-    record["moe"] = _mesh_moe(make_mesh((1, LAUNCH_RANKS),
-                                        ("data", "model")), rank)
+    _progress(rank, "17a-b")
+    record["period"] = _mesh_period(api, mesh, params, single, loader,
+                                    whole_shards, i)
+    del whole_shards
+    torch.cuda.empty_cache()
+    _progress(rank, "17d")
+    line = make_mesh(SEQ_DECODE_MESH, ("data", "model"))
+    record["moe"] = _mesh_moe(line, rank)
+    torch.cuda.empty_cache()
+    _progress(rank, "17c")
+    record["decode"] = _mesh_decode(line, rank, params)
+    torch.cuda.empty_cache()
+    record["prefill"] = _mesh_prefill(mesh, rank, params, loader)
+    _progress(rank, "17f")
     dist.destroy_process_group()
     return record
 
@@ -4494,6 +4552,220 @@ def _mesh_moe(mesh, rank):
             "drouter_rel": _rel(drouter, drouterr)}
 
 
+def _progress(rank, what):
+    """A line on stderr as a mesh rank finishes a part: the wall clock and
+    the rank's peak host memory (a part that dies leaves its last line)."""
+    import resource
+    peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
+    print(f"mesh rank {rank}: {what} done at {time.strftime('%H:%M:%S')}, "
+          f"host peak {peak:.2f} GB", file=sys.stderr, flush=True)
+
+
+def _mesh_period(api, mesh, params, single, loader, whole, i):
+    """Phase 17d on one rank: each case of MESH_PERIOD_CASES again with
+    ``gather="period"`` from a's initial state and batches; the rank's
+    shard against a's ``"whole"`` shard (``whole``), ms a step, peak
+    memory, the model group's collectives and bytes a step, kernel #2's
+    launches."""
+    from repro_torch.kernels import gossip_mix
+    from repro_torch.launch.train import rank_state_from_numpy
+    from repro_torch.tree import tree_map
+
+    kernel = gossip_mix.gossip_mix_update_flat
+    out = {}
+    for name, steps in MESH_PERIOD_CASES:
+        batches = [tree_map(lambda x: x[i], loader.batch(t))
+                   for t in range(steps)]
+        step = _mesh_step(name, api, mesh, gather="period")
+        state = rank_state_from_numpy(
+            step, single if name == "ssgd" else params, seed=SEED)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernel.launches = 0
+        walls, kinds, model = [], [], []
+        for t in range(steps):
+            if t == 1:
+                step.timing = {}
+            k0, m0 = step.model_kinds, step.model_bytes
+            t0 = time.perf_counter()
+            state, m = step(state, batches[t])
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            kinds.append({k: v - k0.get(k, 0)
+                          for k, v in step.model_kinds.items()})
+            model.append(step.model_bytes - m0)
+        launches = kernel.launches
+        timed = steps - 1
+        out[name] = {
+            "steps": steps, "launches": launches,
+            "max_abs_vs_whole": float((state.params - whole[name])
+                                      .abs().max()),
+            "bitwise_whole": bool(torch.equal(state.params, whole[name])),
+            "ms_per_step": 1e3 * sum(walls[1:]) / timed,
+            "first_step_ms": 1e3 * walls[0],
+            "parts_ms_per_step": {k: 1e3 * v / timed
+                                  for k, v in step.timing.items()},
+            "max_memory_allocated_gb": torch.cuda.max_memory_allocated()
+            / 1e9,
+            "model_kinds_per_step": kinds[-1],
+            "model_bytes_per_step": model[-1],
+            "max_full_bytes": step.max_full_bytes,
+            "losses": [float(m["loss"])]}
+        del step, state, batches
+        torch.cuda.empty_cache()
+    return out
+
+
+def _seq_decode(api, mesh, rank, make_tree, buf, steps, control=False):
+    """Phase 17e for one model on one rank of the (1, 4) mesh: the
+    sequence-sharded decode of SEQ_DECODE_B sequences (the same seeded
+    tokens on every rank) from this rank's shard of ``make_tree()``'s
+    weights; rank 0 first runs the single-process ``decode_step`` on the
+    whole tree and holds every step's logits to it; ``control`` runs the
+    sharded decode again one mantissa bit below bf16."""
+    from repro_torch.launch.train import make_decode_step
+
+    cfg = api.cfg
+    step = make_decode_step(api, mesh)
+    tree = make_tree()
+    store = step.shard(tree)
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    tokens = torch.randint(0, cfg.vocab, (steps, SEQ_DECODE_B, 1),
+                           generator=gen, device="cuda", dtype=torch.int32)
+    want, single_ms = None, None
+    if rank == 0:
+        params = api.params_from_tree(tree)
+        cache = api.init_cache(params, SEQ_DECODE_B, buf)
+        want = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(steps):
+            lg, cache = api.decode_step(params, cache, tokens[t], t)
+            want.append(lg)
+        torch.cuda.synchronize()
+        single_ms = 1e3 * (time.perf_counter() - t0) / steps
+        del params, cache
+    del tree
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step.params(store)                  # the weights, gathered once
+    torch.cuda.synchronize()
+    gather_s = time.perf_counter() - t0
+    weight_bytes = step.comm.bytes
+    torch.cuda.empty_cache()
+
+    def run():
+        cache = step.init_cache(SEQ_DECODE_B, buf)
+        logits, c0, b0 = [], step.seq_comm.calls, step.seq_comm.bytes
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(steps):
+            if t == 1:
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+            lg, cache = step(store, cache, tokens[t], t)
+            logits.append(lg)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        return logits, {
+            "ms_per_step": 1e3 * (t2 - t1) / (steps - 1),
+            "first_step_ms": 1e3 * (t1 - t0),
+            "collectives_per_step": (step.seq_comm.calls - c0) / steps,
+            "bytes_per_step": (step.seq_comm.bytes - b0) / steps}
+
+    torch.cuda.reset_peak_memory_stats()
+    logits, rec = run()
+    rec.update(weights_gather_s=gather_s, weight_bytes_in=weight_bytes,
+               max_memory_allocated_gb=torch.cuda.max_memory_allocated()
+               / 1e9, store_bytes=store.numel() * 4, buf_len=buf,
+               steps=steps, sequences=SEQ_DECODE_B,
+               finite=bool(all(torch.isfinite(x).all() for x in logits)))
+    if want is not None:
+        rec["rel_per_step"] = [_rel(g, w) for g, w in zip(logits, want)]
+        rec["single_process_ms_per_step"] = single_ms
+    del logits
+    if control:
+        with CoarseBF16():
+            coarse, _ = run()
+        if want is not None:
+            rec["control_rel_per_step"] = [_rel(g, w)
+                                           for g, w in zip(coarse, want)]
+        del coarse
+    del want, step, store
+    return rec
+
+
+def _mesh_decode(mesh, rank, params):
+    """Phase 17e on one rank: transformer-100m (learner 0's weights of
+    a), then gemma2-27b at GEMMA_LAYERS (bf16, from seed SEED on every
+    rank), each through ``_seq_decode``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.convert import tree_from_jax
+    from repro_torch.tree import tree_map
+
+    api = build_model(get_config("transformer-100m"))
+    out = {"transformer_100m": _seq_decode(
+        api, mesh, rank, lambda: tree_from_jax(
+            tree_map(lambda a: np.asarray(a[0]), params), device="cuda"),
+        SEQ_DECODE_BUF, SEQ_DECODE_STEPS)}
+    torch.cuda.empty_cache()
+    _progress(rank, "17e transformer-100m")
+    cfg = dataclasses.replace(get_config("gemma2-27b"),
+                              n_layers=GEMMA_LAYERS)
+    api = build_model(cfg)
+    out["gemma2_27b"] = _seq_decode(
+        api, mesh, rank, lambda: api.param_tree(api.init(SEED)),
+        GEMMA_SEQ_BUF, GEMMA_SEQ_STEPS, control=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_prefill(mesh, rank, params, loader):
+    """Phase 17f on one rank of a's mesh: transformer-100m with
+    ``use_pallas``, the rank's rows of its learner's first batch through
+    ``make_prefill_step`` (kernel #6 on the gathered weights), against the
+    single-process flash prefill of the same rows (its launches not
+    counted)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention
+    from repro_torch.launch.mesh import learner_rank, model_rank
+    from repro_torch.launch.train import gather_rows, make_prefill_step
+    from repro_torch.models import build_model
+    from repro_torch.models.convert import tree_from_jax
+    from repro_torch.tree import tree_map
+
+    cfg = dataclasses.replace(get_config("transformer-100m"),
+                              use_pallas=True)
+    api = build_model(cfg)
+    i, j = learner_rank(mesh), model_rank(mesh)
+    tree = tree_from_jax(tree_map(lambda a: np.asarray(a[i]), params),
+                         device="cuda")
+    batch = tree_map(lambda x: x[i], loader.batch(0))
+    step = make_prefill_step(api, mesh)
+    store = step.shard(tree)
+    step.params(store)                  # the weights, gathered once
+    kernel = flash_attention.flash_attention_fwd
+    kernel.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mine = step(store, batch)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    launches = kernel.launches
+    rows = mine.shape[0]
+    learner = gather_rows(step, mine)
+    with torch.no_grad():
+        want = api.apply(api.params_from_tree(tree),
+                         tree_map(lambda x: x[j * rows:(j + 1) * rows],
+                                  batch))
+    return {"rows": rows, "seq": TRAIN_SEQ, "launches": launches,
+            "ms": ms, "rel": _rel(mine, want),
+            "learner_rows": learner.shape[0],
+            "finite": bool(torch.isfinite(mine).all())}
+
+
 def _mesh_ranks(wdir):
     """Phase 17's ranks, spawned together; returns {rank: record}."""
     import queue as queues
@@ -4529,15 +4801,22 @@ def _mesh_ranks(wdir):
 
 
 def mesh_phase(kernels):
-    """Phase 17: a-c.  Returns (record, gossip launches by path, reorth
-    launches by kernel)."""
+    """Phase 17: a-f.  Returns (record, gossip launches by path, reorth
+    launches by kernel, flash launches by path)."""
     import tempfile
 
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
 
+    from repro_torch.launch.dryrun import step_memory
+
     cfg = get_config("transformer-100m")
     api = build_model(cfg)
+    predicted = {}
+    for name, _ in MESH_PERIOD_CASES:
+        mem = step_memory(api, MESH_SHAPE[1], name.split("_")[0])
+        predicted[name] = {g: (mem["resident"] + mem["transient"][g]) / 1e9
+                           for g in ("whole", "period")}
     with tempfile.TemporaryDirectory() as wdir:
         t0 = time.perf_counter()
         _save_stacked(api, wdir, MESH_SHAPE[0])
@@ -4644,8 +4923,113 @@ def mesh_phase(kernels):
         "dx": held("EP MoE dx against einsum",
                    max(c["dx_rel"] for c in moe),
                    min(c["dx_rel_control"] for c in moe), MOE_EP_RTOL)}
-    return record, {f"mesh_2x2_{k}_4_gloo_ranks": v
-                    for k, v in launches.items()}, reorth_launches
+    record["period_gather"], period_launches = _period_record(
+        ranks, record["cases"], predicted)
+    record["seq_decode"] = _decode_record(ranks)
+    record["sharded_prefill"], flash_launches = _prefill_record(ranks)
+    gossip = {f"mesh_2x2_{k}_4_gloo_ranks": v for k, v in launches.items()}
+    gossip.update({f"mesh_2x2_period_{k}_4_gloo_ranks": v
+                   for k, v in period_launches.items()})
+    return record, gossip, reorth_launches, {
+        "transformer_100m_mesh_2x2_sharded_prefill_4_gloo_ranks":
+            flash_launches}
+
+
+def _period_record(ranks, whole_cases, predicted):
+    """17d's checks and record: each case's shards against the whole
+    gather's, its collectives a step, kernel #2's launches, and each
+    rank's peak memory in both modes beside the dry run's prediction."""
+    out, launches = {}, {}
+    for name, steps in MESH_PERIOD_CASES:
+        per = [ranks[r]["period"][name] for r in range(LAUNCH_RANKS)]
+        launches[name] = sum(c["launches"] for c in per)
+        want = 0 if name == "ssgd" else LAUNCH_RANKS * steps
+        check(launches[name] == want,
+              f"17d {name}: {launches[name]} gossip launches, not {want}")
+        gaps = [c["max_abs_vs_whole"] for c in per]
+        check(max(gaps) <= MESH_PERIOD_ATOL,
+              f"17d {name}: gather='period' differs from 'whole' by {gaps}")
+        check(all(np.isfinite(c["losses"]).all() for c in per),
+              f"17d {name}: losses")
+        out[name] = {
+            "steps": steps, "gossip_launches": launches[name],
+            "max_abs_vs_whole_by_rank": gaps,
+            "bitwise_whole_by_rank": [c["bitwise_whole"] for c in per],
+            "ms_per_step_by_rank": [c["ms_per_step"] for c in per],
+            "whole_ms_per_step_by_rank": whole_cases[name][
+                "ms_per_step_by_rank"],
+            "first_step_ms_by_rank": [c["first_step_ms"] for c in per],
+            "parts_ms_per_step_by_rank": [c["parts_ms_per_step"]
+                                          for c in per],
+            "model_kinds_per_step_by_rank": [c["model_kinds_per_step"]
+                                             for c in per],
+            "model_bytes_per_step_by_rank": [c["model_bytes_per_step"]
+                                             for c in per],
+            "max_full_bytes_by_rank": [c["max_full_bytes"] for c in per],
+            "max_memory_allocated_gb_by_rank": [
+                c["max_memory_allocated_gb"] for c in per],
+            "whole_max_memory_allocated_gb_by_rank": whole_cases[name][
+                "max_memory_allocated_gb_by_rank"],
+            "dry_run_prediction_gb": predicted[name]}
+    return out, launches
+
+
+def _decode_record(ranks):
+    """17e's checks and record."""
+    out = {}
+    for key, tier in (("transformer_100m", SEQ_DECODE_RTOL),
+                      ("gemma2_27b", GEMMA_SEQ_RTOL)):
+        per = [ranks[r]["decode"][key] for r in range(LAUNCH_RANKS)]
+        r0 = per[0]
+        check(all(c["finite"] for c in per), f"17e {key}: non-finite")
+        check(all(c["collectives_per_step"] == per[0]["collectives_per_step"]
+                  for c in per), f"17e {key}: collectives differ by rank")
+        rec = {"buf_len": r0["buf_len"], "steps": r0["steps"],
+               "sequences": r0["sequences"],
+               "max_rel_per_step": max(r0["rel_per_step"]),
+               "rel_first_steps": r0["rel_per_step"][:8],
+               "collectives_per_step": r0["collectives_per_step"],
+               "bytes_per_step_by_rank": [c["bytes_per_step"] for c in per],
+               "ms_per_step_by_rank": [c["ms_per_step"] for c in per],
+               "first_step_ms_by_rank": [c["first_step_ms"] for c in per],
+               "single_process_ms_per_step":
+                   r0["single_process_ms_per_step"],
+               "weights_gather_s_by_rank": [c["weights_gather_s"]
+                                            for c in per],
+               "weight_bytes_in_by_rank": [c["weight_bytes_in"]
+                                           for c in per],
+               "store_bytes_per_rank": r0["store_bytes"],
+               "max_memory_allocated_gb_by_rank": [
+                   c["max_memory_allocated_gb"] for c in per]}
+        if "control_rel_per_step" in r0:
+            rec["tier"] = held(f"17e {key} sharded decode against the "
+                               "single-process decode",
+                               max(r0["rel_per_step"]),
+                               min(r0["control_rel_per_step"]), tier)
+        else:
+            check(rec["max_rel_per_step"] <= tier,
+                  f"17e {key}: logits {rec['max_rel_per_step']} from the "
+                  f"single-process decode, past {tier}")
+            rec["tier_rel"] = tier
+        out[key] = rec
+    return out
+
+
+def _prefill_record(ranks):
+    """17f's checks and record; returns it and kernel #6's launches."""
+    per = [ranks[r]["prefill"] for r in range(LAUNCH_RANKS)]
+    for r, c in enumerate(per):
+        check(c["finite"] and c["rel"] <= MESH_PREFILL_RTOL,
+              f"17f rank {r}: {c['rel']} from the single-process flash "
+              "prefill")
+        check(c["launches"] > 0, f"17f rank {r}: kernel #6 never launched")
+        check(c["learner_rows"] == TRAIN_BATCH,
+              f"17f rank {r}: {c['learner_rows']} learner rows")
+    return {"rows_per_rank": per[0]["rows"], "seq": per[0]["seq"],
+            "rel_by_rank": [c["rel"] for c in per],
+            "launches_by_rank": [c["launches"] for c in per],
+            "ms_by_rank": [c["ms"] for c in per],
+            "tier_rel": MESH_PREFILL_RTOL}, sum(c["launches"] for c in per)
 
 
 # --only: one phase alone, its record printed (no kernels line)
@@ -4812,12 +5196,13 @@ def main(argv=None) -> int:
     print(json.dumps({"launch": launch}), flush=True)
     torch.cuda.empty_cache()
     mark("16_launch")
-    mesh, mesh_gossip, mesh_reorth = mesh_phase(kernels)
+    mesh, mesh_gossip, mesh_reorth, mesh_flash = mesh_phase(kernels)
     print(json.dumps({"mesh": mesh}), flush=True)
     mark("17_mesh")
     decode_record["launches"] = sum(serve_launches.values())
     decode_record["launches_by_path"] = serve_launches
     flash_record["launches_by_path"].update(zoo_flash)
+    flash_record["launches_by_path"].update(mesh_flash)
     flash_record["launches"] = sum(flash_record["launches_by_path"].values())
     gossip_record["launches_by_path"] = {
         "transformer_100m_dpsgd_training": gossip_record["launches"],

@@ -26,7 +26,8 @@ reference's ``_path_str`` does.  ``placements`` maps a spec to
 
 The port's launch step (``launch/train.py``) stores each rank's slice of
 every leaf as ``leaf_spec`` cuts it (``launch/shardstore.py``) and splits
-the compute over the model group by batch rows.
+the compute over the model group by batch rows; its decode keeps each
+rank's cache shard as ``cache_sharding`` places it.
 """
 from __future__ import annotations
 
@@ -147,8 +148,11 @@ def cache_sharding(cache_shapes, mesh):
     shards its time dim W over ``model`` (the sequence-sharded KV cache);
     SSM, conv and mLSTM states shard their largest divisible trailing dim
     (of the last two); ``slot_pos`` bookkeeping is replicated.  The
-    port's decode does not run under a model axis yet (ROADMAP slice 7c):
-    this is the table it will follow."""
+    port's sequence-sharded decode (``train.make_decode_step(api, mesh)``)
+    builds each rank's cache shard by this table and requires its
+    attention buffers cut on W (a buffer the model size does not divide
+    raises there): only the softmax's float32 partials cross ranks, and a
+    recurrent layer gathers its state's slices for the update."""
     size = mesh_shape(mesh).shape[MODEL]
     l_axes, n_l = learner_axes(mesh), _n_learners(mesh)
 

@@ -89,14 +89,39 @@ is a dict, adds the host-clock seconds of its ``compute``, ``model``
 parts there, synchronizing the card between them (instrumentation; off
 by default).
 
+The per-period gather (``gather="period"`` on the mesh steps): the step
+holds no full copy of the learner.  Its non-period leaves (embedding,
+final norm, head) are gathered once a step; each period's leaves are
+gathered as the forward reaches the period (``convert.PeriodParams``'s
+hook), the period runs under non-reentrant ``torch.utils.checkpoint``
+with its gather inside, so the backward gathers it again, recomputes it
+and reduces its gradient into the rank's gradient shard
+(``_GatherPeriod``, ``shardstore.LearnerGather``: an ``all_gather`` and,
+for leaves cut on the period dim, a ``broadcast`` from their owner; a
+``reduce_scatter`` and a ``reduce``).  The replicated leaves, the token
+count and the loss keep their one ``all_reduce``, and kernel #2 gossips
+the shard store as before; the result is the ``"whole"`` step's (bitwise
+over two model ranks, to rounding over more: ``shardstore``).  Every
+rank issues the same collectives in the same order (the recompute
+repeats the forward's, the MoE all-to-all included); the recompute reads
+the live weights, never AD-PSGD's published buffer.  ``max_full_bytes``
+is the largest full buffer a step holds.
+
 The probe: ``make_probe_step(api, mesh, alpha=, stacked=)`` measures the
 landscape at the learners' mean over their superbatch with every vector
 sharded as the weights are, the Lanczos basis an (m + 1, T_local, 128)
-shard per rank through the reorth kernels.  The spec builders
-(``stacked_param_specs``, ``train_state_specs``,
-``train_state_shardings``) work on the meta device: nothing allocated.
+shard per rank through the reorth kernels; it keeps the whole-learner
+gather (a double backward through checkpointed collectives is not
+written).  The spec builders (``stacked_param_specs``,
+``train_state_specs``, ``train_state_shardings``) work on the meta
+device: nothing allocated.
 
-Serving: ``make_prefill_step`` / ``make_decode_step`` wrap the model API.
+Serving: ``make_prefill_step`` / ``make_decode_step`` wrap the model API,
+and with ``mesh=`` serve from a rank's shard store: the prefill runs the
+rank's rows of its learner's batch (``gather_rows`` assembles the
+learner's), the decode is sequence-sharded (each rank a slice of every
+attention buffer's time dim, one all_gather of softmax partials a layer;
+``make_decode_step``).
 
 # lint: hot-path
 """
@@ -116,14 +141,15 @@ from ..core.trainer import (backward_into, bind_learner, cast_leaves,
                             fused_update)
 from ..device import resolve_device
 from ..kernels import ops as kops
-from ..models.convert import tree_from_jax
+from ..models.attention import merge_partials
+from ..models.convert import PeriodParams, period_layers, tree_from_jax
 from ..models.model import ModelAPI
 from ..models.shard_hints import use_mesh
 from ..optim import Optimizer, apply_updates
-from ..tree import tree_map
+from ..tree import tree_map, tree_unflatten
 from .mesh import (learner_axes, learner_group, learner_rank, mesh_shape,
                    model_group, model_rank, model_size, n_learners)
-from .shardstore import GroupComm, ShardLayout
+from .shardstore import GroupComm, LearnerGather, ShardLayout
 
 __all__ = ["LaunchState", "membership_operands", "drawn_rounds",
            "make_dpsgd_train_step",
@@ -131,9 +157,17 @@ __all__ = ["LaunchState", "membership_operands", "drawn_rounds",
            "rank_state_from_numpy", "gather_learner", "jit_train_step",
            "make_probe_step", "param_shapes", "stacked_param_specs",
            "train_state_specs", "train_state_shardings",
-           "make_prefill_step", "make_decode_step"]
+           "make_prefill_step", "make_decode_step", "gather_rows"]
 
 _F32 = torch.float32
+_GATHERS = ("whole", "period")
+
+
+def _check_gather(gather: str) -> str:
+    if gather not in _GATHERS:
+        raise ValueError(f"gather must be one of {_GATHERS}, got "
+                         f"{gather!r}")
+    return gather
 
 
 class LaunchState(NamedTuple):
@@ -212,7 +246,7 @@ class _RankStep:
     store and gradient, and the model group's collectives."""
 
     def __init__(self, api: ModelAPI, optimizer: Optimizer, group, device,
-                 gossip_fuse: str = "flat", mesh=None):
+                 gossip_fuse: str = "flat", mesh=None, gather: str = "whole"):
         import torch.distributed as dist
 
         if gossip_fuse not in ("flat", "leaf"):
@@ -233,7 +267,9 @@ class _RankStep:
         self.j = 0 if self.mesh is None else model_rank(self.mesh)
         self._comm = (GroupComm(model_group(self.mesh), self.device)
                       if self.M > 1 else None)
-        self._layout = None
+        # one model rank holds the whole learner: nothing to gather
+        self.gather = _check_gather(gather) if self.M > 1 else "whole"
+        self._layout = self._gatherer = None
         self.backend = dist.get_backend(group)
         if self.backend == "nccl" and self.device.type != "cuda":
             raise ValueError(f"an nccl group trains CUDA tensors, got "
@@ -264,6 +300,18 @@ class _RankStep:
         """The model group's calls by collective."""
         return {} if self._comm is None else dict(self._comm.kinds)
 
+    @property
+    def max_full_bytes(self) -> int:
+        """The largest full (unsharded) weight buffer the step holds: the
+        learner's whole float32 store (``gather="whole"``), or the larger
+        of one period's and the non-period leaves' (``"period"``); 0
+        without a model axis."""
+        if self.M == 1 or self._layout is None:
+            return 0
+        if self._gatherer is not None:
+            return self._gatherer.max_full_bytes
+        return self._layout.full.rows * LANE * 4
+
     # -- state --------------------------------------------------------------
     def init(self, params_tree, seed: int = 0) -> LaunchState:
         """This rank's state from its learner's parameter tree (the
@@ -281,7 +329,9 @@ class _RankStep:
         self._g = self._grad_store(shape)
         self._pieces = (None if self.gossip_fuse == "flat"
                         else list(zip(meta.offsets, meta.sizes)))
-        if self.M > 1:
+        if self.M > 1 and self.gather == "period":
+            self._init_period(lay)
+        elif self.M > 1:
             full = lay.full
             self._w_full = torch.zeros((full.rows, LANE), device=dev)
             self._g_full = torch.zeros((full.rows, LANE), device=dev)
@@ -300,6 +350,44 @@ class _RankStep:
                            for w in self._w]
         return LaunchState(self._w[0], self.optimizer.init(self._w[0]), 0,
                            seed, **self._extra_state())
+
+    def _init_period(self, lay: ShardLayout) -> None:
+        """``gather="period"``: the non-period leaves' full store and
+        gradient (bound once, gathered once a step) and the hook that
+        gathers a period as the forward reaches it."""
+        if not lay.n_periods:
+            raise ValueError("gather='period' needs a model with stacked "
+                             "periods (a transformer's tree)")
+        dev, rest = self.device, lay.rest.meta
+        self._gatherer = LearnerGather(lay, self._comm, dev)
+        self._anchor = torch.zeros((), device=dev, requires_grad=True)
+        self._w_rest = torch.zeros((rest.rows, LANE), device=dev)
+        self._g_rest = torch.zeros((rest.rows, LANE), device=dev)
+        self._rep = torch.zeros((lay.n_rep + 2,), device=dev)
+        self._bound_full = bind_learner(
+            rest, cast_leaves(rest, dev),
+            lambda tree: PeriodParams(tree, lay.n_periods,
+                                      self._period_layers),
+            rest.views(self._w_rest), rest.views(self._g_rest))
+        self._src = None
+
+    def _period_leaves(self, p: int):
+        """Period p's full leaves gathered from the live store, each in
+        its own dtype."""
+        sec = self._layout.period.meta
+        return [v if v.dtype == dt else v.to(dt) for v, dt in zip(
+            self._gatherer.gather(self._src, p), sec.dtypes)]
+
+    def _period_layers(self, p: int):
+        """``PeriodParams``' hook: period p's layers, through
+        ``_GatherPeriod`` when gradients are on (its backward returns the
+        period's gradient to the shard)."""
+        if torch.is_grad_enabled():
+            leaves = _GatherPeriod.apply(self._anchor, self, p)
+        else:
+            leaves = self._period_leaves(p)
+        return period_layers(tree_unflatten(
+            self._layout.period.meta.treedef, list(leaves)))
 
     def local_store(self, tree) -> torch.Tensor:
         """A learner's full tree as this rank's (1, T_local, 128) float32
@@ -339,6 +427,8 @@ class _RankStep:
         self._store(w)
         rows = _model_rows(batch, self.M, self.j)
         lay, comm = self._layout, self._comm
+        if self._gatherer is not None:
+            return self._grads_period(w, rows, t)
         comm.all_gather(w[0], self._stack)
         lay.assemble(self._stack, self._w_full)
         t = self._lap("model", t)
@@ -355,6 +445,36 @@ class _RankStep:
         comm.reduce_scatter(self._stack, self._g[0])
         rep = self._rep
         lay.pack_rep(self._g_full, rep)
+        rep[-2] = count
+        rep[-1] = loss
+        comm.all_reduce(rep)
+        lay.rep_tail(self._g).copy_(rep[:lay.n_rep])
+        total = torch.clamp(rep[-2], min=1.0)
+        self._g.div_(total)
+        return rep[-1] / total, self._lap("model", t)
+
+    def _grads_period(self, w, rows, t: float):
+        """``_grads`` with ``gather="period"``: the non-period leaves
+        gathered once, each period gathered (twice: the forward, then the
+        recompute) and reduced as the forward and backward reach it; the
+        replicated tail, the token count and the loss in one all_reduce.
+        The per-period collectives run inside the forward and backward,
+        so ``timing`` counts them under ``compute``."""
+        lay, gat, comm = self._layout, self._gatherer, self._comm
+        self._src = w[0]
+        gat.gather(w[0], None, out=lay.rest.meta.views(self._w_rest))
+        t = self._lap("model", t)
+        count = _token_count(rows)
+        self._g.zero_()
+        self._g_rest.zero_()
+        with use_mesh(self.mesh):
+            loss = backward_into(
+                lambda p, b: self.api.loss_fn(p, b) * count,
+                self._bound_full, rows)
+        self._src = None
+        t = self._lap("compute", t)
+        rep = self._rep
+        gat.reduce(None, lay.rest.meta.views(self._g_rest), self._g[0], rep)
         rep[-2] = count
         rep[-1] = loss
         comm.all_reduce(rep)
@@ -452,14 +572,35 @@ class _RankStep:
         return buf[0] / (self.n if denom is None else denom)
 
 
+class _GatherPeriod(torch.autograd.Function):
+    """Period p of a step's learner: the forward gathers its full leaves
+    over the model group (``LearnerGather.gather``), the backward reduces
+    their gradient into this rank's gradient shard
+    (``LearnerGather.reduce``) and returns none.  ``anchor`` (a 0-dim
+    leaf that requires grad) makes the leaves differentiable."""
+
+    @staticmethod
+    def forward(ctx, anchor, step, p):
+        ctx.step, ctx.p = step, p
+        return tuple(step._period_leaves(p))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        step = ctx.step
+        step._gatherer.reduce(ctx.p, [g.float() for g in grads],
+                              step._g[0], step._rep)
+        return None, None, None
+
+
 # ---------------------------------------------------------------------------
 # DPSGD
 # ---------------------------------------------------------------------------
 
 class _DPSGDStep(_RankStep):
     def __init__(self, api, optimizer, group, topology, gossip_backend,
-                 gossip_fuse, gossip_rounds, device, mesh):
-        super().__init__(api, optimizer, group, device, gossip_fuse, mesh)
+                 gossip_fuse, gossip_rounds, device, mesh, gather):
+        super().__init__(api, optimizer, group, device, gossip_fuse, mesh,
+                         gather)
         if gossip_backend not in ("einsum", "ppermute"):
             raise ValueError(f"gossip_backend must be 'einsum' or "
                              f"'ppermute', got {gossip_backend!r}")
@@ -565,7 +706,8 @@ def make_dpsgd_train_step(api: ModelAPI, optimizer: Optimizer, group=None,
                           topology: str = "random_pair",
                           gossip_backend: str = "einsum",
                           gossip_fuse: str = "flat", gossip_rounds: int = 1,
-                          device=None, mesh=None) -> Callable:
+                          device=None, mesh=None,
+                          gather: str = "whole") -> Callable:
     """This rank's DPSGD step: ``step(state, batch, rounds=None) ->
     (state, {"loss"})``, with ``step.init(params_tree, seed)`` for the
     first state.
@@ -585,9 +727,11 @@ def make_dpsgd_train_step(api: ModelAPI, optimizer: Optimizer, group=None,
 
     ``mesh`` (a ``DeviceMesh`` ending in ``"model"``): the learner spans
     its model group, the step takes the learner's batch and gossips shard
-    by shard over the learner group (module docstring)."""
+    by shard over the learner group (module docstring).  ``gather``:
+    ``"whole"`` assembles the learner's full store once a step,
+    ``"period"`` one period at a time (module docstring)."""
     return _DPSGDStep(api, optimizer, group, topology, gossip_backend,
-                      gossip_fuse, gossip_rounds, device, mesh)
+                      gossip_fuse, gossip_rounds, device, mesh, gather)
 
 
 # ---------------------------------------------------------------------------
@@ -596,8 +740,9 @@ def make_dpsgd_train_step(api: ModelAPI, optimizer: Optimizer, group=None,
 
 class _ADPSGDStep(_RankStep):
     def __init__(self, api, optimizer, group, max_staleness, slow_learner,
-                 slow_factor, gossip_fuse, elastic, device, mesh):
-        super().__init__(api, optimizer, group, device, gossip_fuse, mesh)
+                 slow_factor, gossip_fuse, elastic, device, mesh, gather):
+        super().__init__(api, optimizer, group, device, gossip_fuse, mesh,
+                         gather)
         dp.hypercube_partner(0, 0, self.n)      # a power-of-two group
         wants_mixed = getattr(optimizer, "wants_mixed", False)
         if wants_mixed and getattr(optimizer, "static_mixing_only", False):
@@ -725,7 +870,7 @@ def make_adpsgd_train_step(api: ModelAPI, optimizer: Optimizer, group=None,
                            *, max_staleness: int = 4, slow_learner: int = -1,
                            slow_factor: int = 1, gossip_fuse: str = "flat",
                            elastic: bool = False, device=None,
-                           mesh=None) -> Callable:
+                           mesh=None, gather: str = "whole") -> Callable:
     """This rank's asynchronous-gossip tick: ``step(state, batch) ->
     (state, metrics)`` (``loss``, ``staleness_max``; elastic adds
     ``n_active``).
@@ -737,9 +882,12 @@ def make_adpsgd_train_step(api: ModelAPI, optimizer: Optimizer, group=None,
     publishes) only every ``slow_factor`` ticks.  ``elastic=True`` reads
     the state's membership operands (``membership_operands``) instead of
     the static straggler.  The group's size (the learner count) must be
-    a power of two (``ValueError``).  ``mesh``: as DPSGD's."""
+    a power of two (``ValueError``).  ``mesh``, ``gather``: as DPSGD's;
+    the recompute of a period reads the live weights, never the published
+    buffer."""
     return _ADPSGDStep(api, optimizer, group, max_staleness, slow_learner,
-                       slow_factor, gossip_fuse, elastic, device, mesh)
+                       slow_factor, gossip_fuse, elastic, device, mesh,
+                       gather)
 
 
 # ---------------------------------------------------------------------------
@@ -771,14 +919,17 @@ class _SSGDStep(_RankStep):
 
 
 def make_ssgd_train_step(api: ModelAPI, optimizer: Optimizer, group=None,
-                         device=None, mesh=None) -> Callable:
+                         device=None, mesh=None,
+                         gather: str = "whole") -> Callable:
     """This rank's SSGD step on replicated weights: ``step(state, batch)
     -> (state, {"loss"})``.  The mean of the ranks' gradients over equal
     shards equals the reference's gradient of the global batch's mean
     loss up to the order of a sum.  ``mesh``: the weights are sharded
     over the model axis and replicated over the learners; the gradient
-    shard is all-reduced over the learner group."""
-    return _SSGDStep(api, optimizer, group, device, mesh=mesh)
+    shard is all-reduced over the learner group.  ``gather``: as
+    DPSGD's."""
+    return _SSGDStep(api, optimizer, group, device, mesh=mesh,
+                     gather=gather)
 
 
 # ---------------------------------------------------------------------------
@@ -1049,15 +1200,22 @@ class _OnMeta(torch.overrides.TorchFunctionMode):
         return func(*args, **kwargs)
 
 
+_SHAPES = {}
+
+
 def param_shapes(api: ModelAPI):
     """One learner's parameter tree (the reference's layout) on the meta
     device: shapes and dtypes, nothing allocated (the meta device runs
     each initializer op through Python: ~25 s for qwen3-moe-235b-a22b's
-    128 experts a layer)."""
+    128 experts a layer, so the tree is kept per config).  Callers read
+    it; none writes it."""
     from ..models import build_model
-    cpu = build_model(api.cfg, device="cpu")
-    with torch.device("meta"), _OnMeta():
-        return cpu.param_tree(cpu.init(0))
+    tree = _SHAPES.get(api.cfg)
+    if tree is None:
+        cpu = build_model(api.cfg, device="cpu")
+        with torch.device("meta"), _OnMeta():
+            tree = _SHAPES[api.cfg] = cpu.param_tree(cpu.init(0))
+    return tree
 
 
 def _meta_like(x, lead=()):
@@ -1137,13 +1295,227 @@ def train_state_shardings(state_specs: LaunchState, mesh, *,
 # serving
 # ---------------------------------------------------------------------------
 
-def make_prefill_step(api: ModelAPI) -> Callable:
-    def prefill(params, batch):
-        return api.apply(params, batch)
-    return prefill
+class _MeshServe:
+    """What the mesh's prefill and decode steps share: this rank's shard
+    layout, the model group's collectives and the weights gathered from a
+    rank's store -- the learner's whole tree once (``"whole"``; kept while
+    the same store is passed), or its non-period leaves once and each
+    period as the forward reaches it (``"period"``).  The whole tree is
+    gathered section by section, each straight into its leaves' own
+    dtype, so the transient is one section's stack, not a float32 copy
+    of the learner."""
+
+    def __init__(self, api: ModelAPI, mesh, gather: str, device):
+        if api.cfg.family == "audio":
+            raise ValueError(
+                "the audio family's encoder-decoder does not run under a "
+                "model axis (its cross-attention caches wait; ROADMAP)")
+        self.device = resolve_device(device)
+        self.api, self.mesh = api, mesh
+        self.gather = _check_gather(gather)
+        self.M, self.j = model_size(mesh), model_rank(mesh)
+        self.n, self.learner = n_learners(mesh), learner_rank(mesh)
+        self.layout = ShardLayout(param_shapes(api), self.M, self.j)
+        self.comm = GroupComm(model_group(mesh), self.device)
+        self._gatherer = LearnerGather(self.layout, self.comm, self.device)
+        self._src = self._params = None
+
+    def shard(self, tree) -> torch.Tensor:
+        """A learner's full tree -> this rank's (1, T_local, 128) store."""
+        return self.layout.flatten_local(tree, device=self.device)[None]
+
+    @property
+    def max_full_bytes(self) -> int:
+        return self._gatherer.max_full_bytes
+
+    def params(self, store: torch.Tensor):
+        """The model's parameters from this rank's store ``store``."""
+        if store is self._src:
+            return self._params
+        lay, dev, gat = self.layout, self.device, self._gatherer
+        full, local = lay.full, store.reshape(-1, LANE)
+        if self.gather == "whole":
+            leaves = [torch.empty(s, dtype=dt, device=dev)
+                      for s, dt in zip(full.shapes, full.dtypes)]
+            gat.gather(local, None, out=[leaves[i] for i in lay.rest.leaves])
+            for p in range(lay.n_periods):
+                gat.gather(local, p,
+                           out=[leaves[i][p] for i in lay.period.leaves])
+            params = self.api.params_from_tree(
+                tree_unflatten(full.treedef, leaves))
+        else:
+            rest = gat.gather(local, None, dtypes=True)
+            params = PeriodParams(
+                tree_unflatten(lay.rest.meta.treedef, rest), lay.n_periods,
+                lambda p: period_layers(tree_unflatten(
+                    lay.period.meta.treedef, gat.gather(local, p,
+                                                        dtypes=True))))
+        if self.gather == "whole":
+            gat.release()
+        self._src, self._params = store, params
+        return params
 
 
-def make_decode_step(api: ModelAPI) -> Callable:
-    def decode(params, cache, tokens, pos):
-        return api.decode_step(params, cache, tokens, pos)
-    return decode
+class _MeshPrefill(_MeshServe):
+    def __call__(self, params, batch):
+        rows = _model_rows(batch, self.M, self.j)
+        with torch.no_grad():
+            return self.api.apply(self.params(params), rows)
+
+
+class _MeshDecode(_MeshServe):
+    """The sequence-sharded decode: ``transformer.decode_step``'s
+    ``seq_shard`` (``merge``, ``state``, ``keep``), with the softmax
+    partials and recurrent states on a collectives object of their own
+    (``seq_comm``: its calls are the decode's per-step collectives)."""
+
+    def __init__(self, api, mesh, gather, device):
+        super().__init__(api, mesh, gather, device)
+        self.rank, self.size = self.j, self.M
+        self.seq_comm = GroupComm(model_group(mesh), self.device)
+        self._state_dims = None
+
+    def init_cache(self, batch: int, buf_len: int):
+        """This rank's shard of the rotating decode cache of ``batch``
+        sequences (the whole fleet's: each learner serves batch / L of
+        them) as ``cache_sharding`` places it: the batch dim over the
+        learners, an attention buffer's time dim over ``model`` (W / M
+        rows; a windowed layer's own W = min(buf_len, window)), a
+        recurrent state's feature dim over ``model``, ``slot_pos``
+        whole.  A batch the learners do not split, or a buffer the model
+        ranks do not, raises ``ValueError``."""
+        from ..models.transformer import init_cache
+        from ..tree import tree_flatten_with_path, tree_leaves
+        from .sharding import cache_sharding, spec_dim
+        full = init_cache(self.api.cfg, batch, buf_len, "meta")
+        specs = tree_leaves(cache_sharding(full, self.mesh))
+        out, dims = {}, {}
+        for (path, x), spec in zip(tree_flatten_with_path(full), specs):
+            layer, name = path
+            shape = list(x.shape)
+            d = spec_dim(spec)
+            if name == "slot_pos":
+                out.setdefault(layer, {})[name] = torch.full(
+                    shape, -1, dtype=x.dtype, device=self.device)
+                continue
+            if spec[1] is None:
+                raise ValueError(f"a batch of {batch} sequences does not "
+                                 f"split over {self.n} learners")
+            shape[1] //= self.n
+            if name in ("k", "v") and self.M > 1 and d != 2:
+                raise ValueError(
+                    f"{layer}: a buffer of {shape[2]} rows does not split "
+                    f"over {self.M} model ranks")
+            if d is not None:
+                shape[d] //= self.M
+            if name not in ("k", "v"):
+                dims.setdefault(layer, {})[name] = (None if d is None
+                                                    else d - 1)
+            out.setdefault(layer, {})[name] = torch.zeros(
+                shape, dtype=x.dtype, device=self.device)
+        self._state_dims = dims
+        return out
+
+    def merge(self, m, lsum, o):
+        part = torch.cat([o, m[..., None], lsum[..., None]], dim=-1)
+        stack = torch.empty((self.M,) + tuple(part.shape),
+                            device=self.device)
+        self.seq_comm.all_gather(part, stack)
+        return merge_partials(stack)
+
+    def state(self, layer: str, cc):
+        """A recurrent layer's whole state: one all_gather of the ranks'
+        slices of its sharded leaves (float32 on the wire), its
+        replicated leaves as they are (the update writes them in
+        place)."""
+        dims = self._state_dims[layer]
+        cut = [n for n in sorted(cc) if dims.get(n) is not None]
+        full = {n: x for n, x in cc.items() if n not in cut}
+        if not cut:
+            return full
+        send = torch.cat([cc[n].float().reshape(-1) for n in cut])
+        stack = torch.empty((self.M, send.numel()), device=self.device)
+        self.seq_comm.all_gather(send, stack)
+        off = 0
+        for n in cut:
+            x, d = cc[n], dims[n]
+            shape = list(x.shape)
+            shape[d] *= self.M
+            f = torch.empty(shape, dtype=x.dtype, device=self.device)
+            piece = f.unflatten(d, (self.M, -1)).movedim(d, 0)
+            piece.copy_(stack[:, off:off + x.numel()].view(piece.shape))
+            full[n] = f
+            off += x.numel()
+        return full
+
+    def keep(self, layer: str, cc, full) -> None:
+        """This rank's slice of a recurrent layer's new state."""
+        for n, d in self._state_dims[layer].items():
+            if d is not None:
+                k = cc[n].shape[d]
+                cc[n].copy_(full[n].narrow(d, self.j * k, k))
+
+    def __call__(self, params, cache, tokens, pos):
+        from ..models.transformer import decode_step
+        if self._state_dims is None:
+            raise ValueError("build the cache with step.init_cache")
+        return decode_step(self.params(params), self.api.cfg, cache, tokens,
+                           pos, seq_shard=self)
+
+
+def make_prefill_step(api: ModelAPI, mesh=None, *, gather: str = "whole",
+                      device=None) -> Callable:
+    """``prefill(params, batch) -> logits``.  Without a mesh: ``api.apply``
+    (the reference's step).  With one: ``params`` is this rank's (1,
+    T_local, 128) shard store (``step.shard(tree)``), ``batch`` its
+    learner's rows; the rank runs its share of them (B / M rows;
+    ``_model_rows``, a batch that does not split raises) through
+    ``api.apply`` on the gathered weights (``gather``: ``"whole"`` once,
+    ``"period"`` a period at a time each call) and returns their logits;
+    ``gather_rows`` assembles the learner's.  A ``use_pallas`` config's
+    attention runs through the flash kernel on each rank's rows."""
+    if mesh is None:
+        def prefill(params, batch):
+            return api.apply(params, batch)
+        return prefill
+    return _MeshPrefill(api, mesh, gather, device)
+
+
+def make_decode_step(api: ModelAPI, mesh=None, *, gather: str = "whole",
+                     device=None) -> Callable:
+    """``decode(params, cache, tokens, pos) -> (logits, cache)``.  Without
+    a mesh: ``api.decode_step``.  With one, the sequence-sharded decode
+    (``cache_sharding``'s placement): ``params`` is this rank's shard
+    store, ``cache`` its shard (``step.init_cache(batch, buf_len)``),
+    ``tokens`` its learner's (B / L, 1) rows.  Every model rank of a
+    learner runs q / k / v, the MLP and the head for all of the learner's
+    rows on gathered weights (``"whole"``: gathered once, at the first
+    call with a store; ``"period"``: a period at a time each step); the
+    new K/V row is written by the rank whose slice of the buffer holds
+    ``pos % W``; each attention layer's softmax over the rank's slice
+    gives float32 partials (row max, sum, unnormalized output), which one
+    ``all_gather`` of B/L x H x (hd + 2) floats over the model group
+    combines in rank order.  A recurrent layer (mamba, mLSTM, sLSTM)
+    keeps its state's feature dim sharded: one ``all_gather`` of the
+    slices (the state's elements x (M - 1) / M floats into a rank) gives
+    the whole state for the update, and the rank keeps its slice of the
+    new one.  So a step's collectives (``step.seq_comm``) are one a layer
+    with attention or a sharded state; the weights' gathers count on
+    ``step.comm``.  The audio family raises ``ValueError``."""
+    if mesh is None:
+        def decode(params, cache, tokens, pos):
+            return api.decode_step(params, cache, tokens, pos)
+        return decode
+    return _MeshDecode(api, mesh, gather, device)
+
+
+def gather_rows(step, x: torch.Tensor) -> torch.Tensor:
+    """A learner's rows of ``x`` (this rank's share, e.g. a mesh prefill's
+    logits) from its model group, in rank order: one ``all_gather``, every
+    rank of the group calling."""
+    if step.M == 1:
+        return x
+    stack = torch.empty((step.M,) + tuple(x.shape), dtype=x.dtype,
+                        device=x.device)
+    step.comm.all_gather(x.contiguous(), stack)
+    return stack.reshape((-1,) + tuple(x.shape[1:]))

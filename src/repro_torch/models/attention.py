@@ -3,7 +3,10 @@ training/prefill, and paged decode for serving.
 
 Port of ``repro/models/attention.py`` (``init_attn_params``,
 ``chunked_attention``, ``attn_forward``, ``init_attn_cache``,
-``attn_decode``, ``init_paged_attn_cache``, ``attn_decode_paged``).
+``attn_decode``, ``init_paged_attn_cache``, ``attn_decode_paged``), and
+the sequence-sharded decode (``attn_decode_sharded``, ``merge_partials``:
+a rank holds a slice of the buffer's time dim, and only the softmax's
+float32 partials cross ranks).
 Weights keep the reference's (d_in, d_out) orientation and the layer
 computes ``x @ w``, so the arithmetic matches the reference's.
 ``attn_forward`` takes cross-attention (``kv_input``) and M-RoPE
@@ -202,6 +205,73 @@ def attn_decode(params: AttnParams, cache, x, pos: int, *, n_heads: int,
     o = torch.einsum("bkgw,bwkd->bkgd", p, vc.float())
     out = o.reshape(B, 1, n_heads * head_dim).to(x.dtype) @ params.wo
     return out, cache
+
+
+def attn_decode_sharded(params: AttnParams, cache, x, pos: int, *,
+                        n_heads: int, n_kv: int, head_dim: int,
+                        rope_fn: Optional[Callable], attn_softcap: float,
+                        rank: int, size: int, merge: Callable):
+    """``attn_decode`` with the buffer's time dim W cut over ``size``
+    ranks: ``cache["k"]`` / ``["v"]`` are this rank's (B, W / size, KV,
+    hd) slice (rows [rank W/size, (rank + 1) W/size) of the rotating
+    buffer), ``cache["slot_pos"]`` the whole (W,) table.  The new K/V row
+    lands on the rank whose slice holds row ``pos % W``; every rank writes
+    ``slot_pos``.  The rank's scores over its rows (softcap before the
+    mask, as ``attn_decode``) give float32 partials: the row max m, the
+    sum l of exp(s - m) over its live rows and the unnormalized output o;
+    ``merge(m, l, o)`` combines the ranks' partials (``merge_partials``
+    over a gather of them) into the (B, KV, G, hd) output.  A slice with
+    no live row yet has m = NEG_INF and l = 0, o = 0: it adds nothing.
+    Returns (out (B, 1, d), cache)."""
+    B = x.shape[0]
+    kc, vc, sp = cache["k"], cache["v"], cache["slot_pos"]
+    w_loc, buf = kc.shape[1], sp.shape[0]
+    q = (x @ params.wq).reshape(B, 1, n_heads, head_dim)
+    k = (x @ params.wk).reshape(B, 1, n_kv, head_dim)
+    v = (x @ params.wv).reshape(B, 1, n_kv, head_dim)
+    if rope_fn is not None:
+        posv = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+        q = rope_fn(q, posv)
+        k = rope_fn(k, posv)
+
+    slot = pos % buf
+    if slot // w_loc == rank:
+        kc[:, slot % w_loc] = k[:, 0].to(kc.dtype)
+        vc[:, slot % w_loc] = v[:, 0].to(vc.dtype)
+    sp[slot] = pos
+
+    G = n_heads // n_kv
+    qg = q.reshape(B, n_kv, G, head_dim)
+    s = torch.einsum("bkgd,bwkd->bkgw", qg.float(),
+                     kc.float()) * head_dim ** -0.5
+    if attn_softcap:
+        s = softcap(s, attn_softcap)
+    mine = sp[rank * w_loc:(rank + 1) * w_loc]
+    valid = (mine >= 0) & (mine <= pos)
+    s = torch.where(valid, s, NEG_INF)
+    m = torch.amax(s, dim=-1)
+    p = torch.where(valid, torch.exp(s - m[..., None]), 0.0)
+    o = torch.einsum("bkgw,bwkd->bkgd", p, vc.float())
+    out = merge(m, torch.sum(p, dim=-1), o)
+    out = out.reshape(B, 1, n_heads * head_dim).to(x.dtype) @ params.wo
+    return out, cache
+
+
+def merge_partials(parts: torch.Tensor) -> torch.Tensor:
+    """The ranks' decode partials, (size, B, KV, G, hd + 2) float32 [o, m,
+    l], combined in rank order: sum_r e^(m_r - M) o_r / sum_r e^(m_r - M)
+    l_r with M the max of the m_r -- the softmax over the whole buffer.
+    A rank with no live row (m_r = NEG_INF, l_r = 0) weighs e^(NEG_INF -
+    M) = 0."""
+    o, m, lsum = parts[..., :-2], parts[..., -2], parts[..., -1]
+    top = torch.amax(m, dim=0)
+    num = torch.zeros_like(o[0])
+    den = torch.zeros_like(top)
+    for r in range(parts.shape[0]):
+        w = torch.exp(m[r] - top)
+        num = num + w[..., None] * o[r]
+        den = den + w * lsum[r]
+    return num / torch.clamp(den, min=1e-30)[..., None]
 
 
 def init_paged_attn_cache(n_pages: int, page_size: int, n_kv: int,

@@ -17,6 +17,12 @@ layout of the flat training store (``core/flatstate.py``).
     p of the stacked leaf.  Built around the flat store's views, its
     parameters are the store.
   * ``params_from_jax`` does both steps for a reference model's tree.
+  * ``PeriodParams`` is a transformer whose period layers are fetched as
+    the forward reaches them (a learner sharded over a model group gathers
+    one period at a time, ``launch/shardstore.LearnerGather``), and
+    ``period_layers`` builds one period's layers around its tree, keeping
+    the tensors as they are (autograd outputs included: no
+    ``nn.Parameter``).
 
 Weights keep the reference's (d_in, d_out) orientation.  A transformer
 layer's mixer is attention (``wq, wk, wv, wo``), mamba (``a_log, conv_b,
@@ -28,7 +34,11 @@ and biases of a bf16 model included).
 """
 from __future__ import annotations
 
+from types import SimpleNamespace
+from typing import Callable
+
 import torch
+from torch import nn
 
 from ..configs.base import ModelConfig
 from ..core.util import tree_map
@@ -119,6 +129,41 @@ def transformer_from_tree(tree, cfg: ModelConfig) -> TransformerParams:
                for p in range(n_periods(cfg))]
     head = None if cfg.tie_embeddings else tree["lm_head"]
     return TransformerParams(tree["embed"], periods, tree["final_norm"], head)
+
+
+class PeriodParams(nn.Module):
+    """A transformer's non-period parameters (``embed``, ``final_norm``,
+    ``lm_head`` unless tied), built around a tree's tensors as
+    ``transformer_from_tree`` builds them, and ``n_periods`` periods that
+    ``gather_period(p)`` returns as ``{f"l{i}": layer}`` when the forward
+    (or the decode) reaches period p (``transformer.forward``)."""
+
+    def __init__(self, rest, n_periods: int, gather_period: Callable):
+        super().__init__()
+        self.embed = nn.Parameter(rest["embed"])
+        self.final_norm = nn.Parameter(rest["final_norm"])
+        self.lm_head = (nn.Parameter(rest["lm_head"]) if "lm_head" in rest
+                        else None)
+        self.periods = [None] * n_periods
+        self.gather_period = gather_period
+
+
+def _namespace(tree):
+    return SimpleNamespace(**{k: _namespace(v) if isinstance(v, dict)
+                              else v for k, v in tree.items()})
+
+
+def period_layers(tree):
+    """One period's tree {"l0": {"norm1", "mixer"[, "norm2", "mlp"]}}
+    (leaves without the period dim) -> ``{f"l{i}": layer}``, each layer
+    with the attributes of ``LayerParams`` (``norm2`` / ``mlp`` None for
+    an xLSTM layer) and its mixer and mlp those of their parameter
+    classes, the tree's tensors themselves."""
+    return {name: SimpleNamespace(
+        norm1=lp["norm1"], mixer=_namespace(lp["mixer"]),
+        norm2=lp.get("norm2"),
+        mlp=_namespace(lp["mlp"]) if "mlp" in lp else None)
+        for name, lp in tree.items()}
 
 
 def encdec_tree(params: EncDecParams):

@@ -17,6 +17,17 @@ the functions below take them as arguments, mirroring the reference's pure
 functions.  Under M-RoPE (qwen2-vl) positions are (3, S) (t, h, w) ids:
 they rotate q and k, and their t row masks.
 
+A learner whose weights lie sharded over a model group (``launch/``)
+passes a parameter object with a ``gather_period`` hook
+(``convert.PeriodParams``): ``forward`` and ``decode_step`` then ask it
+for period p's layers when they reach period p, and with gradients on
+``forward`` runs each period under non-reentrant
+``torch.utils.checkpoint``, the gather inside: the backward gathers the
+period again, then its gradient leaves through the hook's own backward
+(the twin of the reference's remat per period).  ``decode_step``'s
+``seq_shard`` runs the sequence-sharded decode (the buffer's time dim
+over the model group, ``attention.attn_decode_sharded``).
+
 Caches are dicts {f"l{i}": {leaf: (n_periods, ...)}} in the reference's
 stacked layout and are updated IN PLACE (the reference donates them to a
 jitted step and gets fresh buffers back).  Recurrent layers (mamba, mlstm,
@@ -30,11 +41,12 @@ from typing import Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
-from .attention import (attn_decode, attn_decode_paged, attn_forward,
-                        init_attn_cache, init_attn_params,
-                        init_paged_attn_cache)
+from .attention import (attn_decode, attn_decode_paged,
+                        attn_decode_sharded, attn_forward, init_attn_cache,
+                        init_attn_params, init_paged_attn_cache)
 from .layers import (apply_mrope, apply_rope, dense_init, dtype_of,
                      embed_init, rms_norm, softcap, swiglu, weak_scalar)
 from .mamba import (init_mamba_cache, init_mamba_params, mamba_decode,
@@ -266,18 +278,36 @@ def _layer_forward(lp: LayerParams, x, cfg: ModelConfig, mixer: str,
     return _mlp(lp, x, cfg, mlp)
 
 
+def _period_forward(period, x, cfg: ModelConfig, rope_fn, positions):
+    for i, (mixer, mlp) in enumerate(period_spec(cfg)):
+        x = _layer_forward(period[f"l{i}"], x, cfg, mixer, mlp, rope_fn,
+                           positions)
+    return x
+
+
+def _gathered_period_forward(gather, p: int, x, cfg, rope_fn, positions):
+    return _period_forward(gather(p), x, cfg, rope_fn, positions)
+
+
 def forward(params: TransformerParams, cfg: ModelConfig, x, positions):
     """x: (B, S, d) input embeddings; positions: (S,), or (3, S) under
     M-RoPE.  Returns the final hidden states (B, S, d).  The reference
     scans over stacked period parameters with a remat per period; here a
     loop over ``params.periods``, with autograd keeping each layer's
-    activations."""
-    spec = period_spec(cfg)
+    activations -- or, when ``params`` gathers its periods
+    (``gather_period``), each period gathered as it is reached and, with
+    gradients on, checkpointed with its gather (module docstring)."""
     rope_fn = make_rope_fn(cfg)
-    for period in params.periods:
-        for i, (mixer, mlp) in enumerate(spec):
-            x = _layer_forward(period[f"l{i}"], x, cfg, mixer, mlp, rope_fn,
-                               positions)
+    gather = getattr(params, "gather_period", None)
+    for p, period in enumerate(params.periods):
+        if gather is None:
+            x = _period_forward(period, x, cfg, rope_fn, positions)
+        elif torch.is_grad_enabled():
+            x = checkpoint(_gathered_period_forward, gather, p, x, cfg,
+                           rope_fn, positions, use_reentrant=False)
+        else:
+            x = _gathered_period_forward(gather, p, x, cfg, rope_fn,
+                                         positions)
     return x
 
 
@@ -384,28 +414,48 @@ def init_cache(cfg: ModelConfig, batch: int, buf_len: int, device):
 
 @torch.inference_mode()
 def decode_step(params: TransformerParams, cfg: ModelConfig, cache, tokens,
-                pos):
+                pos, seq_shard=None):
     """tokens: (B, 1); pos: int, the position every sequence writes at
     (under M-RoPE the same id for t, h and w).  -> (logits (B, 1, V),
-    cache updated in place)."""
+    cache updated in place).
+
+    ``seq_shard`` (the sequence-sharded decode, ``launch/train.py``): an
+    object with ``rank`` and ``size`` (this rank's slice of every
+    attention buffer's time dim), ``merge(m, l, o)`` (the ranks' softmax
+    partials combined) and ``state(layer, cc)`` / ``keep(layer, cc,
+    full)`` (a recurrent layer's whole state from the ranks' slices, and
+    this rank's slice of the new one written back); ``cache`` is then
+    this rank's slice of it."""
     spec = period_spec(cfg)
     rope_fn = make_rope_fn(cfg)
     if cfg.mrope_sections and rope_fn is not None:
         mrope = rope_fn
         rope_fn = lambda xx, p: mrope(xx, p.expand((3,) + p.shape))  # noqa
     pos = int(pos)
+    gather = getattr(params, "gather_period", None)
     x = embed_tokens(params, cfg, tokens)
     for p, period in enumerate(params.periods):
+        if gather is not None:
+            period = gather(p)
         pc = _period_cache(cache, p)
         for i, (mixer, mlp) in enumerate(spec):
             lp, cc = period[f"l{i}"], pc[f"l{i}"]
+            kw = dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+                      head_dim=cfg.head_dim_, rope_fn=rope_fn,
+                      attn_softcap=cfg.attn_softcap)
             if mixer in ("attn", "attn_local"):
-                h, _ = attn_decode(lp.mixer, cc,
-                                   rms_norm(x, lp.norm1, cfg.norm_eps), pos,
-                                   n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
-                                   head_dim=cfg.head_dim_, rope_fn=rope_fn,
-                                   attn_softcap=cfg.attn_softcap)
+                h = rms_norm(x, lp.norm1, cfg.norm_eps)
+                if seq_shard is None:
+                    h, _ = attn_decode(lp.mixer, cc, h, pos, **kw)
+                else:
+                    h, _ = attn_decode_sharded(
+                        lp.mixer, cc, h, pos, rank=seq_shard.rank,
+                        size=seq_shard.size, merge=seq_shard.merge, **kw)
                 x = x + h
+            elif seq_shard is not None:
+                full = seq_shard.state(f"l{i}", cc)
+                x = _recurrent_decode(lp, full, x, cfg, mixer)
+                seq_shard.keep(f"l{i}", cc, full)
             else:
                 x = _recurrent_decode(lp, cc, x, cfg, mixer)
             x = _mlp(lp, x, cfg, mlp)
