@@ -7,7 +7,9 @@ Phases (any failure raises and the script exits non-zero):
      port compiled from ``src/repro_torch/kernels/csrc`` with nvcc (one
      process per source, started together), with the build time;
   2. each kernel against its plain PyTorch version on the card, on inputs
-     drawn from a seeded numpy RNG — the decode attention in float32 at
+     drawn from seeded generators (the decode pools and the gossip stores
+     from a torch.Generator on the card, the flash operands from a numpy
+     RNG) — the decode attention in float32 at
      the serve shape and at GQA shapes with softcap and window (1e-5), and
      from bf16 pools at gemma2-27b's decode shape (H 32, KV 16, hd 128, 8
      slots up to 8,192 tokens: the global and local layers, a length-0
@@ -162,7 +164,7 @@ Phases (any failure raises and the script exits non-zero):
      mask keeps a frozen slot's mLSTM/sLSTM leaves bitwise and
      ``reset_slot`` zeroes one slot), paged decode of a 64-token prompt
      against ``api.apply`` (bf16 within 0.12, float32 within 1e-4), then
-     trained with DPSGD (4 learners, random_pair, seq 256, local batch 2,
+     trained with DPSGD (4 learners, random_pair, seq 64, local batch 2,
      1 step: 1 gossip launch, the store equal to
      ``kernel_backend="ref"`` within 1e-5);
  14. qwen2-vl-7b (28 layers) and seamless-m4t-large-v2 (24 + 24 layers)
@@ -247,7 +249,7 @@ Phases (any failure raises and the script exits non-zero):
      bitwise is what the card gives if the gap reads 0), each rank's
      peak memory beside the dry run's prediction, kernel #2's launches;
      (e) the sequence-sharded decode on a (1, 4) mesh: transformer-100m
-     at full width, 8 sequences, a 256-row buffer cut 4 ways, 264 steps
+     at full width, 8 sequences, a 64-row buffer cut 4 ways, 72 steps
      (a wrap), logits within 1e-4 relative of the single-process
      ``decode_step`` on the card with the same weights; then gemma2-27b
      at 2 layers in bf16 (softcap, GQA, a local layer), 72 steps of a
@@ -256,19 +258,39 @@ Phases (any failure raises and the script exits non-zero):
      transformer-100m with ``use_pallas``, each rank's row of 512 tokens
      through kernel #6 on the gathered weights, within 1e-5 relative of
      the single-process flash prefill of the same row.
+ 18. the static auditor (``repro_torch.analysis``) on the card, every
+     finding a failure: (a) ``audit_trainer`` (the FC net, DPSGD ring,
+     n 4, hidden 32), then its rules on transformer-100m at full width
+     with phase 4's recipe under ``scale_by_controller``: a warm step,
+     one traced (no concatenate of n_params / 100 elements, no host read,
+     the stores written in place, kernel #2 once a gossip round),
+     ``run_steps`` over 2, and a sentinel window of 3 steps around a
+     controller scale write and a crash (the trace signature unchanged,
+     no library loaded), every traced call under
+     ``torch.cuda.set_sync_debug_mode("error")``; (b) the serve engine's
+     ``paged_decode_step`` at full width (phase 3's engine; kernel #1 12
+     times a step, the pools written in place; the sentinel over a
+     submit, a mid-flight join and evictions); (c) in phase 16's 4 gloo
+     ranks: DPSGD on ring with the point-to-point backend, one traced
+     step a rank (two sends, one a live slot, float32 on the wire, no
+     parameter-sized concatenate, no host read, the stores in place);
+     (d) the twins ``repro_torch.serve_batched`` at its defaults and
+     ``repro_torch.train_100m --preset full --seq 512`` (2 learners): 2
+     steps and a checkpoint, a run resumed from it, a held-out loss.
  Phase 2 also holds the gossip kernel at the launch path's shapes: n = 1
  with a received (2, T, 128) stack as its remote (the ring), and n = 1 in
  publish mode (AD-PSGD).
 
 ``python3 chip_smoke.py --only N`` runs phase N alone (2: every kernel
-check, 3-7, 10, 13-17) and prints its record and the last line.
+check, 3-7, 10, 13-18; 18 spawns its own 4 ranks for c) and prints its
+record and the last line.
 Each path runs with every kernel's launch count set to 0 just before it
 and read just after.  The last lines are the serve (100m, gemma2,
 granite), train (with the bridge), probe, FC, Table-1, gemma2,
 flash-training, pytree-engine, paper-experiment, granite-moe, jamba,
-xlstm, qwen2-vl, seamless, elastic, launch and mesh numbers, each phase's
-wall seconds, the card, the kernels record and ``{"ok": true, "device":
-{...}}``.
+xlstm, qwen2-vl, seamless, elastic, launch, mesh and audit numbers, each
+phase's wall seconds, the card, the kernels record and ``{"ok": true,
+"device": {...}}``.
 Without CUDA the script exits 1 before printing any result.
 """
 from __future__ import annotations
@@ -303,7 +325,6 @@ TRAIN_ROWS = 1_056_920      # T of transformer-100m's flat store (checked)
 CASE_ROWS = 131_072         # T of the other gossip cases: 64 MB per learner
 WARM_STEPS, TIMED_STEPS, PROF_STEPS, REF_STEPS = 2, 6, 2, 2
 # phase 9: the pytree engine (SSGD*), pytree against flat, bf16 leaves
-SSGD_STAR_NOISE = 0.01
 PYTREE_WARM, PYTREE_TIMED, PYTREE_PROF = 2, 4, 1
 ENGINE_STEPS = 2
 # the flat engine against the pytree engine: the reference's own tier for
@@ -464,7 +485,9 @@ ROUTING_SET_CHANGES = 0.25
 # 13: xlstm-350m at full depth (24 layers: 12 mLSTM + 12 sLSTM blocks),
 # served with phase 3b's requests (card logits against the CPU's), decoded
 # token by token against its prefill, and trained (4 learners, DPSGD on
-# random_pair, examples/train_100m.py's recipe at seq 256)
+# random_pair, examples/train_100m.py's recipe at seq 64: the sLSTM's
+# per-position host loop takes ~85 ms a token a step, so seq 256 took ~22 s
+# a step, cut for the run's time when phase 18 came)
 XLSTM_LAYERS = 24
 # bf16 rounding grows with xlstm's depth (card against CPU: 2.0e-3 after
 # layer 1, 3.3e-2 after 24; control 0.135), and the mLSTM's normalizer
@@ -475,7 +498,7 @@ XLSTM_SERVE_RTOL = 5e-2
 XLSTM_PREFILL = 64          # prompt of the decode-against-prefill check
 XLSTM_DECODE_RTOL = 0.12
 XLSTM_DECODE_F32_RTOL = 1e-4
-XLSTM_TRAIN_SEQ, XLSTM_TRAIN_STEPS = 256, 1
+XLSTM_TRAIN_SEQ, XLSTM_TRAIN_STEPS = 64, 1
 # 14: qwen2-vl-7b (28 layers) and seamless-m4t-large-v2 (24 + 24) at full
 # depth: prefill / encode, then greedy decode_step held against apply on
 # the same tokens; then both at full width with depth cut to 2 (2 + 2)
@@ -519,6 +542,9 @@ LAUNCH_RANKS = 4
 LAUNCH_CASES = (("dpsgd_random_pair", 2), ("dpsgd_ring", 2), ("adpsgd", 3))
 LAUNCH_STALENESS, LAUNCH_SLOW, LAUNCH_SLOW_FACTOR = 4, 0, 3
 LAUNCH_TIMEOUT_S = 600      # the gloo group's timeout and the phase's wait
+# phase 18c: the auditor's launch rules in phase 16's ranks: DPSGD on ring
+# with the point-to-point backend, a warm step and one traced
+LAUNCH_AUDIT_STEPS = 2
 # phase 17: the model axis (launch/train.py with mesh=, launch/shardstore.py,
 # models/moe_shardmap.py), 4 gloo ranks sharing the card as in phase 16.
 # a: transformer-100m at full width and depth on a (data 2, model 2) mesh
@@ -556,7 +582,9 @@ MESH_PERIOD_ATOL = 1e-6
 # otherwise than one softmax), then gemma2-27b at GEMMA_LAYERS in bf16
 # over a GEMMA_SEQ_BUF-row buffer (both layers' own: the window is 4,096)
 SEQ_DECODE_MESH = (1, 4)
-SEQ_DECODE_B, SEQ_DECODE_BUF, SEQ_DECODE_STEPS = 8, 256, 264
+# (256 rows and 264 steps before phase 18 came: cut for the run's time
+# to gemma2's buffer; a step's work is a quarter of it a rank)
+SEQ_DECODE_B, SEQ_DECODE_BUF, SEQ_DECODE_STEPS = 8, 64, 72
 SEQ_DECODE_RTOL = 1e-4
 GEMMA_SEQ_BUF, GEMMA_SEQ_STEPS = 64, 72
 GEMMA_SEQ_RTOL = 1e-2
@@ -567,6 +595,18 @@ MESH_PREFILL_RTOL = 1e-5
 # and granite-moe's (H 24 on KV 8, hd 64), 8 slots up to 8,192 tokens
 ZOO_DECODE = {"granite_moe": (24, 8, 64, {}),
               "jamba": (32, 8, 128, {"window": 4096})}
+# phase 18: the static auditor (repro_torch.analysis) on the card.  a: the
+# trainer's audit at the reference's size (the FC net), then its rules on
+# transformer-100m at full width with phase 4's recipe under a controller
+# scale (AUDIT_TRAIN_STEPS steps: 1 warm, 1 traced, 2 through run_steps, 3
+# in the sentinel window around a scale write and a crash); b: the serve
+# engine's paged decode step at full width (phase 3's engine); c: in phase
+# 16's ranks; d: the twins of examples/serve_batched.py (its defaults) and
+# examples/train_100m.py (full preset, seq 512, TWIN_LEARNERS learners:
+# TWIN_STEPS steps and a checkpoint, then a run resumed from it to one
+# more step; 2 learners halve the checkpoint phase 15 already times at 4)
+AUDIT_TRAIN_STEPS = 7
+TWIN_LEARNERS, TWIN_STEPS = 2, 2
 
 
 def check(cond, msg):
@@ -648,16 +688,18 @@ def per_event_ms(times, kernel_name):
 
 def paged_operands(S, H, KV, hd, page, max_pages, lengths, seed,
                    dtype=torch.float32, q_scale=1.0):
-    rng = np.random.default_rng(seed)
+    """q, the K and V pools, a shuffled page table and the lengths, drawn
+    on the card from a torch.Generator seeded with ``seed`` (a host draw
+    of gemma2's pools took seconds a shape)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     P = 1 + S * max_pages                   # page 0 = scratch, never mapped
-    q = q_scale * rng.standard_normal((S, H, hd), dtype=np.float32)
-    kp = rng.standard_normal((P, page, KV, hd), dtype=np.float32)
-    vp = rng.standard_normal((P, page, KV, hd), dtype=np.float32)
-    table = rng.permutation(np.arange(1, P)).reshape(S, max_pages)
-    return [torch.from_numpy(np.ascontiguousarray(a)).cuda().to(dtype)
-            for a in (q, kp, vp)] + \
-        [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in
-         (table.astype(np.int32), np.asarray(lengths, np.int32))]
+    q = q_scale * torch.randn((S, H, hd), generator=gen, device="cuda")
+    kp = torch.randn((P, page, KV, hd), generator=gen, device="cuda")
+    vp = torch.randn((P, page, KV, hd), generator=gen, device="cuda")
+    table = 1 + torch.randperm(P - 1, generator=gen, device="cuda")
+    return [q.to(dtype), kp.to(dtype), vp.to(dtype),
+            table.to(torch.int32).reshape(S, max_pages),
+            torch.tensor(lengths, dtype=torch.int32, device="cuda")]
 
 
 def decode_error(got, want, live):
@@ -1393,12 +1435,15 @@ def _max_err(a, b) -> float:
 
 def gossip_cases():
     """The six cases of the gossip kernel's check, as (name, kwargs of
-    ops.flat_gossip_update, rows that must come back bitwise unchanged)."""
-    rng = np.random.default_rng(SEED)
+    ops.flat_gossip_update, rows that must come back bitwise unchanged).
+    The stores are drawn on the card from a seeded torch.Generator (a
+    host draw of the ~4 G values took most of the phase); the tables are
+    built on the host."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
     T_train, T = TRAIN_ROWS, CASE_ROWS
 
     def normal(*shape):
-        return rng.standard_normal(shape, dtype=np.float32)
+        return torch.randn(shape, generator=gen, device="cuda")
 
     out = []
     # (a) the training shape: sync DPSGD, remote = w, a random matching
@@ -1407,8 +1452,7 @@ def gossip_cases():
         normal(n, T_train, 128)
     partner = np.array([2, 3, 0, 1])
     coefs = np.tile([0.5, 0.5, 1.0, 1.0], (n, 1)).astype(np.float32)
-    w, g, mu, p, c = _cuda_arrays(w, g, mu, partner[None].astype(np.int32),
-                                  coefs)
+    p, c = _cuda_arrays(partner[None].astype(np.int32), coefs)
     out.append(("a_train_shape", dict(w=w, remote=w, grads=g, momentum=mu,
                                       partners=p, coefs=c, lr=TRAIN_LR,
                                       beta=0.9), []))
@@ -1416,7 +1460,7 @@ def gossip_cases():
     # weights and gradient NaN (its ring neighbours 3 and 5 read it)
     n = 8
     w, g = normal(n, T, 128), normal(n, T, 128)
-    w[4], g[4] = np.nan, np.nan
+    w[4], g[4] = float("nan"), float("nan")
     idx = np.arange(n)
     partners = np.stack([(idx + 1) % n, (idx - 1) % n]).astype(np.int32)
     active = np.ones(n)
@@ -1424,7 +1468,7 @@ def gossip_cases():
     coefs = np.concatenate([np.full((n, 3), 1.0 / 3.0),
                             np.linspace(0.5, 1.5, n)[:, None],
                             active[:, None]], axis=1).astype(np.float32)
-    w, g, p, c = _cuda_arrays(w, g, partners, coefs)
+    p, c = _cuda_arrays(partners, coefs)
     out.append(("b_ring_wd_nan", dict(w=w, remote=w, grads=g, momentum=None,
                                       partners=p, coefs=c, lr=0.1,
                                       weight_decay=1e-4), [4]))
@@ -1438,8 +1482,7 @@ def gossip_cases():
         [np.tile([0.5, 0.5], (n, 1)), np.ones((n, 1)), active[:, None],
          fresh[partner][:, None], np.maximum(active, fresh)[:, None]],
         axis=1).astype(np.float32)
-    w, g, mu, buf, p, c = _cuda_arrays(w, g, mu, buf,
-                                       partner[None].astype(np.int32), coefs)
+    p, c = _cuda_arrays(partner[None].astype(np.int32), coefs)
     out.append(("c_publish", dict(w=w, remote=w, grads=g, momentum=mu,
                                   partners=p, coefs=c, lr=0.1, beta=0.9,
                                   buffer=buf), [0, 4]))
@@ -1450,7 +1493,7 @@ def gossip_cases():
     w = normal(n, T, 128)
     coefs = np.concatenate([mix.numpy(), np.ones((n, 2))],
                            axis=1).astype(np.float32)
-    w, p, c = _cuda_arrays(w, partners.numpy(), coefs)
+    p, c = _cuda_arrays(partners.numpy(), coefs)
     out.append(("d_mix_only_exp", dict(w=w, remote=w, grads=w, momentum=None,
                                        partners=p, coefs=c, lr=0.0), []))
     # (e) the launch path's DPSGD on the ring (phase 16): one rank's row,
@@ -1458,8 +1501,7 @@ def gossip_cases():
     w, g, mu, remote = normal(1, T_train, 128), normal(1, T_train, 128), \
         normal(1, T_train, 128), normal(2, T_train, 128)
     coefs = np.array([[1 / 3, 1 / 3, 1 / 3, 1.0, 1.0]], np.float32)
-    w, g, mu, remote, p, c = _cuda_arrays(
-        w, g, mu, remote, np.array([[0], [1]], np.int32), coefs)
+    p, c = _cuda_arrays(np.array([[0], [1]], np.int32), coefs)
     out.append(("e_launch_ring_n1", dict(w=w, remote=remote, grads=g,
                                          momentum=mu, partners=p, coefs=c,
                                          lr=TRAIN_LR, beta=0.9), []))
@@ -1467,8 +1509,7 @@ def gossip_cases():
     # the partner's chosen row received as a (1, T, 128) remote, fresh
     w, g, mu, remote, buf = (normal(1, T_train, 128) for _ in range(5))
     coefs = np.array([[0.5, 0.5, 1.0, 1.0, 1.0, 1.0]], np.float32)
-    w, g, mu, remote, buf, p, c = _cuda_arrays(
-        w, g, mu, remote, buf, np.array([[0]], np.int32), coefs)
+    p, c = _cuda_arrays(np.array([[0]], np.int32), coefs)
     out.append(("f_launch_publish_n1", dict(w=w, remote=remote, grads=g,
                                             momentum=mu, partners=p,
                                             coefs=c, lr=TRAIN_LR, beta=0.9,
@@ -1729,16 +1770,13 @@ def reorth_phase():
 # ---------------------------------------------------------------------------
 
 def _train_100m_trainer(api, backend, algo="dpsgd", engine="auto"):
-    from repro_torch.core import AlgoConfig, MultiLearnerTrainer
-    from repro_torch.optim import scale_by_schedule, sgd, warmup_linear_scale
-    opt = scale_by_schedule(sgd(TRAIN_LR, momentum=0.9),
-                            warmup_linear_scale(10, 1.0))
-    return MultiLearnerTrainer(
-        api.loss_fn, opt,
-        AlgoConfig(algo=algo, topology="random_pair",
-                   n_learners=TRAIN_LEARNERS, noise_std=SSGD_STAR_NOISE),
-        alpha_for_diag=TRAIN_LR, kernel_backend=backend, engine=engine,
-        params_from_tree=api.params_from_tree)
+    """Phase 4's trainer: the recipe of ``repro_torch.train_100m`` (the
+    twin of ``examples/train_100m.py``) at TRAIN_LEARNERS learners."""
+    from repro_torch import train_100m
+    return train_100m.make_trainer(
+        api, train_100m.recipe(TRAIN_LR), learners=TRAIN_LEARNERS,
+        algo=algo, alpha_for_diag=TRAIN_LR, kernel_backend=backend,
+        engine=engine)
 
 
 def train_100m(kernels, warm, timed, prof, use_pallas=False,
@@ -2703,7 +2741,7 @@ def pytree_phase(kernels, chunked_train):
     check(sum(run.launches.values()) == 0,
           f"the SSGD* path launched a kernel: {run.launches}")
     out["a_ssgd_star"] = {
-        "engine": "pytree", "noise_std": SSGD_STAR_NOISE,
+        "engine": "pytree", "noise_std": run.trainer.algo.noise_std,
         "steps": run.steps, "timed_steps": PYTREE_TIMED,
         "ms_per_step": run.step_ms, "tokens_per_s": run.tokens_per_s,
         "profile": run.profile,
@@ -3839,9 +3877,8 @@ def elastic_phase(kernels):
 # ---------------------------------------------------------------------------
 
 def _launch_opt():
-    from repro_torch.optim import scale_by_schedule, sgd, warmup_linear_scale
-    return scale_by_schedule(sgd(TRAIN_LR, momentum=0.9),
-                             warmup_linear_scale(10, 1.0))
+    from repro_torch import train_100m
+    return train_100m.recipe(TRAIN_LR)
 
 
 def _tree_paths(tree, prefix=""):
@@ -3897,22 +3934,24 @@ def _launch_loader(cfg):
                          extra_args=(TRAIN_SEQ,), seed=SEED)
 
 
-def launch_rank(rank, port, wdir, queue):
-    """One gloo rank of phase 16a, run in a spawned process: puts (rank,
-    record, None) on ``queue``, or (rank, None, the traceback)."""
+def launch_rank(rank, port, wdir, queue, cases=LAUNCH_CASES):
+    """One gloo rank of phase 16a (and 18c), run in a spawned process:
+    puts (rank, record, None) on ``queue``, or (rank, None, the
+    traceback)."""
     import traceback
     try:
-        queue.put((rank, _launch_rank(rank, port, wdir), None))
+        queue.put((rank, _launch_rank(rank, port, wdir, cases), None))
     except BaseException:
         queue.put((rank, None, traceback.format_exc()))
         raise
 
 
-def _launch_rank(rank, port, wdir):
-    """Train every case of LAUNCH_CASES as rank ``rank``: the first step
+def _launch_rank(rank, port, wdir, cases=LAUNCH_CASES):
+    """Train every case of ``cases`` as rank ``rank``: the first step
     warms up, the others are timed (host clock ending in a sync, split by
-    the step's own timing into compute, exchange and kernel).  Rank 0
-    gathers every rank's final rows and holds them against the trainer."""
+    the step's own timing into compute, exchange and kernel).  Then phase
+    18c, the launch step's audit.  Rank 0 gathers every rank's final rows
+    and holds them against the trainer."""
     import torch.distributed as dist
 
     from repro_torch.configs import get_config
@@ -3933,7 +3972,7 @@ def _launch_rank(rank, port, wdir):
     kernel = gossip_mix.gossip_mix_update_flat
     kernel.launches = 0
     records, finals = {}, {}
-    for name, steps in LAUNCH_CASES:
+    for name, steps in cases:
         batches = [tree_map(lambda x: x[rank], loader.batch(t))
                    for t in range(steps)]
         step = _launch_step(name, api)
@@ -3972,7 +4011,8 @@ def _launch_rank(rank, port, wdir):
             [state.buffer[0].cpu()] if name == "adpsgd" else [])
         del step, state, batches
         torch.cuda.empty_cache()
-    record = {"cases": records}
+    record = {"cases": records, "audit": _launch_audit(rank, api, params,
+                                                        loader)}
     gathered = {}
     t0 = time.perf_counter()
     for name, rows in finals.items():
@@ -3983,11 +4023,47 @@ def _launch_rank(rank, port, wdir):
             gathered[(name, j)] = out
     record["gather_s"] = time.perf_counter() - t0
     del finals
-    if rank == 0:
+    if rank == 0 and cases:
         record["against_trainer"] = _launch_against_trainer(
             api, params, loader, gathered)
     dist.destroy_process_group()
     return record
+
+
+def _launch_audit(rank, api, params, loader):
+    """Phase 18c, in this rank of phase 16's group: the auditor's launch
+    rules (``analysis.targets.audit_launch_step``) over LAUNCH_AUDIT_STEPS
+    DPSGD steps on ring with the point-to-point backend at full width:
+    sends against the live slots the rank takes part in, the wire dtype,
+    no parameter-sized concatenate, no host read, the stores written in
+    place.  gloo stages CUDA tensors through the host and syncs the stream
+    by design, so these steps do not run under the sync debug mode."""
+    from repro_torch.analysis.targets import audit_launch_step
+    from repro_torch.kernels import gossip_mix
+    from repro_torch.launch.train import (make_dpsgd_train_step,
+                                          rank_state_from_numpy)
+    from repro_torch.tree import tree_map
+
+    t0 = time.perf_counter()
+    step = make_dpsgd_train_step(api, _launch_opt(), topology="ring",
+                                 gossip_backend="ppermute")
+    state = rank_state_from_numpy(step, params, seed=SEED)
+    shapes = tree_map(lambda a: torch.empty(a.shape[1:], device="meta"),
+                      params)
+    batches = [tree_map(lambda x: x[rank], loader.batch(t))
+               for t in range(LAUNCH_AUDIT_STEPS)]
+    kernel = gossip_mix.gossip_mix_update_flat
+    before = kernel.launches
+    report = {}
+    found = audit_launch_step(step, state, batches, params_tree=shapes,
+                              target=f"launch.dpsgd_step[ppermute]@rank"
+                                     f"{rank}", report=report)
+    report.update(findings=[str(f) for f in found],
+                  gossip_launches=kernel.launches - before,
+                  seconds=time.perf_counter() - t0)
+    del step, state, batches
+    torch.cuda.empty_cache()
+    return report
 
 
 def _launch_against_trainer(api, params, loader, gathered):
@@ -4050,15 +4126,17 @@ def _free_port() -> int:
         return sock.getsockname()[1]
 
 
-def _launch_ranks(wdir):
-    """Phase 16a's ranks, spawned together; returns {rank: record}.  A
-    failed rank fails the phase, and every rank is joined or ended."""
+def _launch_ranks(wdir, cases=LAUNCH_CASES):
+    """Phase 16a's ranks (and 18c's), spawned together; returns {rank:
+    record}.  A failed rank fails the phase, and every rank is joined or
+    ended."""
     import queue as queues
 
     ctx = torch.multiprocessing.get_context("spawn")
     results = ctx.Queue()
     port = _free_port()
-    procs = [ctx.Process(target=launch_rank, args=(r, port, wdir, results))
+    procs = [ctx.Process(target=launch_rank,
+                         args=(r, port, wdir, results, cases))
              for r in range(LAUNCH_RANKS)]
     for p in procs:
         p.start()
@@ -4151,7 +4229,8 @@ def _launch_nccl(api, wdir):
 
 
 def launch_phase(kernels):
-    """Phase 16: a-b.  Returns (record, gossip launches by path)."""
+    """Phase 16: a-b, with 18c in a's ranks.  Returns (record, gossip
+    launches by path, 18c's record)."""
     import tempfile
 
     from repro_torch.configs import get_config
@@ -4214,8 +4293,42 @@ def launch_phase(kernels):
                 c["max_memory_allocated_gb"] for c in per],
             "losses_rank0": per[0]["losses"]}
     record["gather_s_rank0"] = ranks[0]["gather_s"]
-    return record, {f"launch_{k}_4_gloo_ranks": v
-                    for k, v in launches.items()}
+    launches = {f"launch_{k}_4_gloo_ranks": v for k, v in launches.items()}
+    audit = launch_audit_record(ranks)
+    launches["launch_audit_ring_ppermute_4_gloo_ranks"] = audit[
+        "gossip_launches"]
+    return record, launches, audit
+
+
+def launch_audit_record(ranks):
+    """Phase 18c's checks over each rank's audit: no finding, two sends a
+    step (ring at n = 4: two live slots) in float32, kernel #2 once a
+    step, the stores written in place."""
+    per = [ranks[r]["audit"] for r in range(LAUNCH_RANKS)]
+    for r, a in enumerate(per):
+        check(a["findings"] == [], f"18c rank {r}: findings {a['findings']}")
+        check(a["sends"] == a["live_slot_sends"] == 2,
+              f"18c rank {r}: {a['sends']} sends a step, live slots "
+              f"{a['live_slot_sends']}")
+        check(a["wire"] == ["float32"], f"18c rank {r}: wire {a['wire']}")
+        check(a["launches"] == {"gossip_mix_update_flat": 1},
+              f"18c rank {r}: traced step launched {a['launches']}")
+        check(a["gossip_launches"] == LAUNCH_AUDIT_STEPS,
+              f"18c rank {r}: {a['gossip_launches']} gossip launches")
+        check(a["aliased_bytes"] == a["state_bytes"],
+              f"18c rank {r}: {a['aliased_bytes']} of {a['state_bytes']} "
+              "state bytes written in place")
+    return {"ranks": LAUNCH_RANKS, "steps": LAUNCH_AUDIT_STEPS,
+            "topology": "ring", "gossip_backend": "ppermute",
+            "findings": 0, "sends_per_step": per[0]["sends"],
+            "wire": per[0]["wire"], "ops_traced_step": [a["ops"] for a in per],
+            "max_concat_elems": per[0]["max_concat_elems"],
+            "state_bytes_in_place": per[0]["aliased_bytes"],
+            "host_reads": [a["host_reads"] for a in per],
+            "fresh_state_sized_outputs": [a["fresh"] for a in per],
+            "sync_checked": per[0]["sync_checked"],
+            "seconds_by_rank": [a["seconds"] for a in per],
+            "gossip_launches": sum(a["gossip_launches"] for a in per)}
 
 
 # ---------------------------------------------------------------------------
@@ -5032,6 +5145,233 @@ def _prefill_record(ranks):
             "tier_rel": MESH_PREFILL_RTOL}, sum(c["launches"] for c in per)
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the static auditor on the card
+# ---------------------------------------------------------------------------
+
+def _launch_counts(kernels):
+    return {k.__name__: k.launches for k in kernels}
+
+
+def audit_train_phase(kernels):
+    """18a: the trainer's audit (the FC net, the reference's fixture), then
+    the same rules on transformer-100m at full width.  Each traced step
+    runs under ``torch.cuda.set_sync_debug_mode("error")``.  Returns
+    (record, gossip launches by path)."""
+    from repro_torch import train_100m
+    from repro_torch.analysis import format_findings
+    from repro_torch.analysis.targets import audit_train_step, audit_trainer
+    from repro_torch.configs import get_config
+    from repro_torch.core import Membership
+    from repro_torch.data import ShardedLoader, SyntheticTokenStream
+    from repro_torch.models import build_model
+    from repro_torch.optim import scale_by_controller
+
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    fc = audit_trainer()
+    fc_s = time.perf_counter() - t0
+    fc_launches = _launch_counts(kernels)
+    check(fc == [], f"18a FC net audit:\n{format_findings(fc)}")
+    check(fc_launches["gossip_mix_update_flat"] == AUDIT_TRAIN_STEPS
+          and sum(fc_launches.values()) == AUDIT_TRAIN_STEPS,
+          f"18a FC net audit launched {fc_launches}")
+
+    t0 = time.perf_counter()
+    cfg = get_config("transformer-100m")
+    api = build_model(cfg)
+    tree = api.param_tree(api.init(SEED))
+    n_params = sum(t.numel() for t in _leaves(tree))
+    loader = ShardedLoader(SyntheticTokenStream(vocab=cfg.vocab),
+                           n_learners=TRAIN_LEARNERS,
+                           local_batch=TRAIN_BATCH, extra_args=(TRAIN_SEQ,),
+                           seed=SEED)
+    batches = [loader.batch(i) for i in range(AUDIT_TRAIN_STEPS)]
+    trainer = train_100m.make_trainer(
+        api, scale_by_controller(train_100m.recipe(TRAIN_LR)),
+        learners=TRAIN_LEARNERS)
+    state = trainer.set_membership(trainer.init(SEED, tree),
+                                   Membership(TRAIN_LEARNERS))
+    del tree
+    check(trainer.is_fused, "18a: the 100m trainer is not fused")
+    setup_s = time.perf_counter() - t0
+    for k in kernels:
+        k.launches = 0
+    report = {}
+    t0 = time.perf_counter()
+    found = audit_train_step(trainer, state, batches, bound=n_params // 100,
+                             report=report)
+    audit_s = time.perf_counter() - t0
+    launches = _launch_counts(kernels)
+    check(found == [], f"18a 100m audit:\n{format_findings(found)}")
+    rounds = trainer.rounds_per_step
+    check(report["launches"] == {"gossip_mix_update_flat": rounds},
+          f"18a: the traced step launched {report['launches']}, not kernel "
+          f"#2 once a gossip round ({rounds})")
+    check(launches["gossip_mix_update_flat"] == AUDIT_TRAIN_STEPS * rounds
+          and sum(launches.values()) == AUDIT_TRAIN_STEPS * rounds,
+          f"18a: the audited steps launched {launches}")
+    check(report["aliased_bytes"] == report["state_bytes"],
+          f"18a: {report['aliased_bytes']} of {report['state_bytes']} state "
+          "bytes written in place")
+    del trainer, state, batches, loader
+    torch.cuda.empty_cache()
+    return {
+        "fc_net": {"learners": 4, "hidden": 32, "topology": "ring",
+                   "findings": 0, "steps": AUDIT_TRAIN_STEPS,
+                   "kernel_launches": fc_launches, "seconds": fc_s},
+        "transformer_100m": {
+            "n_params": n_params, "learners": TRAIN_LEARNERS,
+            "local_batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+            "algo": "dpsgd", "topology": "random_pair",
+            "optimizer": "scale_by_controller(phase 4's recipe)",
+            "concat_bound_elems": n_params // 100, "findings": 0,
+            "sync_debug_mode": "error", "traced_step": report,
+            "steps": AUDIT_TRAIN_STEPS, "kernel_launches": launches,
+            "setup_s": setup_s, "audit_s": audit_s}}, {
+        "audit_fc_trainer": fc_launches["gossip_mix_update_flat"],
+        "audit_transformer_100m_trainer":
+            launches["gossip_mix_update_flat"]}
+
+
+def audit_serve_phase(kernels):
+    """18b: the serve engine's paged decode step for transformer-100m at
+    full width (phase 3's engine), traced under the sync debug mode, and
+    its sentinel window of admissions, joins and evictions.  Returns
+    (record, decode launches)."""
+    from repro_torch.analysis import format_findings
+    from repro_torch.analysis.targets import audit_serve_engine
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serve import ServeEngine
+
+    cfg = get_config("transformer-100m")
+    api = build_model(cfg)
+    params = api.init(SEED)
+    n_params = sum(p.numel() for p in params.parameters())
+    eng = ServeEngine(api, params, n_slots=N_SLOTS, page_size=PAGE,
+                      max_len=MAX_LEN)
+    for k in kernels:
+        k.launches = 0
+    report = {}
+    t0 = time.perf_counter()
+    found = audit_serve_engine(eng, bound=n_params // 100, report=report,
+                               target="serve.paged_decode_step"
+                                      "[transformer-100m]")
+    seconds = time.perf_counter() - t0
+    launches = _launch_counts(kernels)
+    check(found == [], f"18b serve audit:\n{format_findings(found)}")
+    layers = cfg.n_layers
+    check(report["launches"] == {"paged_decode_attention_fwd": layers},
+          f"18b: the traced step launched {report['launches']}, not the "
+          f"decode kernel once a layer ({layers})")
+    calls = 2 + report["window_calls"]
+    check(launches["paged_decode_attention_fwd"] == calls * layers
+          and sum(launches.values()) == calls * layers,
+          f"18b: {calls} decode steps launched {launches}")
+    check(report["aliased_bytes"] == report["state_bytes"],
+          f"18b: {report['aliased_bytes']} of {report['state_bytes']} pool "
+          "bytes written in place")
+    del eng, params
+    torch.cuda.empty_cache()
+    return {"model": cfg.name, "n_params": n_params, "n_slots": N_SLOTS,
+            "page_size": PAGE, "max_len": MAX_LEN, "findings": 0,
+            "sync_debug_mode": "error", "traced_step": report,
+            "decode_steps": calls, "kernel_launches": launches,
+            "seconds": seconds}, launches["paged_decode_attention_fwd"]
+
+
+def twins_phase(kernels):
+    """18d: ``repro_torch.serve_batched`` at its defaults, then
+    ``repro_torch.train_100m --preset full --seq 512``: TWIN_STEPS steps
+    and a checkpoint, then a run that resumes from it, trains one more
+    step and evaluates.  Returns (record, decode launches, gossip
+    launches)."""
+    import tempfile
+
+    from repro_torch import serve_batched, train_100m
+
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    served = serve_batched.main([])
+    serve_s = time.perf_counter() - t0
+    serve_launches = _launch_counts(kernels)
+    check(served["tokens"] == 256
+          and [len(g) for g in served["generated"]] == [32] * 8,
+          f"18d serve_batched: {served['tokens']} tokens")
+    for k in kernels:
+        k.launches = 0
+    args = ["--preset", "full", "--seq", str(TRAIN_SEQ), "--learners",
+            str(TWIN_LEARNERS), "--ckpt-every", "0"]
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        first = train_100m.main(args + ["--ckpt-dir", d, "--steps",
+                                        str(TWIN_STEPS)])
+        first_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        resumed = train_100m.main(args + ["--ckpt-dir", d, "--steps",
+                                          str(TWIN_STEPS + 1)])
+        resumed_s = time.perf_counter() - t0
+        ckpt_bytes = Path(resumed["checkpoint"]).stat().st_size
+    train_launches = _launch_counts(kernels)
+    check(first["resumed_from"] is None
+          and resumed["resumed_from"] == TWIN_STEPS
+          and resumed["steps"] == 1,
+          f"18d train_100m: resumed from {resumed['resumed_from']}")
+    losses = first["losses"] + resumed["losses"]
+    check(all(np.isfinite(losses)) and np.isfinite(resumed["heldout"]),
+          f"18d train_100m: losses {losses}, held out {resumed['heldout']}")
+    check(train_launches["gossip_mix_update_flat"] == TWIN_STEPS + 1,
+          f"18d train_100m launched {train_launches}")
+    torch.cuda.empty_cache()
+    return {"serve_batched": {
+                "ms_per_step": served["ms_per_step"],
+                "tokens_per_s": served["tokens_per_s"],
+                "tokens": served["tokens"], "steps": served["steps"],
+                "requests": served["requests"], "wall_s": serve_s,
+                "kernel_launches": serve_launches},
+            "train_100m": {
+                "preset": "full", "seq": TRAIN_SEQ,
+                "learners": TWIN_LEARNERS, "n_params": first["n_params"],
+                "losses": losses, "heldout_loss": resumed["heldout"],
+                "resumed_from": resumed["resumed_from"],
+                "checkpoint_bytes": ckpt_bytes, "first_run_s": first_s,
+                "resumed_run_s": resumed_s,
+                "kernel_launches": train_launches}}, \
+        serve_launches["paged_decode_attention_fwd"], \
+        train_launches["gossip_mix_update_flat"]
+
+
+def audit_phase(kernels, launch_audit=None):
+    """Phase 18: a, b and d here; c from phase 16's ranks, or, run alone,
+    from 4 ranks spawned for it.  Returns (record, decode launches by
+    path, gossip launches by path)."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    train, gossip = audit_train_phase(kernels)
+    serve, audit_decode = audit_serve_phase(kernels)
+    if launch_audit is None:
+        api = build_model(get_config("transformer-100m"))
+        with tempfile.TemporaryDirectory() as wdir:
+            _save_stacked(api, wdir)
+            del api
+            torch.cuda.empty_cache()
+            launch_audit = launch_audit_record(_launch_ranks(wdir, ()))
+    gossip["launch_audit_ring_ppermute_4_gloo_ranks"] = launch_audit[
+        "gossip_launches"]
+    twins, twin_decode, twin_gossip = twins_phase(kernels)
+    gossip["train_100m_twin"] = twin_gossip
+    return {"a_trainer": train, "b_serve": serve, "c_launch": launch_audit,
+            "d_twins": twins}, {
+        "transformer_100m_audit_serving": audit_decode,
+        "serve_batched_twin_serving": twin_decode}, gossip
+
+
 # --only: one phase alone, its record printed (no kernels line)
 ONLY = {
     "2": lambda k: {"decode": decode_attention_phase(),
@@ -5049,6 +5389,7 @@ ONLY = {
     "15": lambda k: elastic_phase(k)[0],
     "16": lambda k: launch_phase(k)[0],
     "17": lambda k: mesh_phase(k)[0],
+    "18": lambda k: audit_phase(k)[0],
 }
 
 
@@ -5192,13 +5533,19 @@ def main(argv=None) -> int:
     print(json.dumps({"elastic": elastic}), flush=True)
     torch.cuda.empty_cache()
     mark("15_elastic")
-    launch, launch_gossip = launch_phase(kernels)
+    launch, launch_gossip, launch_audit = launch_phase(kernels)
     print(json.dumps({"launch": launch}), flush=True)
     torch.cuda.empty_cache()
     mark("16_launch")
     mesh, mesh_gossip, mesh_reorth, mesh_flash = mesh_phase(kernels)
     print(json.dumps({"mesh": mesh}), flush=True)
     mark("17_mesh")
+    audit, audit_decode, audit_gossip = audit_phase(kernels, launch_audit)
+    print(json.dumps({"audit": audit}), flush=True)
+    mark("18_audit")
+    serve_launches.update(audit_decode)
+    launch_gossip = {k: v for k, v in launch_gossip.items()
+                     if k not in audit_gossip}
     decode_record["launches"] = sum(serve_launches.values())
     decode_record["launches_by_path"] = serve_launches
     flash_record["launches_by_path"].update(zoo_flash)
@@ -5210,7 +5557,7 @@ def main(argv=None) -> int:
             "gossip_mix_update_flat"],
         **pytree_gossip, **paper_gossip,
         "xlstm_350m_dpsgd_training": xlstm_gossip, **elastic_gossip,
-        **launch_gossip, **mesh_gossip}
+        **launch_gossip, **mesh_gossip, **audit_gossip}
     gossip_record["launches"] = sum(
         gossip_record["launches_by_path"].values())
     for record in (dots_record, axpy_record):

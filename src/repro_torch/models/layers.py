@@ -3,6 +3,7 @@
 cross-entropy)."""
 from __future__ import annotations
 
+import functools
 import itertools
 import math
 
@@ -14,11 +15,14 @@ def dtype_of(name: str) -> torch.dtype:
             "float16": torch.float16}[name]
 
 
+@functools.lru_cache(maxsize=None)
 def weak_scalar(s: float, dtype) -> float:
     """The Python float ``s`` rounded to ``dtype``: the factor the
     reference's arithmetic uses when it scales an array by a Python float
     (JAX's weak typing casts the scalar to the array's dtype first;
-    ``sqrt(4608)`` is 68.0 in bfloat16, not 67.88)."""
+    ``sqrt(4608)`` is 68.0 in bfloat16, not 67.88).  Cached: a step asks
+    for the same few factors every call, and each miss reads a host
+    tensor back."""
     return torch.tensor(s, dtype=dtype).item()
 
 
