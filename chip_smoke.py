@@ -141,14 +141,15 @@ Phases (any failure raises and the script exits non-zero):
      classes, SSGD against DPSGD at lr 0.25, 0.5 and 1.0, 120 steps; both
      converge at 0.25, as the reference's own run does), each printing its
      ``derived`` line and its gossip launches;
- 11. granite-moe-3b-a800m at full width, 16 of its 32 layers (40
-     experts top-8, 1.7 B bf16 parameters from a seeded torch.Generator)
-     served as phase 3b serves gemma2 (16 decode launches a step; logits
+ 11. granite-moe-3b-a800m at full width, 12 of its 32 layers (40
+     experts top-8, 1.3 B bf16 parameters from a seeded torch.Generator)
+     served as phase 3b serves gemma2 (12 decode launches a step; logits
      within 2e-2 and the control outside it; the CPU
      steps replay the card's expert choices, and at most a quarter of the
      tokens may have picked another set of experts on the CPU; the error
-     layer by layer beside the logits' error; the MoE layers' device time a step beside the
-     bytes of every expert weight), then ``api.apply`` of
+     layer by layer beside the logits' error; the MoE layers' device
+     time a step beside the bytes of every expert weight), then
+     ``api.apply`` of
      4,096 tokens through the flash route against the chunked route
      (routing shared; the last 64 positions within 2e-2, Frobenius);
  12. jamba-v0.1-52b at full width, depth cut to one period (8 layers: 7
@@ -158,12 +159,13 @@ Phases (any failure raises and the script exits non-zero):
      half the slots not advancing keeps their mamba leaves bitwise and
      ``reset_slot`` zeroes one slot's leaves and no other's; then the
      prefill of 8,192 tokens, where the window binds;
- 13. xlstm-350m at full width and depth (24 layers: 12 mLSTM and 12
-     sLSTM blocks, bf16) served as phase 3b serves gemma2 (no attention:
+ 13. xlstm-350m at full width in bf16 served at 12 of its 24 layers (6
+     mLSTM and 6 sLSTM blocks) as phase 3b serves gemma2 (no attention:
      no decode launch; card logits within 5e-2 of the CPU's; the advance
      mask keeps a frozen slot's mLSTM/sLSTM leaves bitwise and
-     ``reset_slot`` zeroes one slot), paged decode of a 64-token prompt
-     against ``api.apply`` (bf16 within 0.12, float32 within 1e-4), then
+     ``reset_slot`` zeroes one slot); at full depth (24 layers), paged
+     decode of a 64-token prompt against ``api.apply`` (bf16 within 0.12,
+     float32 within 1e-4), then
      trained with DPSGD (4 learners, random_pair, seq 64, local batch 2,
      1 step: 1 gossip launch, the store equal to
      ``kernel_backend="ref"`` within 1e-5);
@@ -171,7 +173,7 @@ Phases (any failure raises and the script exits non-zero):
      at full width and depth in bf16, one after the other: qwen2-vl's
      ``api.apply`` on 1,024 patch embeddings + 1,024 text tokens (M-RoPE,
      the chunked route), seamless's ``init_cache`` over (8, 512) frames;
-     then 64 greedy ``decode_step``s of 8 sequences, each step's logits
+     then 40 greedy ``decode_step``s of 8 sequences, each step's logits
      within 3e-2 of ``apply``'s on the same tokens (teacher forcing); then
      both with depth cut to 2 (2 + 2) layers on the card against the CPU
      on 64 + 64 positions (logits within 1.2e-2; every layer's output).
@@ -257,7 +259,22 @@ Phases (any failure raises and the script exits non-zero):
      bytes and ms a step; (f) the sharded prefill on (a)'s mesh:
      transformer-100m with ``use_pallas``, each rank's row of 512 tokens
      through kernel #6 on the gathered weights, within 1e-5 relative of
-     the single-process flash prefill of the same row.
+     the single-process flash prefill of the same row; (g) the audio
+     family under the model axis: seamless-m4t-large-v2 at full width (d
+     1,024, 16 heads, vocab 256,206, bf16), 2 encoder and 2 decoder
+     layers, on the (1, 4) mesh: 8 sequences of 512 frames encoded each
+     model rank its rows, one all-to-all leaving each rank its quarter of
+     the encoder length of every row's cross K/V, then 32 steps of a
+     64-row self-attention buffer (two collectives a decoder layer a
+     step), logits within 1e-2 of the single-process ``decode_step`` on
+     the card against its control; the sharded prefill of the frames and
+     64 tokens on (a)'s mesh within 1e-5 of the single-process ``apply``
+     of the same rows; (h) the probe on the per-period gather
+     (``gather="period"``: forward over reverse a period at a time) on
+     (b)'s states and draws, stacked and single, every field within 1e-4
+     of (b)'s whole probe, kernels #4 / #5 launched on the basis shard,
+     its full weights (the non-period leaves and one period) and peak
+     memory beside the whole probe's.
  18. the static auditor (``repro_torch.analysis``) on the card, every
      finding a failure: (a) ``audit_trainer`` (the FC net, DPSGD ring,
      n 4, hidden 32), then its rules on transformer-100m at full width
@@ -459,17 +476,19 @@ FLASH_TRAIN_LOSS_RTOL = 1e-5
 BRIDGE_MEAN_ATOL = 1e-6
 BRIDGE_STEPS = 2
 BRIDGE_PROBE = (2, 64)
-# phases 11-12: granite-moe-3b-a800m at full width, 16 of 32 layers (40
-# experts top-8, 24 query heads on 8 kv heads, hd 64; the full depth ran
-# to PR 21, cut for the run's time limit when phase 17 came) and
+# phases 11-12: granite-moe-3b-a800m at full width, 12 of 32 layers (40
+# experts top-8, 24 query heads on 8 kv heads, hd 64; cut from the full
+# depth to 16 layers for the run's time limit when phase 17 came, and to
+# 12 when 17g-h came; its control at 16 layers read 3.85e-2, at 32
+# 6.6e-2, so ~3e-2 at 12, outside the 2e-2 tier) and
 # jamba-v0.1-52b at full width, depth cut to one period (8 layers: 7
 # mamba, 1 attention with a 4,096 window and no RoPE; 4 MoE layers of 16
 # experts top-2), both bf16, served as phase 3b serves gemma2 and
 # prefilled through the flash route against the chunked route (the last
 # GEMMA_LAST positions within GEMMA_BF16_RTOL)
 ZOO = (   # (record key, config, layers, why, prefill length)
-    ("serve_granite_moe", "granite-moe-3b-a800m", 16,
-     "16 of 32 layers, for the run's time limit", 4096),
+    ("serve_granite_moe", "granite-moe-3b-a800m", 12,
+     "12 of 32 layers, for the run's time limit", 4096),
     ("serve_jamba", "jamba-v0.1-52b", 8,
      "one period: 7 mamba + 1 attention layers, 4 of them MoE", 8192),
 )
@@ -482,15 +501,18 @@ ROUTING_SET_CHANGES = 0.25
 # Each bf16 tier below is held against its control, the same run one
 # mantissa bit below bf16 (CoarseBF16): the sound reading within the tier,
 # the control's beyond it (``held``).
-# 13: xlstm-350m at full depth (24 layers: 12 mLSTM + 12 sLSTM blocks),
-# served with phase 3b's requests (card logits against the CPU's), decoded
-# token by token against its prefill, and trained (4 learners, DPSGD on
-# random_pair, examples/train_100m.py's recipe at seq 64: the sLSTM's
-# per-position host loop takes ~85 ms a token a step, so seq 256 took ~22 s
-# a step, cut for the run's time when phase 18 came)
-XLSTM_LAYERS = 24
+# 13: xlstm-350m at full width, served with phase 3b's requests at
+# XLSTM_LAYERS of its 24 layers (6 mLSTM + 6 sLSTM blocks; cut from the
+# full depth for the run's time when phase 17g-h came; card logits
+# against the CPU's), decoded token by token against its prefill
+# and trained at full depth (4 learners, DPSGD on random_pair,
+# examples/train_100m.py's recipe at seq 64: the sLSTM's per-position host
+# loop takes ~85 ms a token a step, so seq 256 took ~22 s a step, cut for
+# the run's time when phase 18 came)
+XLSTM_LAYERS = 12
 # bf16 rounding grows with xlstm's depth (card against CPU: 2.0e-3 after
-# layer 1, 3.3e-2 after 24; control 0.135), and the mLSTM's normalizer
+# layer 1, 3.3e-2 after 24; control 0.135: about linear in depth, so ~0.07
+# at 12 layers, outside the tier), and the mLSTM's normalizer
 # |q . n| amplifies it; decode against prefill compares the chunkwise form
 # with the recurrent one (0.080, control 0.192; in float32 8.7e-6 at
 # depth 24 on the CPU), so the float32 run is held too
@@ -505,7 +527,8 @@ XLSTM_TRAIN_SEQ, XLSTM_TRAIN_STEPS = 64, 1
 # layers, the card against the port on the CPU (logits and every layer's
 # output) on a short input
 VLM_TEXT = 1024             # + 1,024 patch embeddings: 2,048 positions
-ZOO_DECODE_SEQS, ZOO_PROMPT, ZOO_NEW = 8, 8, 64
+# (64 new tokens before 17g-h came, cut for the run's time)
+ZOO_DECODE_SEQS, ZOO_PROMPT, ZOO_NEW = 8, 8, 40
 AUDIO_FRAMES = 512
 # decode against apply, every step (qwen2-vl 2.1e-2, control 6.3e-2;
 # seamless 1.5e-2, control 8.6e-2); 2 layers on the card against the CPU
@@ -591,6 +614,17 @@ GEMMA_SEQ_RTOL = 1e-2
 # f: the sharded prefill against the single-process flash prefill of the
 # same rows (the same kernel on the same gathered weights)
 MESH_PREFILL_RTOL = 1e-5
+# g: seamless-m4t-large-v2 at full width, AUDIO_MESH_LAYERS encoder and
+# decoder layers in bf16, on SEQ_DECODE_MESH: SEQ_DECODE_B sequences of
+# AUDIO_FRAMES frames encoded (each model rank its rows, then one
+# all-to-all of the cross K/V), a SEQ_DECODE_BUF-row self-attention buffer,
+# AUDIO_MESH_STEPS steps, against the single-process decode_step at
+# GEMMA_SEQ_RTOL (its control one mantissa bit below bf16); the sharded
+# prefill of the frames and AUDIO_MESH_TOKENS tokens on (a)'s mesh against
+# the single-process apply of the same rows at MESH_PREFILL_RTOL.  h: the
+# probe with gather="period" beside b's "whole" probe, on the same state
+# and draws, every field within MESH_PROBE_RTOL of it
+AUDIO_MESH_LAYERS, AUDIO_MESH_STEPS, AUDIO_MESH_TOKENS = 2, 32, 64
 # jamba's decode shape in phase 2 (H 32 on KV 8, hd 128, window 4,096)
 # and granite-moe's (H 24 on KV 8, hd 64), 8 slots up to 8,192 tokens
 ZOO_DECODE = {"granite_moe": (24, 8, 64, {}),
@@ -3250,13 +3284,16 @@ def xlstm_train(api, kernels):
 
 
 def xlstm_phase(kernels):
-    """Phase 13: xlstm-350m at full width and depth.  Returns (record,
-    gossip launches)."""
+    """Phase 13: xlstm-350m at full width, served at XLSTM_LAYERS layers,
+    decoded against its prefill and trained at full depth.  Returns
+    (record, gossip launches)."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
 
-    record, _ = cut_serve_phase("xlstm-350m", XLSTM_LAYERS, "full depth",
-                                kernels, tier=XLSTM_SERVE_RTOL)
+    record, _ = cut_serve_phase(
+        "xlstm-350m", XLSTM_LAYERS,
+        "12 of 24 layers (6 mLSTM + 6 sLSTM), for the run's time limit",
+        kernels, tier=XLSTM_SERVE_RTOL)
     torch.cuda.empty_cache()
     api = build_model(get_config("xlstm-350m"))
     params = api.init(SEED)
@@ -4413,7 +4450,7 @@ def _mesh_rank(rank, port, wdir):
     loader = _mesh_loader(cfg)
     kernel = gossip_mix.gossip_mix_update_flat
     records, finals, probes, whole_shards = {}, {}, {}, {}
-    draws = None
+    period_probes, draws = {}, None
     for name, steps in MESH_CASES:
         batches = [tree_map(lambda x: x[i], loader.batch(t))
                    for t in range(steps)]
@@ -4461,30 +4498,40 @@ def _mesh_rank(rank, port, wdir):
             if draws is None:
                 draws = _probe_draws(api, step._layout.full)
             stacked = name != "ssgd"
-            probe = make_probe_step(api, mesh, alpha=TRAIN_LR,
-                                    stacked=stacked,
-                                    lanczos_iters=MESH_PROBE[0],
-                                    hutchinson_samples=MESH_PROBE[1])
-            reorth.reorth_dots.launches = reorth.reorth_axpy.launches = 0
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            r = probe(state.params, batches[0], q0=draws[0],
-                      probes=draws[1])
-            torch.cuda.synchronize()
-            probes["stacked" if stacked else "single"] = {
-                "wall_s": time.perf_counter() - t0,
-                "result": {f: float(getattr(r, f)) for f in r._fields},
-                "reorth_dots_launches": reorth.reorth_dots.launches,
-                "reorth_axpy_launches": reorth.reorth_axpy.launches,
-                "model_collectives": probe.model.calls,
-                "learner_collectives": probe.learners.calls,
-                "model_bytes": probe.model.bytes,
-                "learner_bytes": probe.learners.bytes}
-            del probe
+            for gather in ("whole", "period"):
+                probe = make_probe_step(api, mesh, alpha=TRAIN_LR,
+                                        stacked=stacked,
+                                        lanczos_iters=MESH_PROBE[0],
+                                        hutchinson_samples=MESH_PROBE[1],
+                                        gather=gather)
+                reorth.reorth_dots.launches = 0
+                reorth.reorth_axpy.launches = 0
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                r = probe(state.params, batches[0], q0=draws[0],
+                          probes=draws[1])
+                torch.cuda.synchronize()
+                (probes if gather == "whole" else period_probes)[
+                    "stacked" if stacked else "single"] = {
+                    "wall_s": time.perf_counter() - t0,
+                    "result": {f: float(getattr(r, f)) for f in r._fields},
+                    "reorth_dots_launches": reorth.reorth_dots.launches,
+                    "reorth_axpy_launches": reorth.reorth_axpy.launches,
+                    "model_collectives": probe.model.calls,
+                    "model_kinds": dict(probe.model.kinds),
+                    "learner_collectives": probe.learners.calls,
+                    "model_bytes": probe.model.bytes,
+                    "learner_bytes": probe.learners.bytes,
+                    "max_full_bytes": probe.max_full_bytes,
+                    "max_memory_allocated_gb":
+                        torch.cuda.max_memory_allocated() / 1e9}
+                del probe, r
+                torch.cuda.empty_cache()
         del step, state, batches
         torch.cuda.empty_cache()
-    record = {"cases": records, "probe": probes, "learner": i,
-              "model_rank": j}
+    record = {"cases": records, "probe": probes,
+              "period_probe": period_probes, "learner": i, "model_rank": j}
     # each learner's gathered store, from its model rank 0 to rank 0
     gathered = {}
     for name, rows in finals.items():
@@ -4517,6 +4564,9 @@ def _mesh_rank(rank, port, wdir):
     torch.cuda.empty_cache()
     record["prefill"] = _mesh_prefill(mesh, rank, params, loader)
     _progress(rank, "17f")
+    torch.cuda.empty_cache()
+    record["audio"] = _mesh_audio(line, mesh, rank)
+    _progress(rank, "17g")
     dist.destroy_process_group()
     return record
 
@@ -4729,14 +4779,19 @@ def _mesh_period(api, mesh, params, single, loader, whole, i):
     return out
 
 
-def _seq_decode(api, mesh, rank, make_tree, buf, steps, control=False):
+def _seq_decode(api, mesh, rank, make_tree, buf, steps, control=False,
+                frames=None):
     """Phase 17e for one model on one rank of the (1, 4) mesh: the
     sequence-sharded decode of SEQ_DECODE_B sequences (the same seeded
     tokens on every rank) from this rank's shard of ``make_tree()``'s
     weights; rank 0 first runs the single-process ``decode_step`` on the
     whole tree and holds every step's logits to it; ``control`` runs the
-    sharded decode again one mantissa bit below bf16."""
+    sharded decode again one mantissa bit below bf16.  ``frames`` (the
+    audio family, 17g): the cache encodes them (the whole batch: one
+    learner), the sharded one through ``init_cache(store=, frames=)``,
+    timed (``encode_s``)."""
     from repro_torch.launch.train import make_decode_step
+    from repro_torch.models.moe_shardmap import all_to_all
 
     cfg = api.cfg
     step = make_decode_step(api, mesh)
@@ -4749,7 +4804,8 @@ def _seq_decode(api, mesh, rank, make_tree, buf, steps, control=False):
     want, single_ms = None, None
     if rank == 0:
         params = api.params_from_tree(tree)
-        cache = api.init_cache(params, SEQ_DECODE_B, buf)
+        cache = api.init_cache(params, SEQ_DECODE_B if frames is None
+                               else frames, buf)
         want = []
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -4769,9 +4825,13 @@ def _seq_decode(api, mesh, rank, make_tree, buf, steps, control=False):
     torch.cuda.empty_cache()
 
     def run():
-        cache = step.init_cache(SEQ_DECODE_B, buf)
-        logits, c0, b0 = [], step.seq_comm.calls, step.seq_comm.bytes
         torch.cuda.synchronize()
+        t0, a2a = time.perf_counter(), all_to_all.calls
+        cache = step.init_cache(SEQ_DECODE_B, buf, **(
+            {} if frames is None else {"store": store, "frames": frames}))
+        torch.cuda.synchronize()
+        encode_s, a2a = time.perf_counter() - t0, all_to_all.calls - a2a
+        logits, c0, b0 = [], step.seq_comm.calls, step.seq_comm.bytes
         t0 = time.perf_counter()
         for t in range(steps):
             if t == 1:
@@ -4783,7 +4843,8 @@ def _seq_decode(api, mesh, rank, make_tree, buf, steps, control=False):
         t2 = time.perf_counter()
         return logits, {
             "ms_per_step": 1e3 * (t2 - t1) / (steps - 1),
-            "first_step_ms": 1e3 * (t1 - t0),
+            "first_step_ms": 1e3 * (t1 - t0), "init_cache_s": encode_s,
+            "init_cache_all_to_alls": a2a,
             "collectives_per_step": (step.seq_comm.calls - c0) / steps,
             "bytes_per_step": (step.seq_comm.bytes - b0) / steps}
 
@@ -4877,6 +4938,68 @@ def _mesh_prefill(mesh, rank, params, loader):
             "ms": ms, "rel": _rel(mine, want),
             "learner_rows": learner.shape[0],
             "finite": bool(torch.isfinite(mine).all())}
+
+
+def _mesh_audio(line, mesh, rank):
+    """Phase 17g on one rank: seamless-m4t-large-v2 at full width, depth
+    cut to AUDIO_MESH_LAYERS encoder and decoder layers, bf16, from seed
+    SEED on every rank.  The sequence-sharded decode on the (1, 4) mesh
+    ``line`` through ``_seq_decode`` (the frames encoded each model rank
+    its rows, one all-to-all of the cross K/V; two collectives a decoder
+    layer a step), then the sharded prefill on (a)'s mesh ``mesh``: the
+    rank's rows of its learner's frames and tokens through
+    ``make_prefill_step`` against the single-process ``apply`` of the same
+    rows."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import learner_rank, model_rank
+    from repro_torch.launch.train import gather_rows, make_prefill_step
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_map
+
+    cfg = dataclasses.replace(get_config("seamless-m4t-large-v2"),
+                              n_layers=AUDIO_MESH_LAYERS,
+                              enc_layers=AUDIO_MESH_LAYERS)
+    api = build_model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 29)
+    frames = (torch.randn((SEQ_DECODE_B, AUDIO_FRAMES, cfg.d_model),
+                          generator=gen, device="cuda")
+              .to(torch.bfloat16) * 0.1)
+    out = {"decode": _seq_decode(
+        api, line, rank, lambda: api.param_tree(api.init(SEED)),
+        SEQ_DECODE_BUF, AUDIO_MESH_STEPS, control=True, frames=frames)}
+    out["decode"]["frames"] = [SEQ_DECODE_B, AUDIO_FRAMES]
+    torch.cuda.empty_cache()
+    _progress(rank, "17g decode")
+    n, M = MESH_SHAPE
+    i, j = learner_rank(mesh), model_rank(mesh)
+    b = SEQ_DECODE_B // n
+    tokens = torch.randint(0, cfg.vocab, (SEQ_DECODE_B, AUDIO_MESH_TOKENS),
+                           generator=gen, device="cuda", dtype=torch.int32)
+    batch = {"frames": frames[i * b:(i + 1) * b],
+             "tokens": tokens[i * b:(i + 1) * b]}
+    tree = api.param_tree(api.init(SEED))
+    step = make_prefill_step(api, mesh)
+    store = step.shard(tree)
+    step.params(store)                  # the weights, gathered once
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mine = step(store, batch)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    rows = mine.shape[0]
+    learner = gather_rows(step, mine)
+    with torch.no_grad():
+        want = api.apply(api.params_from_tree(tree),
+                         tree_map(lambda x: x[j * rows:(j + 1) * rows],
+                                  batch))
+    out["prefill"] = {"rows": rows, "frames": AUDIO_FRAMES,
+                      "tokens": AUDIO_MESH_TOKENS, "ms": ms,
+                      "rel": _rel(mine, want),
+                      "learner_rows": learner.shape[0],
+                      "finite": bool(torch.isfinite(mine).all())}
+    del tree, step, store, mine, want, learner
+    torch.cuda.empty_cache()
+    return out
 
 
 def _mesh_ranks(wdir):
@@ -5018,6 +5141,7 @@ def mesh_phase(kernels):
                       "model_bytes_rank0": per[0]["model_bytes"],
                       "learner_bytes_rank0": per[0]["learner_bytes"]}
     record["probe"] = probe
+    record["period_probe"], period_reorth = _period_probe_record(ranks)
     moe = [ranks[r]["moe"] for r in range(LAUNCH_RANKS)]
     for r, c in enumerate(moe):
         check(c["dropped"] == 0, f"moe rank {r}: {c['dropped']} dropped")
@@ -5040,12 +5164,125 @@ def mesh_phase(kernels):
         ranks, record["cases"], predicted)
     record["seq_decode"] = _decode_record(ranks)
     record["sharded_prefill"], flash_launches = _prefill_record(ranks)
+    record["audio"] = _audio_record(ranks)
     gossip = {f"mesh_2x2_{k}_4_gloo_ranks": v for k, v in launches.items()}
     gossip.update({f"mesh_2x2_period_{k}_4_gloo_ranks": v
                    for k, v in period_launches.items()})
-    return record, gossip, reorth_launches, {
+    return record, gossip, {
+        "transformer_100m_mesh_2x2_probes_4_gloo_ranks": reorth_launches,
+        "transformer_100m_mesh_2x2_period_probes_4_gloo_ranks":
+            period_reorth}, {
         "transformer_100m_mesh_2x2_sharded_prefill_4_gloo_ranks":
             flash_launches}
+
+
+def _period_probe_record(ranks):
+    """17h's checks and record: the period probe against b's whole probe
+    on the same state and draws (every field), its reorth launches on the
+    shard, its full weights and peak memory beside the whole probe's.
+    Returns it and kernels #4 / #5's launches."""
+    launches = {"reorth_dots": 0, "reorth_axpy": 0}
+    out = {}
+    for tag in ("stacked", "single"):
+        per = [ranks[r]["period_probe"][tag] for r in range(LAUNCH_RANKS)]
+        whole = [ranks[r]["probe"][tag] for r in range(LAUNCH_RANKS)]
+        got, want = per[0]["result"], whole[0]["result"]
+        rel = {f: abs(got[f] - want[f]) / max(abs(want[f]), 1e-30)
+               for f in want}
+        check(all(np.isfinite(v) for v in got.values()),
+              f"17h {tag}: {got}")
+        check(max(rel.values()) <= MESH_PROBE_RTOL,
+              f"17h {tag}: the period probe {got} against the whole "
+              f"probe {want} (rel {rel})")
+        for r, c in enumerate(per):
+            check(c["result"] == got, f"17h {tag}: rank {r} reads "
+                  f"{c['result']}, rank 0 {got}")
+            check(c["reorth_dots_launches"] == 2 * MESH_PROBE[0]
+                  and c["reorth_axpy_launches"] == 2 * MESH_PROBE[0],
+                  f"17h {tag} rank {r}: reorth launches "
+                  f"{c['reorth_dots_launches']} / "
+                  f"{c['reorth_axpy_launches']}")
+            check(0 < c["max_full_bytes"] < whole[r]["max_full_bytes"],
+                  f"17h {tag} rank {r}: {c['max_full_bytes']} full bytes, "
+                  f"the whole probe {whole[r]['max_full_bytes']}")
+            launches["reorth_dots"] += c["reorth_dots_launches"]
+            launches["reorth_axpy"] += c["reorth_axpy_launches"]
+        out[tag] = {
+            "period": got, "whole": want, "rel": rel,
+            "tier_rel": MESH_PROBE_RTOL,
+            "wall_s_by_rank": [c["wall_s"] for c in per],
+            "whole_wall_s_by_rank": [c["wall_s"] for c in whole],
+            "max_memory_allocated_gb_by_rank": [
+                c["max_memory_allocated_gb"] for c in per],
+            "whole_max_memory_allocated_gb_by_rank": [
+                c["max_memory_allocated_gb"] for c in whole],
+            "max_full_bytes": per[0]["max_full_bytes"],
+            "whole_max_full_bytes": whole[0]["max_full_bytes"],
+            "reorth_launches_by_rank": [
+                [c["reorth_dots_launches"], c["reorth_axpy_launches"]]
+                for c in per],
+            "model_kinds_rank0": per[0]["model_kinds"],
+            "whole_model_kinds_rank0": whole[0]["model_kinds"],
+            "model_bytes_rank0": per[0]["model_bytes"],
+            "whole_model_bytes_rank0": whole[0]["model_bytes"]}
+    return out, launches
+
+
+def _audio_record(ranks):
+    """17g's checks and record: the sequence-sharded decode against the
+    single-process decode (its tier against its control), two collectives
+    a decoder layer a step, one all-to-all of the cross K/V; the sharded
+    prefill against the single-process apply."""
+    per = [ranks[r]["audio"]["decode"] for r in range(LAUNCH_RANKS)]
+    r0 = per[0]
+    calls = 2 * AUDIO_MESH_LAYERS
+    check(all(c["finite"] for c in per), "17g: non-finite logits")
+    for r, c in enumerate(per):
+        check(c["collectives_per_step"] == calls,
+              f"17g rank {r}: {c['collectives_per_step']} collectives a "
+              f"step, not {calls}")
+        check(c["init_cache_all_to_alls"] == 1,
+              f"17g rank {r}: {c['init_cache_all_to_alls']} all-to-alls "
+              "building the cache, not 1")
+    pre = [ranks[r]["audio"]["prefill"] for r in range(LAUNCH_RANKS)]
+    for r, c in enumerate(pre):
+        check(c["finite"] and c["rel"] <= MESH_PREFILL_RTOL,
+              f"17g prefill rank {r}: {c['rel']} from the single-process "
+              "apply")
+        check(c["learner_rows"] == SEQ_DECODE_B // MESH_SHAPE[0],
+              f"17g prefill rank {r}: {c['learner_rows']} learner rows")
+    return {
+        "model": "seamless-m4t-large-v2", "layers": [AUDIO_MESH_LAYERS,
+                                                     AUDIO_MESH_LAYERS],
+        "decode": {
+            "mesh": {"data": SEQ_DECODE_MESH[0],
+                     "model": SEQ_DECODE_MESH[1]},
+            "sequences": r0["sequences"], "frames": r0["frames"],
+            "buf_len": r0["buf_len"], "steps": r0["steps"],
+            "tier": held("17g seamless sequence-sharded decode against the "
+                         "single-process decode", max(r0["rel_per_step"]),
+                         min(r0["control_rel_per_step"]), GEMMA_SEQ_RTOL),
+            "rel_first_steps": r0["rel_per_step"][:8],
+            "collectives_per_step": r0["collectives_per_step"],
+            "bytes_per_step_by_rank": [c["bytes_per_step"] for c in per],
+            "ms_per_step_by_rank": [c["ms_per_step"] for c in per],
+            "first_step_ms_by_rank": [c["first_step_ms"] for c in per],
+            "single_process_ms_per_step": r0["single_process_ms_per_step"],
+            "encode_and_all_to_all_s_by_rank": [c["init_cache_s"]
+                                                for c in per],
+            "weights_gather_s_by_rank": [c["weights_gather_s"]
+                                         for c in per],
+            "weight_bytes_in_by_rank": [c["weight_bytes_in"] for c in per],
+            "init_cache_all_to_alls": r0["init_cache_all_to_alls"],
+            "store_bytes_per_rank": r0["store_bytes"],
+            "max_memory_allocated_gb_by_rank": [
+                c["max_memory_allocated_gb"] for c in per]},
+        "prefill": {"mesh": {"data": MESH_SHAPE[0], "model": MESH_SHAPE[1]},
+                    "rows_per_rank": pre[0]["rows"],
+                    "frames": pre[0]["frames"], "tokens": pre[0]["tokens"],
+                    "rel_by_rank": [c["rel"] for c in pre],
+                    "ms_by_rank": [c["ms"] for c in pre],
+                    "tier_rel": MESH_PREFILL_RTOL}}
 
 
 def _period_record(ranks, whole_cases, predicted):
@@ -5565,9 +5802,8 @@ def main(argv=None) -> int:
         record["launches_by_path"] = {
             "transformer_100m_probe": record["launches"],
             "fig2_probes": fig2_reorth[name],
-            "transformer_100m_mesh_2x2_probes_4_gloo_ranks":
-                mesh_reorth[name]}
-        record["launches"] += fig2_reorth[name] + mesh_reorth[name]
+            **{path: n[name] for path, n in mesh_reorth.items()}}
+        record["launches"] = sum(record["launches_by_path"].values())
 
     print(json.dumps({"phase_seconds": seconds}), flush=True)
     print(card, flush=True)

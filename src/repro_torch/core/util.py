@@ -52,13 +52,17 @@ def tree_scale(s, a):
     return tree_map(lambda x: s * x, a)
 
 
+def gaussian_leaf(gen: torch.Generator, shape, dtype, std: float):
+    """One leaf of ``tree_gaussian_like``'s draw."""
+    return torch.randn(shape, generator=gen, device=gen.device,
+                       dtype=dtype).mul_(std)
+
+
 def tree_gaussian_like(gen: torch.Generator, a, std: float):
     """iid N(0, std^2) noise with the structure, shapes and dtypes of
     ``a``, drawn leaf by leaf from ``gen`` on ``gen.device`` (the
     reference's law; its ``jax.random`` draws differ)."""
-    return tree_map(lambda x: torch.randn(
-        x.shape, generator=gen, device=gen.device, dtype=x.dtype).mul_(std),
-        a)
+    return tree_map(lambda x: gaussian_leaf(gen, x.shape, x.dtype, std), a)
 
 
 def learner_mean(stacked):

@@ -116,12 +116,16 @@ def make_hvp_fn(loss_fn: Callable, params, stacked_batch, *,
     return matvec
 
 
+def rademacher_leaf(gen: torch.Generator, shape):
+    """One leaf of ``tree_rademacher_like``'s draw."""
+    return torch.randint(0, 2, shape, generator=gen,
+                         device=gen.device).float() * 2.0 - 1.0
+
+
 def tree_rademacher_like(gen: torch.Generator, tree):
     """iid +-1 float32 probe with the structure and shapes of ``tree``,
     drawn leaf by leaf from ``gen`` on ``gen.device``."""
-    return tree_map(lambda x: torch.randint(
-        0, 2, x.shape, generator=gen, device=gen.device).float() * 2.0 - 1.0,
-        tree)
+    return tree_map(lambda x: rademacher_leaf(gen, x.shape), tree)
 
 
 def hutchinson_trace(loss_fn: Callable, params, stacked_batch,

@@ -66,7 +66,8 @@ from .mesh import mesh_shape, n_learners, production_mesh_shape
 from .sharding import (batch_sharding, cache_sharding, params_sharding,
                        spec_dim)
 from .shardstore import ShardLayout
-from .train import param_shapes, train_state_shardings, train_state_specs
+from .train import (decode_cache_shapes, param_shapes, train_state_shardings,
+                    train_state_specs)
 
 __all__ = ["SKIPS", "RESULTS_DIR", "decode_buf_len", "local_bytes",
            "step_memory", "build_record", "run_one", "main"]
@@ -197,9 +198,6 @@ def _counted(api, kind: str, rows_per_chip: float, seq: int, cache,
     if "slstm" in (cfg.block_period or ()) and kind != "decode":
         return None, (f"the sLSTM's per-position loop: {seq} Python steps "
                       "a layer on the meta device")
-    if kind == "decode" and cfg.family == "audio":
-        return None, ("the audio family does not decode under a model "
-                      "axis (its cross-attention caches wait)")
     # one attention block a layer: the chunked attention computes every
     # block of the (S, S) scores either way, so the count is the same and
     # the meta device runs a few ops a layer instead of (S / chunk)^2
@@ -227,26 +225,12 @@ def _counted(api, kind: str, rows_per_chip: float, seq: int, cache,
     return _count(run), None
 
 
-def _decode_cache(api, batch: int, buf_len: int):
-    cfg = api.cfg
-    if cfg.family == "audio":
-        tree = param_shapes(api)
-        dt = torch.bfloat16 if cfg.param_dtype == "bfloat16" \
-            else torch.float32
-        frames = torch.zeros((batch, AUDIO_ENC_LEN, cfg.d_model), dtype=dt,
-                             device="meta")
-        with torch.no_grad():
-            return api.init_cache(api.params_from_tree(tree), frames,
-                                  buf_len)
-    from ..models.transformer import init_cache
-    return init_cache(cfg, batch, buf_len, "meta")
-
-
 def _rank_cache(cache, specs, sizes):
     """What a rank's decode computes on, as a meta cache: its learner's
     rows (the batch cut over the learner axes) and, of an attention
     layer, its slice of the buffer (``slot_pos`` cut to the slice's rows
-    too); a recurrent state whole (the rank gathers it for the
+    too), of the encoder-decoder's cross K/V its slice of the encoder
+    length; a recurrent state whole (the rank gathers it for the
     update)."""
     out = {}
     for layer, c in cache.items():
@@ -258,7 +242,7 @@ def _rank_cache(cache, specs, sizes):
                 axes = entry if isinstance(entry, tuple) else (
                     () if entry is None else (entry,))
                 for a in axes:
-                    if a != "model" or n in ("k", "v"):
+                    if a != "model" or n in ("k", "v", "xk", "xv"):
                         shape[d] //= sizes[a]
             out[layer][n] = torch.empty(shape, dtype=x.dtype,
                                         device="meta")
@@ -335,7 +319,7 @@ def build_record(arch: str, shape: str, *, multi_pod: bool, algo: str,
             model_flops = 2.0 * cfg.n_active_params() * gb * seq
         else:
             buf = decode_buf_len(cfg, seq)
-            full = _decode_cache(api, gb, buf)
+            full = decode_cache_shapes(api, gb, buf, AUDIO_ENC_LEN)
             c_specs = cache_sharding(full, mesh)
             res["cache"] = _tree_bytes(full, c_specs, sizes)
             cache = _rank_cache(full, c_specs, sizes)
@@ -377,10 +361,10 @@ def build_record(arch: str, shape: str, *, multi_pod: bool, algo: str,
 
 
 def _merge_bytes(api, cache, specs, sizes, b_learner: int, M: int) -> int:
-    """Bytes into a rank a decode step: each attention layer's all_gather
-    of (M - 1) ranks' B/L x H x (hd + 2) float32 partials, each recurrent
-    layer's of (M - 1) ranks' slices of its cut state (float32 on the
-    wire)."""
+    """Bytes into a rank a decode step: each attention's all_gather of (M
+    - 1) ranks' B/L x H x (hd + 2) float32 partials (an encoder-decoder
+    layer's self- and cross-attention each), each recurrent layer's of (M
+    - 1) ranks' slices of its cut state (float32 on the wire)."""
     cfg = api.cfg
     if M == 1:
         return 0
@@ -388,7 +372,7 @@ def _merge_bytes(api, cache, specs, sizes, b_learner: int, M: int) -> int:
     for (path, x), spec in zip(tree_flatten_with_path(cache),
                                tree_leaves(specs)):
         name, Np = path[-1], x.shape[0]
-        if name == "k":
+        if name in ("k", "xk"):
             total += Np * (M - 1) * b_learner * cfg.n_heads * (
                 cfg.head_dim_ + 2) * 4
         elif name not in ("v", "slot_pos", "xk", "xv") \

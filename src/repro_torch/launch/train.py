@@ -110,18 +110,20 @@ is the largest full buffer a step holds.
 The probe: ``make_probe_step(api, mesh, alpha=, stacked=)`` measures the
 landscape at the learners' mean over their superbatch with every vector
 sharded as the weights are, the Lanczos basis an (m + 1, T_local, 128)
-shard per rank through the reorth kernels; it keeps the whole-learner
-gather (a double backward through checkpointed collectives is not
-written).  The spec builders (``stacked_param_specs``,
-``train_state_specs``, ``train_state_shardings``) work on the meta
-device: nothing allocated.
+shard per rank through the reorth kernels.  Its HVPs gather the
+learner's whole weights (``gather="whole"``, reverse over reverse) or a
+section at a time (``gather="period"``: forward over reverse, a period
+at a time, ``launch/periodsweep.py``).  The spec builders
+(``stacked_param_specs``, ``train_state_specs``,
+``train_state_shardings``) work on the meta device: nothing allocated.
 
 Serving: ``make_prefill_step`` / ``make_decode_step`` wrap the model API,
 and with ``mesh=`` serve from a rank's shard store: the prefill runs the
 rank's rows of its learner's batch (``gather_rows`` assembles the
 learner's), the decode is sequence-sharded (each rank a slice of every
 attention buffer's time dim, one all_gather of softmax partials a layer;
-``make_decode_step``).
+the encoder-decoder's cross K/V cut on the encoder length too, a second
+all_gather a decoder layer; ``make_decode_step``).
 
 # lint: hot-path
 """
@@ -1037,7 +1039,8 @@ class _MeshProbe:
     all-reduced over the model group."""
 
     def __init__(self, api, mesh, alpha, stacked, lanczos_iters,
-                 hutchinson_samples, reorth, device):
+                 hutchinson_samples, reorth, gather, device):
+        from .periodsweep import PeriodSweep
         self.device = resolve_device(device)
         self.api, self.mesh, self.alpha = api, mesh, alpha
         self.stacked, self.reorth = stacked, reorth
@@ -1047,6 +1050,22 @@ class _MeshProbe:
         self.layout = ShardLayout(param_shapes(api), self.M, self.j)
         self.model = GroupComm(model_group(mesh), self.device)
         self.learners = GroupComm(learner_group(mesh), self.device)
+        # one model rank holds the whole learner: nothing to gather
+        self.gather = _check_gather(gather) if self.M > 1 else "whole"
+        self._sweep = (PeriodSweep(api, self.layout, self.model,
+                                   self.device)
+                       if self.gather == "period" else None)
+        self._whole_bytes = 0
+
+    @property
+    def max_full_bytes(self) -> int:
+        """The most full (unsharded) weight bytes a call held at once:
+        the learner's float32 store (``"whole"``), or the non-period
+        leaves' buffer and one period's (``"period"``); 0 before a
+        call."""
+        if self._sweep is not None:
+            return self._sweep.max_full_bytes
+        return self._whole_bytes
 
     def _owned(self, v: torch.Tensor) -> torch.Tensor:
         if self.j:
@@ -1059,6 +1078,20 @@ class _MeshProbe:
     def _local(self, tree) -> torch.Tensor:
         return self._owned(self.layout.flatten_local(tree,
                                                      device=self.device))
+
+    def _drawn(self, draw) -> torch.Tensor:
+        """A full float32 tree drawn leaf by leaf in tree order
+        (``draw(shape)``: ``tree_gaussian_like`` / ``tree_rademacher_like``
+        leaf by leaf), each leaf cut to this rank's shard as it is drawn:
+        ``_local`` of the whole tree's draw, without the whole tree."""
+        lay = self.layout
+        out = torch.zeros((lay.local.rows, LANE), device=self.device)
+        for x, shape, d, local in zip(lay.local.views(out), lay.full.shapes,
+                                      lay.dims, lay.local.shapes):
+            leaf = draw(shape)
+            x.copy_(leaf if d is None
+                    else leaf.narrow(d, self.j * local[d], local[d]))
+        return self._owned(out)
 
     def _full_tree(self, v_local):
         """The full tree (float32 views of a fresh full store) of a
@@ -1079,8 +1112,8 @@ class _MeshProbe:
 
     def __call__(self, params, batch, gen: Optional[torch.Generator] = None,
                  *, q0=None, probes=None):
-        from ..core.util import tree_gaussian_like, value_and_grad
-        from ..landscape.hvp import make_hvp_fn, tree_rademacher_like
+        from ..core.util import gaussian_leaf, value_and_grad
+        from ..landscape.hvp import make_hvp_fn, rademacher_leaf
         from ..landscape.lanczos import lanczos
         from ..landscape.predictor import predict_alpha_e
         from ..landscape.probe import ProbeResult
@@ -1089,7 +1122,9 @@ class _MeshProbe:
         T = lay.local.rows
         w = params.reshape(T, LANE).to(_F32)
         rows = _model_rows(batch, self.M, self.j)
-        self._stack = torch.zeros((self.M, T, LANE), device=dev)
+        sweep = self._sweep
+        if sweep is None:
+            self._stack = torch.zeros((self.M, T, LANE), device=dev)
         count = _token_count(rows)
         total = torch.clamp(self.model.all_reduce(count.reshape(1).clone()),
                             min=1.0)[0]
@@ -1103,19 +1138,26 @@ class _MeshProbe:
             w_a = self.learners.all_reduce(w.clone()) / n
         else:
             w_a = w.clone()
-        _, w_tree = self._full_tree(w_a)
         pft = self.api.params_from_tree
-        with use_mesh(self.mesh):
-            matvec = make_hvp_fn(weighted, w_tree,
-                                 tree_map(lambda x: x[None], rows),
-                                 params_from_tree=pft)
-
-        def hv(v):
-            _, v_tree = self._full_tree(v)
-            out = torch.zeros((lay.full.rows, LANE), device=dev)
+        if sweep is None:
+            _, w_tree = self._full_tree(w_a)
+            self._whole_bytes = lay.full.rows * LANE * 4
             with use_mesh(self.mesh):
-                matvec(v_tree, out=lay.full.view_tree(out))
-            return self.learners.all_reduce(self._reduce_full(out)) / n
+                matvec = make_hvp_fn(weighted, w_tree,
+                                     tree_map(lambda x: x[None], rows),
+                                     params_from_tree=pft)
+
+            def hv(v):
+                _, v_tree = self._full_tree(v)
+                out = torch.zeros((lay.full.rows, LANE), device=dev)
+                with use_mesh(self.mesh):
+                    matvec(v_tree, out=lay.full.view_tree(out))
+                return self.learners.all_reduce(self._reduce_full(out)) / n
+        else:
+            def hv(v):
+                with use_mesh(self.mesh):
+                    out = sweep(w_a, rows, share, v)
+                return self.learners.all_reduce(out) / n
 
         zero = torch.zeros((), dtype=_F32, device=dev)
         if self.stacked:
@@ -1130,29 +1172,41 @@ class _MeshProbe:
             sig_sq = t_hc = zero
 
         # the learners' gradients at w_a, their mean and spread
-        with use_mesh(self.mesh):
-            _, g_tree = value_and_grad(weighted, w_tree, rows, pft)
-        g_i = self._reduce_full(lay.full.flatten(g_tree).reshape(-1, LANE))
+        if sweep is None:
+            with use_mesh(self.mesh):
+                _, g_tree = value_and_grad(weighted, w_tree, rows, pft)
+            g_i = self._reduce_full(lay.full.flatten(g_tree)
+                                    .reshape(-1, LANE))
+        else:
+            with use_mesh(self.mesh):
+                g_i = sweep(w_a, rows, share)
         g0 = self.learners.all_reduce(g_i.clone()) / n
         g_norm_sq = self._dot(g0, g0)
         dev_sq = self.learners.all_reduce(
             self._dot(g_i - g0, g_i - g0).reshape(1))[0]
         gns = dev_sq / max(n - 1, 1) / torch.clamp_min(g_norm_sq, 1e-30)
 
-        if q0 is None:
-            if gen is None:
-                gen = torch.Generator(device=dev).manual_seed(0)
-            q0 = tree_gaussian_like(gen, w_tree, 1.0)
-        res = lanczos(hv, self._local(q0), self.m, reorth=self.reorth,
+        if q0 is None and gen is None:
+            gen = torch.Generator(device=dev).manual_seed(0)
+        if q0 is not None:
+            q0 = self._local(q0)
+        else:
+            q0 = self._drawn(lambda shape: gaussian_leaf(gen, shape, _F32,
+                                                         1.0))
+        res = lanczos(hv, q0, self.m, reorth=self.reorth,
                       reduce=lambda t: self.model.all_reduce(t))
         lam = res.eigenvalues[-1]
         del res
-        if probes is None:
-            probes = [tree_rademacher_like(gen, w_tree)
+        if probes is not None:
+            probes = [self._local(z) for z in probes]
+        else:
+            probes = [self._drawn(lambda shape: rademacher_leaf(gen, shape))
                       for _ in range(self.n_hutch)]
-        t_h = torch.mean(torch.stack([
-            self._dot(z, hv(z)) for z in map(self._local, probes)]))
-        del self._stack
+        t_h = torch.mean(torch.stack([self._dot(z, hv(z)) for z in probes]))
+        if sweep is None:
+            del self._stack
+        else:
+            sweep.release()
         return ProbeResult(
             sharpness=lam, trace_h=t_h, trace_hc=t_hc, sigma_w_sq=sig_sq,
             grad_norm=torch.sqrt(g_norm_sq), gns=gns,
@@ -1161,7 +1215,8 @@ class _MeshProbe:
 
 def make_probe_step(api: ModelAPI, mesh, *, alpha: float, stacked: bool,
                     lanczos_iters: int = 8, hutchinson_samples: int = 4,
-                    reorth: str = "auto", device=None) -> Callable:
+                    reorth: str = "auto", gather: str = "whole",
+                    device=None) -> Callable:
     """``probe(params, batch, gen=None, *, q0=None, probes=None) ->
     landscape.ProbeResult`` on the mesh, every rank calling: ``params``
     is this rank's (1, T_local, 128) shard store (a DPSGD / AD-PSGD
@@ -1171,19 +1226,34 @@ def make_probe_step(api: ModelAPI, mesh, *, alpha: float, stacked: bool,
     The measurement is the reference's ``probe_landscape`` at the
     learners' mean w_a (an ``all_reduce`` over the learner group) over
     the superbatch of the learners' batches: an HVP is each rank's HVP of
-    its rows (weighted in its learner's mean loss) on the gathered full
-    weights, reduce-scattered over the model group and all-reduced over
-    the learners.  The Lanczos basis is each rank's (m + 1, T_local, 128)
+    its rows (weighted in its learner's mean loss) on the learner's
+    weights, summed over the model group and all-reduced over the
+    learners.  The Lanczos basis is each rank's (m + 1, T_local, 128)
     shard, reorthogonalized through kernels #4 / #5 (``reorth``; the
     dots all-reduced over the model group between the dots and the axpy
     of each CGS2 sweep).  ``Tr(HC)`` all-gathers the learners' shards
     over the learner group (n shards at once, transient).
     ``stacked=False`` (SSGD, a single replica): the spread terms are 0.
+
+    ``gather``: ``"whole"`` gathers w_a's full tree once and each HVP's
+    vector whole, and differentiates reverse over reverse
+    (``landscape/hvp.py``); ``"period"`` keeps at most the non-period
+    leaves and one period full on a rank: each gradient and HVP is a
+    forward-over-reverse sweep a section at a time
+    (``launch/periodsweep.py``), its result reduced section by section
+    into the rank's shard.  It raises ``ValueError`` for a model it
+    cannot sweep (no stacked periods: the encoder-decoder;
+    ``use_pallas``; ``moe_backend="shard_map"``).  Over one model rank
+    both are ``"whole"``.  ``probe.max_full_bytes`` is the most full
+    weight bytes a call held at once.
+
     ``gen`` draws the Lanczos start vector, then the Hutchinson probes,
-    as full trees on every rank alike; ``q0`` / ``probes`` (full trees)
+    leaf by leaf in tree order as full-tree draws (``"period"`` cuts
+    each leaf to the rank's shard as it is drawn: the same draws on
+    every rank, and in either mode); ``q0`` / ``probes`` (full trees)
     replace the draws."""
     return _MeshProbe(api, mesh, alpha, stacked, lanczos_iters,
-                      hutchinson_samples, reorth, device)
+                      hutchinson_samples, reorth, gather, device)
 
 
 # ---------------------------------------------------------------------------
@@ -1216,6 +1286,23 @@ def param_shapes(api: ModelAPI):
         with torch.device("meta"), _OnMeta():
             tree = _SHAPES[api.cfg] = cpu.param_tree(cpu.init(0))
     return tree
+
+
+def decode_cache_shapes(api: ModelAPI, batch: int, buf_len: int,
+                        enc_len: int = 0):
+    """The rotating decode cache of ``batch`` sequences on the meta
+    device, as ``api.init_cache`` lays it out: the audio family's from
+    ``enc_len`` frames encoded on ``param_shapes``."""
+    from ..models.layers import dtype_of
+    from ..models.transformer import init_cache
+    cfg = api.cfg
+    if cfg.family != "audio":
+        return init_cache(cfg, batch, buf_len, "meta")
+    frames = torch.empty((batch, enc_len, cfg.d_model),
+                         dtype=dtype_of(cfg.param_dtype), device="meta")
+    with torch.no_grad():
+        return api.init_cache(api.params_from_tree(param_shapes(api)),
+                              frames, buf_len)
 
 
 def _meta_like(x, lead=()):
@@ -1306,16 +1393,17 @@ class _MeshServe:
     of the learner."""
 
     def __init__(self, api: ModelAPI, mesh, gather: str, device):
-        if api.cfg.family == "audio":
-            raise ValueError(
-                "the audio family's encoder-decoder does not run under a "
-                "model axis (its cross-attention caches wait; ROADMAP)")
         self.device = resolve_device(device)
         self.api, self.mesh = api, mesh
         self.gather = _check_gather(gather)
         self.M, self.j = model_size(mesh), model_rank(mesh)
         self.n, self.learner = n_learners(mesh), learner_rank(mesh)
         self.layout = ShardLayout(param_shapes(api), self.M, self.j)
+        if self.gather == "period" and not self.layout.n_periods:
+            raise ValueError(
+                f"gather='period' does not serve {api.cfg.name}: its tree "
+                "has no stacked periods (an encoder-decoder's layers are "
+                "not periods)")
         self.comm = GroupComm(model_group(mesh), self.device)
         self._gatherer = LearnerGather(self.layout, self.comm, self.device)
         self._src = self._params = None
@@ -1375,19 +1463,32 @@ class _MeshDecode(_MeshServe):
         self.seq_comm = GroupComm(model_group(mesh), self.device)
         self._state_dims = None
 
-    def init_cache(self, batch: int, buf_len: int):
+    def init_cache(self, batch: int, buf_len: int, *, store=None,
+                   frames=None):
         """This rank's shard of the rotating decode cache of ``batch``
         sequences (the whole fleet's: each learner serves batch / L of
         them) as ``cache_sharding`` places it: the batch dim over the
         learners, an attention buffer's time dim over ``model`` (W / M
         rows; a windowed layer's own W = min(buf_len, window)), a
         recurrent state's feature dim over ``model``, ``slot_pos``
-        whole.  A batch the learners do not split, or a buffer the model
-        ranks do not, raises ``ValueError``."""
-        from ..models.transformer import init_cache
+        whole.  The audio family's cache encodes the learner's ``frames``
+        (its B / L rows) on the weights of ``store`` (this rank's shard
+        store): ``_encode`` leaves the rank the cross K/V of every one of
+        the learner's rows over its slice of the encoder length, S_enc /
+        M positions.  A batch the learners do not split, or a buffer or
+        an encoder length the model ranks do not, raises
+        ``ValueError``."""
         from ..tree import tree_flatten_with_path, tree_leaves
         from .sharding import cache_sharding, spec_dim
-        full = init_cache(self.api.cfg, batch, buf_len, "meta")
+        audio = self.api.cfg.family == "audio"
+        if audio != (frames is not None) or audio != (store is not None):
+            raise ValueError("the audio family's cache takes store= and "
+                             "frames= (the learner's), and only it does")
+        if audio and frames.shape[0] * self.n != batch:
+            raise ValueError(f"frames of {frames.shape[0]} rows are not a "
+                             f"learner's share of {batch} sequences")
+        full = decode_cache_shapes(self.api, batch, buf_len,
+                                   frames.shape[1] if audio else 0)
         specs = tree_leaves(cache_sharding(full, self.mesh))
         out, dims = {}, {}
         for (path, x), spec in zip(tree_flatten_with_path(full), specs):
@@ -1402,19 +1503,58 @@ class _MeshDecode(_MeshServe):
                 raise ValueError(f"a batch of {batch} sequences does not "
                                  f"split over {self.n} learners")
             shape[1] //= self.n
-            if name in ("k", "v") and self.M > 1 and d != 2:
+            if name in _BUFFERS and self.M > 1 and d != 2:
+                what = ("an encoder length of" if name in ("xk", "xv")
+                        else "a buffer of")
                 raise ValueError(
-                    f"{layer}: a buffer of {shape[2]} rows does not split "
+                    f"{layer}: {what} {shape[2]} rows does not split "
                     f"over {self.M} model ranks")
             if d is not None:
                 shape[d] //= self.M
-            if name not in ("k", "v"):
+            if name not in _BUFFERS:
                 dims.setdefault(layer, {})[name] = (None if d is None
                                                     else d - 1)
             out.setdefault(layer, {})[name] = torch.zeros(
                 shape, dtype=x.dtype, device=self.device)
         self._state_dims = dims
+        if audio:
+            self._encode(out["cross"], store, frames)
         return out
+
+    def _encode(self, cross, store, frames) -> None:
+        """The learner's cross K/V, cut over the model ranks on the encoder
+        length: model rank j encodes its B / (L M) rows of ``frames``
+        (``_model_rows``) on the gathered weights and computes their cross
+        K/V for every decoder layer over the whole encoder length, straight
+        into a send buffer (M, 2, n_layers, rows, S_enc / M, KV, hd) whose
+        slot m is the slice model rank m keeps; one all-to-all over the
+        model group (``moe_shardmap.all_to_all``, raw bytes; it counts
+        its calls) gives this rank slot j of every rank's rows, written
+        into ``cross``.  The rank holds its own rows' K/V at full length
+        and the received slices, never the learner's whole cross
+        cache."""
+        from ..models.encdec import cross_kv, encode
+        from ..models.moe_shardmap import all_to_all
+        cfg, M = self.api.cfg, self.M
+        params = self.params(store)
+        xk = cross["xk"]
+        nl, b, s = xk.shape[0], xk.shape[1], xk.shape[2]
+        with torch.no_grad():
+            memory = encode(params, cfg, _model_rows(frames, M, self.j))
+            rows = memory.shape[0]
+            send = torch.empty((M, 2, nl, rows) + tuple(xk.shape[2:]),
+                               dtype=xk.dtype, device=self.device)
+            for l, lp in enumerate(params.dec_layers):
+                for t, kv in enumerate(cross_kv(lp, cfg, memory)):
+                    send[:, t, l].copy_(kv.unflatten(1, (M, s))
+                                        .movedim(1, 0))
+            del memory
+            recv = (send if M == 1
+                    else all_to_all(send, model_group(self.mesh)))
+            del send
+            for t, name in enumerate(("xk", "xv")):
+                cross[name].view((nl, M, b // M) + tuple(xk.shape[2:])) \
+                    .copy_(recv[:, t].movedim(0, 1))
 
     def merge(self, m, lsum, o):
         part = torch.cat([o, m[..., None], lsum[..., None]], dim=-1)
@@ -1456,11 +1596,16 @@ class _MeshDecode(_MeshServe):
                 cc[n].copy_(full[n].narrow(d, self.j * k, k))
 
     def __call__(self, params, cache, tokens, pos):
-        from ..models.transformer import decode_step
+        from ..models import encdec, transformer
         if self._state_dims is None:
             raise ValueError("build the cache with step.init_cache")
-        return decode_step(self.params(params), self.api.cfg, cache, tokens,
-                           pos, seq_shard=self)
+        family = encdec if self.api.cfg.family == "audio" else transformer
+        return family.decode_step(self.params(params), self.api.cfg, cache,
+                                  tokens, pos, seq_shard=self)
+
+
+# a decode cache's attention buffers: cut on their time dim over ``model``
+_BUFFERS = ("k", "v", "xk", "xv")
 
 
 def make_prefill_step(api: ModelAPI, mesh=None, *, gather: str = "whole",
@@ -1473,7 +1618,10 @@ def make_prefill_step(api: ModelAPI, mesh=None, *, gather: str = "whole",
     ``api.apply`` on the gathered weights (``gather``: ``"whole"`` once,
     ``"period"`` a period at a time each call) and returns their logits;
     ``gather_rows`` assembles the learner's.  A ``use_pallas`` config's
-    attention runs through the flash kernel on each rank's rows."""
+    attention runs through the flash kernel on each rank's rows.  The
+    audio family serves ``{"frames", "tokens"}`` rows the same way;
+    ``gather="period"`` raises ``ValueError`` for it (its tree has no
+    stacked periods)."""
     if mesh is None:
         def prefill(params, batch):
             return api.apply(params, batch)
@@ -1501,7 +1649,18 @@ def make_decode_step(api: ModelAPI, mesh=None, *, gather: str = "whole",
     the whole state for the update, and the rank keeps its slice of the
     new one.  So a step's collectives (``step.seq_comm``) are one a layer
     with attention or a sharded state; the weights' gathers count on
-    ``step.comm``.  The audio family raises ``ValueError``."""
+    ``step.comm``.
+
+    The audio family (seamless-m4t-large-v2's encoder-decoder):
+    ``step.init_cache(batch, buf_len, store=, frames=)`` encodes the
+    learner's frames, each model rank its rows, and one all-to-all over
+    the model group leaves each rank its slice of the encoder length for
+    all of the learner's rows (``cache_sharding``'s placement of ``xk`` /
+    ``xv``); a decoder layer then merges two attentions' partials, the
+    self-attention's over the rank's slice of the buffer and the
+    cross-attention's over its slice of the encoder length: two
+    collectives a decoder layer a step.  ``gather="period"`` raises
+    ``ValueError`` for it (its tree has no stacked periods)."""
     if mesh is None:
         def decode(params, cache, tokens, pos):
             return api.decode_step(params, cache, tokens, pos)

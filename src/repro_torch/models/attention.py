@@ -257,6 +257,32 @@ def attn_decode_sharded(params: AttnParams, cache, x, pos: int, *,
     return out, cache
 
 
+def attn_cross_decode_sharded(params: AttnParams, xk, xv, x, pos: int, *,
+                              n_heads: int, n_kv: int, head_dim: int,
+                              rope_fn: Optional[Callable], merge: Callable):
+    """``encdec.decode_step``'s cross-attention with the encoder length
+    cut over ranks: ``xk`` / ``xv`` are this rank's (B, S_enc / size, KV,
+    hd) slice of the memory's K/V.  Every memory row is live, so there is
+    no mask: the rank's scores give float32 partials (row max m, sum l of
+    exp(s - m), unnormalized output o), and ``merge(m, l, o)`` combines
+    the ranks' (``merge_partials``) into the (B, KV, G, hd) output.  Over
+    one rank it is the einsum softmax of ``decode_step``.  Returns (B, 1,
+    d)."""
+    B = x.shape[0]
+    q = (x @ params.wq).reshape(B, 1, n_heads, head_dim)
+    if rope_fn is not None:
+        q = rope_fn(q, torch.full((1,), pos, dtype=torch.int32,
+                                  device=x.device))
+    qg = q.reshape(B, n_kv, n_heads // n_kv, head_dim)
+    s = torch.einsum("bkgd,bwkd->bkgw", qg.float(),
+                     xk.float()) * head_dim ** -0.5
+    m = torch.amax(s, dim=-1)
+    p = torch.exp(s - m[..., None])
+    o = torch.einsum("bkgw,bwkd->bkgd", p, xv.float())
+    out = merge(m, torch.sum(p, dim=-1), o)
+    return out.reshape(B, 1, n_heads * head_dim).to(x.dtype) @ params.wo
+
+
 def merge_partials(parts: torch.Tensor) -> torch.Tensor:
     """The ranks' decode partials, (size, B, KV, G, hd + 2) float32 [o, m,
     l], combined in rank order: sum_r e^(m_r - M) o_r / sum_r e^(m_r - M)

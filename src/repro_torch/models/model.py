@@ -89,6 +89,39 @@ def _text_spec(B: int, S: int):
             "tokens": ((B, S), torch.int32)}
 
 
+def _n_patches(cfg: ModelConfig) -> int:
+    return cfg.n_frontend_tokens if cfg.family == "vlm" else 0
+
+
+def _text_positions(cfg: ModelConfig, batch):
+    """The positions a text (or vlm) batch runs at: 0..S-1 (each of t, h,
+    w under M-RoPE), a vlm's patches and text at their M-RoPE ids."""
+    S, dev = batch["tokens"].shape[1], batch["tokens"].device
+    P = _n_patches(cfg)
+    if P:
+        return _mrope_positions(cfg, P, S, dev)
+    pos = torch.arange(S, device=dev)
+    return pos.expand(3, -1) if cfg.mrope_sections else pos
+
+
+def _text_embed(params, cfg: ModelConfig, batch):
+    """The input embeddings (B, P + S, d): a vlm's patch embeddings, then
+    the tokens'.  ``params``: anything with ``embed``."""
+    x = transformer.embed_tokens(params, cfg, batch["tokens"])
+    if _n_patches(cfg):
+        x = torch.cat([batch["patch_embeds"].to(x.dtype), x], dim=1)
+    return x
+
+
+def _text_loss(params, cfg: ModelConfig, x, batch):
+    """The masked cross-entropy over the text of the final hidden states
+    ``x``.  ``params``: anything with ``embed``, ``final_norm``,
+    ``lm_head``."""
+    logits = transformer.logits_from_hidden(params, cfg, x)
+    return cross_entropy(logits[:, _n_patches(cfg):], batch["labels"],
+                         batch.get("mask"), logical_vocab=cfg.vocab)
+
+
 def build_model(cfg: ModelConfig, device=None) -> ModelAPI:
     dev = resolve_device(device)
     act_dt = dtype_of(cfg.compute_dtype)
@@ -106,17 +139,17 @@ def build_model(cfg: ModelConfig, device=None) -> ModelAPI:
         gen = torch.Generator(device=dev).manual_seed(seed)
         return transformer.init_params(cfg, gen)
 
+    def hidden(params, batch):
+        return transformer.forward(params, cfg, _text_embed(params, cfg,
+                                                            batch),
+                                   _text_positions(cfg, batch))
+
     if cfg.family == "vlm":
         P = cfg.n_frontend_tokens
 
         def apply(params, batch):
-            pos = _mrope_positions(cfg, P, batch["tokens"].shape[1], dev)
-            return transformer.apply(params, cfg, batch["tokens"],
-                                     positions=pos,
-                                     extra_embeds=batch["patch_embeds"])
-
-        def logits_for_loss(params, batch):
-            return apply(params, batch)[:, P:]
+            return transformer.logits_from_hidden(params, cfg,
+                                                  hidden(params, batch))
 
         def train_batch_spec(global_batch, seq):
             return {**_text_spec(global_batch, seq - P),
@@ -126,14 +159,12 @@ def build_model(cfg: ModelConfig, device=None) -> ModelAPI:
         def apply(params, batch):
             return transformer.apply(params, cfg, batch["tokens"])
 
-        logits_for_loss = apply
-
         def train_batch_spec(global_batch, seq):
             return _text_spec(global_batch, seq)
 
     def loss_fn(params, batch):
-        return cross_entropy(logits_for_loss(params, batch), batch["labels"],
-                             batch.get("mask"), logical_vocab=cfg.vocab)
+        # period_loss's post(body(... pre(batch))) over the periods
+        return _text_loss(params, cfg, hidden(params, batch), batch)
 
     def init_cache(params, batch_size, buf_len):
         return transformer.init_cache(cfg, batch_size, buf_len, dev)
@@ -163,6 +194,53 @@ def build_model(cfg: ModelConfig, device=None) -> ModelAPI:
                     param_tree=convert.transformer_tree,
                     params_from_tree=params_from_tree,
                     train_batch_spec=train_batch_spec, has_paged=paged)
+
+
+class PeriodLoss(NamedTuple):
+    """A transformer-family model's ``loss_fn`` cut at its period
+    boundaries, each piece a function of plain tensors (``torch.func``
+    transforms them): ``positions(batch)``; ``pre(rest, batch) -> x0``
+    (the embedding, and a vlm's patch embeddings before it); ``body(period,
+    x, positions) -> x`` (one period); ``post(rest, x, batch) -> loss``
+    (final norm, head, the masked cross-entropy over the text).  ``rest``
+    is the tree's non-period leaves ({"embed", "final_norm"[,
+    "lm_head"]}), ``period`` one period's tree (leaves without the period
+    dim).  ``post(rest, body(...body(pre(rest, b))...), b)`` over the
+    periods in order is ``loss_fn`` on the same leaves."""
+    positions: Callable
+    pre: Callable
+    body: Callable
+    post: Callable
+
+
+def period_loss(cfg: ModelConfig) -> PeriodLoss:
+    """``PeriodLoss`` of a transformer-family ``cfg`` (text or vlm): the
+    pieces ``build_model``'s ``loss_fn`` is made of."""
+    from types import SimpleNamespace
+    from .convert import period_layers
+    if cfg.family == "audio":
+        raise ValueError(f"{cfg.name}: an encoder-decoder has no periods")
+    rope_fn = transformer.make_rope_fn(cfg)
+
+    def head(rest):
+        return SimpleNamespace(embed=rest["embed"],
+                               final_norm=rest["final_norm"],
+                               lm_head=rest.get("lm_head"))
+
+    def positions(batch):
+        return _text_positions(cfg, batch)
+
+    def pre(rest, batch):
+        return _text_embed(head(rest), cfg, batch)
+
+    def body(period, x, pos):
+        return transformer._period_forward(period_layers(period), x, cfg,
+                                           rope_fn, pos)
+
+    def post(rest, x, batch):
+        return _text_loss(head(rest), cfg, x, batch)
+
+    return PeriodLoss(positions, pre, body, post)
 
 
 def _audio(cfg: ModelConfig, dev, act_dt) -> ModelAPI:

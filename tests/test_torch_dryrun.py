@@ -12,7 +12,11 @@ specs on ``jax.eval_shape`` shapes, with no compile and no device.
     ``cache_sharding``, and the analytic terms equal the reference's
     ``analytic.*``;
   * seamless-m4t-large-v2 x long_500k is skipped with the reference's
-    reason;
+    reason; its decode_32k counts the sequence-sharded decode's flops
+    (each rank's slice of the self-attention buffer and of the cross K/V
+    on the meta device), and its cache's per-rank bytes equal the
+    reference's ``cache_sharding`` of its ``init_cache`` over 4,096 stub
+    frames;
   * mistral-large-123b's train_4k on one pod: gathering the whole learner
     holds more than a card's 80 GB a rank, one period at a time less than
     a fiftieth of that;
@@ -162,6 +166,24 @@ def test_seamless_long_500k_is_skipped_with_the_reference_reason(tmp_path):
                                           "long_500k")]
     written = json.loads((tmp_path / f"{rec['name']}.json").read_text())
     assert written == rec
+
+
+def test_seamless_decode_is_counted_on_its_sharded_caches():
+    arch, shape = "seamless-m4t-large-v2", "decode_32k"
+    rec = dryrun.build_record(arch, shape, multi_pod=False, algo="dpsgd")
+    assert rec["counted_flops_per_chip"] > 0
+    assert "counted_flops_skipped" not in rec
+    cfg = jcfgs.get_config(arch)
+    api = jbuild(cfg)
+    mesh = _mesh(False)
+    seq, gb, _ = jcfgs.SHAPES[shape]
+    params = jax.eval_shape(api.init, jax.random.PRNGKey(0))
+    frames = jax.ShapeDtypeStruct((gb, dryrun.AUDIO_ENC_LEN, cfg.d_model),
+                                  jax.numpy.bfloat16)
+    cache = jax.eval_shape(lambda p, f: api.init_cache(
+        p, f, dryrun.decode_buf_len(cfg, seq)), params, frames)
+    want = _spec_bytes(cache, jshd.cache_sharding(cache, mesh), mesh.shape)
+    assert rec["resident_bytes"]["cache"] == want
 
 
 def test_the_reference_skips_the_same_pairs():
