@@ -45,7 +45,10 @@ Phases (any failure raises and the script exits non-zero):
      request must finish with its budget, every logit must be finite, the
      attention kernel must have launched 12 times per engine step, and the
      first 2 steps' logits must match the port on the CPU (plain versions,
-     same weights);
+     same weights); then an open-loop drive of 4 requests arriving at
+     fixed engine steps, ``idle_tick`` between them, where no idle tick
+     may launch a kernel and every request's tokens must equal the same
+     requests served closed-loop;
   3b. gemma2-27b served the same way at full width, depth cut to one
      local/global period (2 layers, 2.31 B bf16 parameters, bf16 K/V
      pools): 8 slots, page 16, max_len 640, 16 requests of 32-512 prompt
@@ -93,10 +96,14 @@ Phases (any failure raises and the script exits non-zero):
      no live key (Sq 256 > Sk 128 + window 64), gemma2's heads and masks in
      float32 with q scaled so the softcap binds, ragged bf16 lengths (Sq =
      Sk = 100; Sq 100, Sk 37) and bf16 at hd 64, ragged float32 lengths
-     at hd 32, 64 and 128 (the same two masks) and ragged bf16 at hd 32 —
+     at hd 32, 64 and 128 (the same two masks) and ragged bf16 at hd 32,
+     and head dims the kernels take zero-padded or at their widest
+     instance (float32 hd 96 with GQA, float32 hd 256 with window and a
+     binding softcap, bf16 hd 256, bf16 hd 80 on the tensor cores) —
      float32 within the reference's tiers, bf16 within one bf16 ulp of
      each value — then, at gemma2's prefill shapes (S = 8,192, global and
-     local) and the training shape, the same comparison, its time, the
+     local), the training shape and a float32 hd-256 shape (H 16, S
+     2,048), the same comparison, its time, the
      plain version's, SDPA's where one call computes the same function
      (also at granite-moe's 4,096-token and jamba's 8,192-token prefill
      layers, jamba's SDPA with a causal-window mask)
@@ -140,7 +147,13 @@ Phases (any failure raises and the script exits non-zero):
      gap_bound``; Table 4, Fig. 4 and Table 5 (the ASR proxy: 100 zipf
      classes, SSGD against DPSGD at lr 0.25, 0.5 and 1.0, 120 steps; both
      converge at 0.25, as the reference's own run does), each printing its
-     ``derived`` line and its gossip launches;
+     ``derived`` line and its gossip launches; the twin of
+     ``examples/paper_mnist_repro.py`` at its full settings (5 x 400, lr
+     0.5, 150 steps of SSGD, SSGD* and DPSGD, a CSV row every 10 steps):
+     150 gossip launches for DPSGD and none for SSGD or SSGD*, every field
+     finite, test accuracy in [0, 1], and the reference's CPU verdict:
+     SSGD above 1 with accuracy below 0.5 at step 140, SSGD* and DPSGD
+     below 1e-2 with accuracy at least 0.99;
  11. granite-moe-3b-a800m at full width, 12 of its 32 layers (40
      experts top-8, 1.3 B bf16 parameters from a seeded torch.Generator)
      served as phase 3b serves gemma2 (12 decode launches a step; logits
@@ -326,6 +339,11 @@ import torch
 SEED = 0
 N_SLOTS, PAGE, MAX_LEN = 8, 16, 256
 N_REQUESTS = 16
+# phase 3's open-loop drive: the first requests' engine arrival steps (two
+# overlapping, a gap the engine idles through, two more), each request cut
+# to a short prompt and budget
+OPEN_LOOP_ARRIVALS = (0, 2, 60, 64)
+OPEN_LOOP_PROMPT, OPEN_LOOP_NEW = 12, 8
 CPU_STEPS = 2
 KERNEL_ATOL = 1e-5
 # logits over 12 float32 layers on the card against the CPU: the sums run
@@ -370,6 +388,12 @@ TABLE1_SCALE, TABLE1_STEPS = 4, 120     # nB = 2000, lr = 0.5
 # length, so it runs the twin's --smoke length (130 to PR 22; cut for the
 # run's time when phase 17 grew in PR 23)
 ABLATION_STEPS = 40
+# phase 10's paper_mnist_repro twin at its full settings: the verdict of
+# the reference example's own run on the CPU, at its last row (step 140:
+# SSGD loss 1.7562, accuracy 0.275; SSGD* 0.0009 and DPSGD 0.0005, both
+# 1.000): SSGD above the first pair, SSGD* and DPSGD inside the second
+MNIST_FAIL_LOSS, MNIST_FAIL_ACC = 1.0, 0.5
+MNIST_OK_LOSS, MNIST_OK_ACC = 1e-2, 0.99
 # flash attention. float32: the reference's own sweep tiers
 # (tests/test_kernels.py) — the sums run in another order than the plain
 # version's einsum, so 2e-6 holds to S = 256 and 1e-5 above. bf16: both
@@ -417,6 +441,19 @@ FLASH_CASES = [   # (name, B, H, KV, hd, Sq, dtype, mask, Sk or None, q scale)
      37, 1.0),
     ("p_ragged_bf16_hd32", 1, 4, 2, 32, 100, _BF16,
      dict(causal=True, window=32, attn_softcap=50.0), None, 1.0),
+    # every head dim up to 256: float32 hd 96 (zero-padded to the hd-128
+    # instance, GQA); float32 hd 256 (the widest instance) with window and
+    # softcap, q scaled by 8 so the cap binds (checked as case f's);
+    # bf16 hd 256 (the float32 kernel's bf16 instance); bf16 hd 80
+    # (padded to 128, the tensor-core kernel)
+    ("q_f32_hd96_gqa", 1, 8, 2, 96, 256, _F32, dict(causal=True), None,
+     1.0),
+    ("r_f32_hd256_softcap_binds", 1, 8, 4, 256, 512, _F32,
+     dict(causal=True, window=128, attn_softcap=50.0), None, 8.0),
+    ("s_bf16_hd256", 1, 8, 4, 256, 512, _BF16,
+     dict(causal=True, attn_softcap=50.0), None, 1.0),
+    ("t_bf16_hd80_tc", 1, 8, 2, 80, 512, _BF16,
+     dict(causal=True, window=128), None, 1.0),
 ]
 # the cap's effect on case f's plain output, in units of its tolerance
 FLASH_CAP_EFFECT_MIN = 100.0
@@ -467,6 +504,9 @@ FLASH_TIMED = {   # (B, H, KV, hd, S, dtype, mask, library call or None)
                             "sdpa"),
     "jamba_prefill": (1, 32, 8, 128, 8192, _BF16,
                       dict(causal=True, window=4096), "sdpa_window"),
+    # the float32 kernel's hd-256 instance: 16 heads of 256,
+    # as gemma-7b's, causal, float32
+    "hd256_f32": (1, 16, 16, 256, 2048, _F32, dict(causal=True), "sdpa"),
 }
 # transformer-100m with use_pallas against phase 4's chunked route
 FLASH_TRAIN_WARM, FLASH_TRAIN_TIMED, FLASH_TRAIN_PROF = 2, 4, 2
@@ -1151,7 +1191,7 @@ def requests(vocab, n_requests=N_REQUESTS, prompt=(8, 128), new=(16, 64)):
 
 
 def serve_model(cfg, jobs, n_slots, page, max_len, compare, n_prof,
-                kernels, capture_at=()):
+                kernels, capture_at=(), open_loop=False):
     """Serve ``jobs`` through ``ServeEngine`` on the card, then the same
     weights and requests for CPU_STEPS steps on the CPU (plain versions);
     ``compare(card logits, cpu logits)`` returns the step's error and
@@ -1164,7 +1204,8 @@ def serve_model(cfg, jobs, n_slots, page, max_len, compare, n_prof,
     ``capture_at`` keep their inputs, on which the kernel is then held
     against its plain version (decode_error's tier).  A MoE model adds its
     MoE layers' device time a step, a model with recurrent state the
-    advance-mask and ``reset_slot`` checks on the served cache.  The
+    advance-mask and ``reset_slot`` checks on the served cache;
+    ``open_loop`` adds ``open_loop_drive`` on the same weights.  The
     counts of ``kernels`` are set to 0 just before the served run and read
     just after it.  Returns (record, decode kernel launches)."""
     from repro_torch.kernels import ops
@@ -1356,6 +1397,9 @@ def serve_model(cfg, jobs, n_slots, page, max_len, compare, n_prof,
             extra["moe_step"] = moe_profile(api, params, n_slots)
         if any(name not in PAGED for c in eng.cache.values() for name in c):
             extra["recurrent_state"] = recurrent_checks(eng, api, params)
+        if open_loop:
+            extra["open_loop"] = open_loop_drive(
+                api, params, jobs, n_slots, page, max_len, n_attn, kernels)
     finally:
         moe.route = pin.fn
         transformer._layer_decode_paged = layers.fn
@@ -1390,6 +1434,90 @@ def serve_model(cfg, jobs, n_slots, page, max_len, compare, n_prof,
     }, launches
 
 
+def open_loop_drive(api, params, jobs, n_slots, page, max_len, n_attn,
+                    kernels):
+    """The open-loop serving loop of ``benchmarks/serving.py`` on the
+    served weights: ``jobs``' first requests, cut to short prompts and
+    budgets, each submitted when the engine clock reaches its arrival
+    step; ``step`` while the engine has work, ``idle_tick`` otherwise.  The
+    counts of ``kernels`` are set to 0 just before the drive and read just
+    after it: no idle tick may launch a kernel, and the decode kernel
+    launches once per attention layer and model step.  The same requests
+    submitted together and run closed-loop must give every request the
+    same tokens."""
+    from repro_torch.kernels.decode_attention import \
+        paged_decode_attention_fwd as kernel
+    from repro_torch.serve import ServeEngine
+
+    jobs = [(p[:OPEN_LOOP_PROMPT], min(m, OPEN_LOOP_NEW))
+            for p, m in jobs[:len(OPEN_LOOP_ARRIVALS)]]
+
+    def engine():
+        e = ServeEngine(api, params, n_slots=n_slots, page_size=page,
+                        max_len=max_len)
+        e.warmup()
+        return e
+
+    eng = engine()
+    for k in kernels:
+        k.launches = 0
+    pending = list(zip(OPEN_LOOP_ARRIVALS, jobs))
+    reqs, idle, idle_launches, busy = [], 0, 0, []
+    t0 = time.perf_counter()
+    while pending or eng.has_work:
+        while pending and pending[0][0] <= eng.step_count:
+            _, (prompt, max_new) = pending.pop(0)
+            reqs.append(eng.submit(prompt, max_new))
+        if eng.has_work:
+            eng.step()
+            busy.append(eng.active_slots)
+        else:
+            before = sum(k.launches for k in kernels)
+            eng.idle_tick()
+            idle += 1
+            idle_launches += sum(k.launches for k in kernels) - before
+        check(eng.step_count < 10 * max_len, "open-loop drive wedged")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = {k.__name__: k.launches for k in kernels}
+    launches = launched[kernel.__name__]
+    check(idle > 0 and idle_launches == 0,
+          f"open loop: {idle} idle ticks launched {idle_launches} kernels")
+    check(launches == eng.real_steps * n_attn,
+          f"open loop: decode launches {launches} != {eng.real_steps} "
+          f"steps x {n_attn} layers")
+    check(all(v == 0 for k, v in launched.items() if k != kernel.__name__),
+          f"the open-loop drive launched another path's kernel: {launched}")
+    check(eng.step_count == eng.real_steps + idle,
+          f"open loop: clock {eng.step_count} != {eng.real_steps} steps + "
+          f"{idle} idle ticks")
+    check([r.arrival_step for r in reqs] == list(OPEN_LOOP_ARRIVALS)
+          and all(r.done for r in reqs),
+          f"open loop: arrivals {[r.arrival_step for r in reqs]}")
+
+    closed = engine()
+    creqs = [closed.submit(p, m) for p, m in jobs]
+    closed.run()
+    same = [list(r.generated) == list(c.generated)
+            for r, c in zip(reqs, creqs)]
+    check(all(same), f"open loop: tokens differ from the closed-loop run's "
+          f"for requests {[i for i, x in enumerate(same) if not x]}")
+    del eng, closed
+    return {
+        "arrival_steps": list(OPEN_LOOP_ARRIVALS),
+        "first_token_steps": [r.first_token_step for r in reqs],
+        "finish_steps": [r.finish_step for r in reqs],
+        "prompt_tokens": [len(p) for p, _ in jobs],
+        "generated_tokens": [len(r.generated) for r in reqs],
+        "engine_steps": len(busy) + idle,
+        "real_steps": len(busy), "idle_ticks": idle,
+        "kernel_launches_on_idle_ticks": idle_launches,
+        "decode_launches": launches, "max_active_slots": max(busy),
+        "wall_s": wall,
+        "tokens_equal_closed_loop": all(same),
+    }
+
+
 def serve_phase(kernels):
     from repro_torch.configs import get_config
 
@@ -1401,7 +1529,7 @@ def serve_phase(kernels):
 
     cfg = get_config("transformer-100m")
     return serve_model(cfg, requests(cfg.vocab), N_SLOTS, PAGE, MAX_LEN,
-                       compare, n_prof=20, kernels=kernels)
+                       compare, n_prof=20, kernels=kernels, open_loop=True)
 
 
 def cut_serve_phase(name, n_layers, why, kernels, tier=None):
@@ -2877,8 +3005,9 @@ def pytree_phase(kernels, chunked_train):
 # ---------------------------------------------------------------------------
 
 def paper_phase(kernels):
-    """The Fig. 2, topology-ablation, Table 4 and Fig. 4 twins, each with
-    the launch counts zeroed just before it and read just after.  Returns
+    """The Fig. 2, topology-ablation, Table 4, Fig. 4, Table 5 and
+    ``paper_mnist_repro`` twins, each with the launch counts zeroed just
+    before it and read just after.  Returns
     (record, gossip launches by path, reorth launches)."""
     from repro_torch.bench import (ablation_topology, fig2_effective_lr,
                                    fig4_noise_decomp, table4_lr_tuning,
@@ -2984,7 +3113,55 @@ def paper_phase(kernels):
         out[key] = {"rows": rows, "derived": derived, "wall_s": wall,
                     "us_per_step": res["us_per_step"],
                     "kernel_launches": launches}
+    out["paper_mnist_repro"], gossip["paper_mnist_repro_dpsgd"] = \
+        paper_mnist_twin(zero, read, only)
     return out, gossip, reorth
+
+
+def paper_mnist_twin(zero, read, only):
+    """``repro_torch.paper_mnist_repro`` at its full settings, each
+    algorithm with the launch counts zeroed just before it and read just
+    after: DPSGD launches the gossip kernel once a step and nothing else,
+    SSGD and SSGD* (the pytree engine) nothing; every field finite, the
+    accuracy in [0, 1], and the reference's verdict at the last row.
+    Returns (record, DPSGD's gossip launches)."""
+    from repro_torch import paper_mnist_repro as twin
+
+    rows, launches, wall = {}, {}, {}
+    for algo in twin.ALGOS:
+        zero()
+        t0 = time.perf_counter()
+        rows[algo] = twin.run(algo)
+        torch.cuda.synchronize()
+        wall[algo] = time.perf_counter() - t0
+        launches[algo] = read()
+    check(launches["dpsgd"]["gossip_mix_update_flat"] == twin.STEPS,
+          f"paper_mnist_repro: DPSGD gossip launches "
+          f"{launches['dpsgd']['gossip_mix_update_flat']} != {twin.STEPS}")
+    only(launches["dpsgd"], ("gossip_mix_update_flat",),
+         "paper_mnist_repro DPSGD")
+    for algo in ("ssgd", "ssgd_star"):
+        only(launches[algo], (), f"paper_mnist_repro {algo}")
+    want_steps = list(range(0, twin.STEPS, twin.EVERY))
+    for algo, rs in rows.items():
+        check([r[1] for r in rs] == want_steps,
+              f"paper_mnist_repro {algo}: rows at {[r[1] for r in rs]}")
+        check(all(np.isfinite(r[2:]).all() and 0.0 <= r[7] <= 1.0
+                  for r in rs), f"paper_mnist_repro {algo}: {rs}")
+    last = {algo: rs[-1] for algo, rs in rows.items()}
+    check(last["ssgd"][2] > MNIST_FAIL_LOSS
+          and last["ssgd"][7] < MNIST_FAIL_ACC,
+          f"paper_mnist_repro: SSGD's last row {last['ssgd']} does not "
+          f"fail as the reference's does")
+    for algo in ("ssgd_star", "dpsgd"):
+        check(last[algo][2] < MNIST_OK_LOSS
+              and last[algo][7] >= MNIST_OK_ACC,
+              f"paper_mnist_repro: {algo}'s last row {last[algo]} does not "
+              f"converge as the reference's does")
+    print("paper_mnist_repro last rows " + json.dumps(last), flush=True)
+    return {"header": twin.HEADER, "rows": rows, "last_rows": last,
+            "wall_s": wall, "kernel_launches": launches}, \
+        launches["dpsgd"]["gossip_mix_update_flat"]
 
 
 # ---------------------------------------------------------------------------
@@ -5700,7 +5877,9 @@ def main(argv=None) -> int:
     print(json.dumps({"serve": serve}), flush=True)
     mark("3_serve_100m")
 
-    serve_launches = {"transformer_100m_serving": launches}
+    serve_launches = {"transformer_100m_serving": launches,
+                      "transformer_100m_open_loop_serving":
+                          serve["open_loop"]["decode_launches"]}
     for key, name, layers, why in (
             ("serve_gemma2", "gemma2-27b", GEMMA_LAYERS,
              "one local/global period"),

@@ -10,6 +10,7 @@ from .membership import Membership, MemberState, admit
 from .schedule import (GossipSchedule, make_schedule, reschedule,
                        spectral_gap_profile)
 from .smoothing import estimate_smoothness, smoothed_grad, smoothed_loss
+from .topology import make_mixing_fn
 from .trainer import MultiLearnerTrainer, ProbeHook, StepMetrics, TrainState
 
 __all__ = ["AlgoConfig", "DiagStats", "FaultEvent", "FaultPlan",
@@ -17,5 +18,6 @@ __all__ = ["AlgoConfig", "DiagStats", "FaultEvent", "FaultPlan",
            "Membership", "MultiLearnerTrainer", "ProbeHook", "ROW_ALIGN",
            "StepMetrics", "Supervisor", "TrainState", "admit", "apply_plan",
            "compute_diagnostics", "estimate_smoothness", "flat_meta",
-           "make_schedule", "perturb_weights", "reschedule", "smoothed_grad",
-           "smoothed_loss", "spectral_gap_profile"]
+           "make_mixing_fn", "make_schedule", "perturb_weights",
+           "reschedule", "smoothed_grad", "smoothed_loss",
+           "spectral_gap_profile"]

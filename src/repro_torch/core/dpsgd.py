@@ -48,6 +48,7 @@ import numpy as np
 import torch
 
 from ..tree import tree_leaves, tree_map
+from . import topology as topo
 from .util import learner_mean, tree_add, tree_gaussian_like
 
 __all__ = ["AlgoConfig", "mix_einsum", "mix_pair_gather",
@@ -109,6 +110,10 @@ def mix_einsum(stacked, m: torch.Tensor):
                            x.to(torch.float32))
         return out.to(x.dtype)
     return tree_map(_mix, stacked)
+
+
+pair_partners = topo.pair_partners     # re-export: the matching lives with
+                                       # the other topology constructors
 
 
 def mix_pair_gather(stacked, partner: torch.Tensor, remote=None):

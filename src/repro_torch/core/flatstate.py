@@ -16,6 +16,10 @@ store equals the reference's element for element.
   * ``views`` returns every leaf as a float32 view of the buffer, whatever
     its recorded dtype: what the trainer binds and casts from
     (``view_tree``: the same views as a tree).
+  * ``scatter`` writes a tree of per-leaf values (a gradient tree, say)
+    into a zeroed float32 buffer slot by slot — the transpose of
+    ``unflatten`` — skipping ``None`` leaves and leaving their slots and
+    the pad region zero.
 
 Gradients reach one flat grad buffer without a parameter-sized ``cat``
 through the trainer's binding (``core/trainer.py``): every float32 leaf
@@ -35,8 +39,10 @@ The pad region is written as zeros by ``flatten`` and never escapes:
 from __future__ import annotations
 
 import dataclasses
+from functools import lru_cache
 from typing import Any, List, Tuple
 
+import numpy as np
 import torch
 
 from ..tree import tree_flatten, tree_unflatten
@@ -58,6 +64,12 @@ class FlatMeta:
     offsets: Tuple[int, ...]
     n_elem: int                        # real (unpadded) element count
     rows: int                          # T: padded row count, multiple of 8
+
+    @classmethod
+    def for_tree(cls, tree) -> "FlatMeta":
+        """Metadata of ``tree``'s structure: the same cached instance as
+        ``flat_meta``."""
+        return flat_meta(tree)
 
     @property
     def padded(self) -> int:
@@ -90,6 +102,28 @@ class FlatMeta:
             out[..., off:off + sz] = leaf.reshape(lead + (sz,))
         return out.view(lead + (self.rows, LANE))
 
+    def scatter(self, tree) -> torch.Tensor:
+        """Tree (leaves ``lead + shape``) -> ``lead + (T, 128)`` float32
+        buffer on the leaves' device, each leaf written in place into its
+        slot of one zeroed buffer (no concatenate).  ``None`` leaves (a
+        gradient that does not exist) are skipped, their slots left zero,
+        and the leaves after them keep their offsets; the pad region stays
+        zero."""
+        leaves = _leaves_up_to(self.treedef, tree)
+        present = [(x, s) for x, s in zip(leaves, self.shapes)
+                   if x is not None]
+        if not present:
+            raise ValueError("scatter needs at least one leaf that is not "
+                             "None")
+        x0, s0 = present[0]
+        lead = tuple(x0.shape[:x0.dim() - len(s0)])
+        out = torch.zeros(lead + (self.padded,), dtype=torch.float32,
+                          device=x0.device)
+        for leaf, off, sz in zip(leaves, self.offsets, self.sizes):
+            if leaf is not None:
+                out[..., off:off + sz] = leaf.reshape(lead + (sz,))
+        return out.view(lead + (self.rows, LANE))
+
     def views(self, flat: torch.Tensor) -> List[torch.Tensor]:
         """``lead + (T, 128)`` buffer -> its leaves, in order, as views in
         the buffer's own dtype (no cast, no copy)."""
@@ -112,19 +146,39 @@ class FlatMeta:
         return tree_unflatten(self.treedef, leaves)
 
 
-def flat_meta(tree) -> FlatMeta:
-    """FlatMeta for ``tree``'s structure (leaves as given: no learner axis)."""
-    leaves, treedef = tree_flatten(tree)
-    shapes = tuple(tuple(x.shape) for x in leaves)
-    sizes = tuple(int(x.numel()) for x in leaves)
+def _leaves_up_to(treedef, tree) -> List[Any]:
+    """``tree``'s subtrees at ``treedef``'s leaf positions, in order: a
+    ``None`` where the recorded tree has a leaf stays in the list, so the
+    leaves after it keep their offsets."""
+    kind, keys, defs = treedef
+    if kind == "leaf":
+        return [tree]
+    if kind == "none":
+        return []
+    items = [tree[k] for k in keys] if kind == "dict" else list(tree)
+    return [x for d, sub in zip(defs, items)
+            for x in _leaves_up_to(d, sub)]
+
+
+@lru_cache(maxsize=64)
+def _meta_cached(treedef, shapes, dtypes) -> FlatMeta:
+    sizes = tuple(int(np.prod(s, dtype=np.int64)) for s in shapes)
     offsets, off = [], 0
     for sz in sizes:
         offsets.append(off)
         off += sz
     rows = -(-off // LANE)
     rows += (-rows) % ROW_ALIGN
-    return FlatMeta(treedef, shapes, tuple(x.dtype for x in leaves), sizes,
-                    tuple(offsets), off, rows)
+    return FlatMeta(treedef, shapes, dtypes, sizes, tuple(offsets), off,
+                    rows)
+
+
+def flat_meta(tree) -> FlatMeta:
+    """FlatMeta for ``tree``'s structure (leaves as given: no learner
+    axis), cached per (structure, shapes, dtypes)."""
+    leaves, treedef = tree_flatten(tree)
+    return _meta_cached(treedef, tuple(tuple(x.shape) for x in leaves),
+                        tuple(x.dtype for x in leaves))
 
 
 def flatten_for_kernel(tree):

@@ -20,7 +20,8 @@ import torch
 
 __all__ = ["full_matrix", "ring_matrix", "torus_matrix", "pair_partners",
            "masked_pair_partners", "partner_matrix", "random_pair_matrix",
-           "hierarchical_matrix", "exponential_matrix", "is_doubly_stochastic", "spectral_gap"]
+           "hierarchical_matrix", "exponential_matrix",
+           "is_doubly_stochastic", "spectral_gap", "make_mixing_fn"]
 
 
 def _t(m, dtype) -> torch.Tensor:
@@ -169,3 +170,43 @@ def spectral_gap(m) -> float:
     """1 - |lambda_2|: convergence rate of the gossip averaging process."""
     ev = np.sort(np.abs(np.linalg.eigvals(_np(m))))[::-1]
     return float(1.0 - (ev[1] if len(ev) > 1 else 0.0))
+
+
+def _factor(n: int) -> int:
+    """The largest divisor of n at or below sqrt(n), as the reference
+    picks a torus's rows and a hierarchy's group size."""
+    r = int(np.sqrt(n))
+    while n % r:
+        r -= 1
+    return r
+
+
+def make_mixing_fn(topology: str, n: int):
+    """-> ``mix_matrix(gen) -> (n, n)`` float32 mixing matrix for a step.
+
+    Static topologies ignore the generator; ``random_pair`` draws a fresh
+    perfect matching from it each call (on ``gen.device``).  The
+    time-varying schedules (``one_peer_exp``, ``random_matching``) have no
+    single per-step matrix and raise ValueError, as any unknown name does:
+    compile them with ``core.schedule.make_schedule``."""
+    topology = topology.lower()
+    if topology == "random_pair":
+        return lambda gen: random_pair_matrix(gen, n)
+    if topology == "full":
+        m = full_matrix(n)
+    elif topology == "ring":
+        m = ring_matrix(n)
+    elif topology == "torus":
+        r = _factor(n)
+        m = torus_matrix(r, n // r)
+    elif topology == "hierarchical":
+        g = _factor(n)
+        m = (hierarchical_matrix(n // g, g) if 1 < g < n
+             else ring_matrix(n))
+    elif topology == "exp":
+        m = exponential_matrix(n)
+    elif topology == "solo":          # no mixing (local SGD w/o averaging)
+        m = torch.eye(n)
+    else:
+        raise ValueError(f"unknown topology: {topology}")
+    return lambda gen: m

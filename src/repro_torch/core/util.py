@@ -19,9 +19,9 @@ import torch
 from ..tree import tree_leaves, tree_map
 
 __all__ = ["tree_dot", "tree_norm_sq", "tree_add", "tree_sub", "tree_scale",
-           "tree_gaussian_like", "learner_mean", "learner_var",
-           "masked_learner_mean", "masked_learner_var",
-           "bind_params", "write_leaves", "value_and_grad"]
+           "tree_zeros_like", "tree_gaussian_like", "learner_mean",
+           "learner_var", "masked_learner_mean", "masked_learner_var",
+           "global_norm", "bind_params", "write_leaves", "value_and_grad"]
 
 
 def _fold(parts):
@@ -40,6 +40,11 @@ def tree_norm_sq(a) -> torch.Tensor:
     return tree_dot(a, a)
 
 
+def global_norm(a) -> torch.Tensor:
+    """sqrt of ``tree_norm_sq``: float32 sums, folded left to right."""
+    return torch.sqrt(tree_norm_sq(a))
+
+
 def tree_add(a, b):
     return tree_map(torch.add, a, b)
 
@@ -50,6 +55,10 @@ def tree_sub(a, b):
 
 def tree_scale(s, a):
     return tree_map(lambda x: s * x, a)
+
+
+def tree_zeros_like(a):
+    return tree_map(torch.zeros_like, a)
 
 
 def gaussian_leaf(gen: torch.Generator, shape, dtype, std: float):

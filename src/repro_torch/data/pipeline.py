@@ -9,16 +9,31 @@ does not depend on the fleet size.
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable
 
 import torch
 
 from ..device import resolve_device
+from ..tree import tree_map
 
 _MIX = 1_000_003                         # a prime, to spread the seed parts
 
 
 def _seed(seed: int, step: int, learner: int) -> int:
     return ((seed * _MIX + step) * _MIX + learner) % (2 ** 63)
+
+
+def stack_learner_batches(sample_fn: Callable, seed: int, n_learners: int,
+                          *args, device=None):
+    """Per-learner sampling -> leaves with a leading (n_learners, ...) axis.
+    Learner j calls ``sample_fn(gen, *args)`` with a generator on
+    ``device`` (default: cuda) seeded from (seed, j) as ``ShardedLoader``
+    seeds its step 0, so ``stack_learner_batches(ds.sample, seed, n, B)``
+    is ``ShardedLoader(ds, n, B, seed=seed).batch(0)``."""
+    gen = torch.Generator(device=resolve_device(device))
+    per = [sample_fn(gen.manual_seed(_seed(seed, 0, j)), *args)
+           for j in range(n_learners)]
+    return tree_map(lambda *xs: torch.stack(xs), *per)
 
 
 @dataclasses.dataclass

@@ -20,7 +20,11 @@
 // Two kernels, chosen by the wrapper from (dtype, hd) alone:
 // flash_attention_tc_kernel for bf16 q, k, v at hd 64 or 128 (every
 // dense config of the registry), flash_attention_mma_kernel (FMA scores,
-// P.V on the tensor cores in 3xTF32) for float32 inputs and for hd 32.
+// P.V on the tensor cores in 3xTF32) for float32 inputs and for bf16 at
+// hd 32 and 256.  Any other hd up to 256 reaches them zero-padded by the
+// wrapper to the next instantiated one (32, 64, 128, 256), with the true
+// hd's scale: the zero columns add exact zeros to every q . k, and the
+// output columns they make are dropped.
 //
 // Design of the tensor-core kernel (flash_attention_tc_kernel).  The TPU
 // kernel ran a sequential (B, KV, G, nq, nk) grid and carried m, l and
@@ -69,7 +73,8 @@
 // 32-key tiles (eight warps: two row halves, each in four groups that
 // take every fourth tile, whose softmax states merge at the end); at hd
 // 128, MT = 1 and KG = 1 over 64-key tiles (four warps of 16 rows), since
-// O alone takes 64 registers a thread there.  K and V come through a
+// O alone takes 64 registers a thread there; at hd 256, MT = 1 and KG = 1
+// over 32-key tiles (O takes 128).  K and V come through a
 // two-stage ring of 16-byte cp.async copies, KG tiles a round (rows past
 // Sk zero-filled), so the next round loads while this one computes; Q is
 // staged once.  Per tile, each thread:
@@ -86,7 +91,7 @@
 //     barrier between S and P V;
 //   - adds P V on the tensor cores (mma.sync m16n8k8, TF32), P and V each
 //     split as hi + lo in TF32 and summed as lo.hi + hi.lo + hi.hi: 2^-22
-//     of each product, within the tiers (bf16 V at hd 32 is exact in TF32
+//     of each product, within the tiers (bf16 V is exact in TF32
 //     and drops its lo term).  The tensor cores round their sums toward
 //     zero, so a tile's P V sums in fresh accumulators, added to O in
 //     float32: one accumulator over a whole row of 4,608 keys drifted to
@@ -156,8 +161,8 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
 }
 
 // ---------------------------------------------------------------------------
-// float32 q, k, v (hd 32, 64, 128) and bf16 at hd 32: FMA scores, P.V on
-// the tensor cores in three TF32 terms
+// float32 q, k, v (hd 32, 64, 128, 256) and bf16 at hd 32 and 256: FMA
+// scores, P.V on the tensor cores in three TF32 terms
 // ---------------------------------------------------------------------------
 
 namespace mma {
@@ -555,13 +560,16 @@ flash_attention_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // hd 32 and 64: two m16 tiles a warp (each K element loaded scores four
 // rows), four key groups of 32-key tiles (2 x 4 warps, two a scheduler;
 // 157 KB of shared memory at hd 64); hd 128: one m16 tile, one key group
-// of 64-key tiles (4 warps), since O alone is 64 registers a thread there
+// of 64-key tiles (4 warps), since O alone is 64 registers a thread there;
+// hd 256: one m16 tile, one key group of 32-key tiles (4 warps): O is 128
+// registers a thread and the tile's scores and P splits 48 more, and Q
+// plus the two-stage K/V ring take 195 KB of shared memory in float32
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
            int H, int KV, int Sq, int Sk, const long long* st, int causal,
            int window, float softcap, float scale, cudaStream_t stream) {
-  constexpr int MT = HD == 128 ? 1 : 2;
-  constexpr int KG = HD == 128 ? 1 : 4;
+  constexpr int MT = HD >= 128 ? 1 : 2;
+  constexpr int KG = HD >= 128 ? 1 : 4;
   constexpr int KK = HD == 128 ? 64 : 32;
   constexpr int bytes = Layout<T, HD, KG, KK>::kBytes;
   auto kern = flash_attention_mma_kernel<T, HD, MT, KG, KK>;
@@ -1104,12 +1112,13 @@ extern "C" {
 
 // The float32 kernel (FMA scores, 3xTF32 P.V).  Launches on `stream` and
 // returns cudaGetLastError() (0 on success).  dtype 0 = float32 (hd 32,
-// 64 or 128), 1 = bf16 (hd 32: the tensor-core kernel takes bf16 at 64
-// and 128); q, k, v and out alike.  strides: 12 element strides, (batch,
-// head, row) for q, k, v and out in that order; the head dim is
-// contiguous.  Any Sq, Sk >= 1.  The caller has checked devices, dtypes,
-// shapes (H % KV == 0) and 16-byte alignment of the pointers and of every
-// stride.
+// 64, 128 or 256), 1 = bf16 (hd 32 or 256: the tensor-core kernel takes
+// bf16 at 64 and 128); q, k, v and out alike.  The wrapper zero-pads any
+// other head dim to the next of these and passes the true one's scale.
+// strides: 12 element strides, (batch, head, row) for q, k, v and out in
+// that order; the head dim is contiguous.  Any Sq, Sk >= 1.  The caller
+// has checked devices, dtypes, shapes (H % KV == 0) and 16-byte alignment
+// of the pointers and of every stride.
 int flash_attention_fwd(const void* q, const void* k, const void* v,
                         void* out, int dtype, int B, int H, int KV, int Sq,
                         int Sk, int hd, const long long* strides, int causal,
@@ -1117,10 +1126,18 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
                         void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 1) {
-    if (hd != 32) return (int)cudaErrorInvalidValue;
-    return mma::launch<__nv_bfloat16, 32>(q, k, v, out, B, H, KV, Sq, Sk,
-                                          strides, causal, window, softcap,
-                                          scale, s);
+    switch (hd) {
+      case 32:
+        return mma::launch<__nv_bfloat16, 32>(q, k, v, out, B, H, KV, Sq, Sk,
+                                              strides, causal, window,
+                                              softcap, scale, s);
+      case 256:
+        return mma::launch<__nv_bfloat16, 256>(q, k, v, out, B, H, KV, Sq,
+                                               Sk, strides, causal, window,
+                                               softcap, scale, s);
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
   }
   switch (hd) {
     case 32:
@@ -1131,6 +1148,10 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
                                     causal, window, softcap, scale, s);
     case 128:
       return mma::launch<float, 128>(q, k, v, out, B, H, KV, Sq, Sk,
+                                     strides, causal, window, softcap, scale,
+                                     s);
+    case 256:
+      return mma::launch<float, 256>(q, k, v, out, B, H, KV, Sq, Sk,
                                      strides, causal, window, softcap, scale,
                                      s);
     default:

@@ -138,7 +138,7 @@ def reorth_ref(basis, w, mask):
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
-                        attn_softcap: float = 0.0):
+                        attn_softcap: float = 0.0, scale=None):
     """Same contract as ``kernels.flash_attention.flash_attention_fwd``.
 
     q: (B, H, Sq, hd); k, v: (B, KV, Sk, hd) -> (B, H, Sq, hd) in q's
@@ -147,13 +147,16 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
     window (``qpos - kpos < window``) masks with positions contiguous from
     0, filled with ``NEG_INF`` (not ``-inf``: a row masked entirely comes
     out as the uniform average of V) — the chain of
-    ``repro.kernels.ref.flash_attention_ref``.  Differentiable: the flash
-    dispatcher's backward recomputes through it."""
+    ``repro.kernels.ref.flash_attention_ref``.  ``scale`` replaces
+    ``hd**-0.5`` (the kernel wrapper's head-dim padding keeps the true
+    hd's).  Differentiable: the flash dispatcher's backward recomputes
+    through it."""
     B, H, Sq, hd = q.shape
     _, KV, Sk, _ = k.shape
     G = H // KV
     qf = q.float().reshape(B, KV, G, Sq, hd)
-    s = torch.einsum("bkgqd,bksd->bkgqs", qf, k.float()) * hd ** -0.5
+    scale = hd ** -0.5 if scale is None else scale
+    s = torch.einsum("bkgqd,bksd->bkgqs", qf, k.float()) * scale
     if attn_softcap:
         s = attn_softcap * torch.tanh(s / attn_softcap)
     qpos = torch.arange(Sq, device=q.device)[:, None]

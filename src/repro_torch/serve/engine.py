@@ -24,6 +24,11 @@ Admission: ``continuous`` admits a request the moment a slot is free;
 ``static`` admits only when EVERY slot is free (the head-of-line-blocking
 baseline).
 
+Closed-loop callers submit everything and ``run``; an open-loop caller
+(requests arriving at given engine steps) submits each arrival when
+``step_count`` reaches it, calls ``step`` while ``has_work`` and
+``idle_tick`` otherwise; ``active_slots`` counts the occupied slots.
+
 If the pool runs dry mid-flight the affected slot STALLS: it does not
 advance, its write lands in the scratch page, and it resumes once an
 eviction frees pages.  If every active slot is stalled the engine raises
@@ -131,6 +136,11 @@ class ServeEngine:
     def has_work(self) -> bool:
         return bool(self.queue) or any(s.state != FREE for s in self.slots)
 
+    @property
+    def active_slots(self) -> int:
+        """Slots holding a request (prefilling or decoding)."""
+        return sum(s.state != FREE for s in self.slots)
+
     # ---------------------------------------------------------- scheduling --
     def _admit(self) -> None:
         free = [s for s in self.slots if s.state == FREE]
@@ -169,6 +179,12 @@ class ServeEngine:
         slot.state = FREE
 
     # -------------------------------------------------------------- stepping --
+    def idle_tick(self) -> None:
+        """Advance the engine clock without touching the device: an
+        open-loop caller fast-forwards between arrivals with it (no model
+        step, no kernel launch; ``real_steps`` stays)."""
+        self.step_count += 1
+
     def _run(self, tokens, positions, adv_mask):
         """One fused decode step on the device; returns the per-slot argmax
         over the logical vocab as a host array (the step's one sync)."""

@@ -1,6 +1,7 @@
-"""The port's twins of ``examples/serve_batched.py`` and
-``examples/train_100m.py`` (``repro_torch.serve_batched``,
-``repro_torch.train_100m``), run on the CPU.
+"""The port's twins of ``examples/serve_batched.py``,
+``examples/train_100m.py`` and ``examples/paper_mnist_repro.py``
+(``repro_torch.serve_batched``, ``repro_torch.train_100m``,
+``repro_torch.paper_mnist_repro``), run on the CPU.
 
   * ``serve_batched`` at its defaults: the reference example's requests
     (the same seeded prompt lengths), every token counted;
@@ -8,8 +9,13 @@
     that resumes from the newest checkpoint and ends, to rounding, where
     an uninterrupted run ends, a finite held-out loss, and a checkpoint that
     the reference's ``repro.checkpoint.restore_checkpoint`` reads back
-    with the reference example's own template.
+    with the reference example's own template;
+  * ``paper_mnist_repro`` cut to 20 steps: the reference example's CSV
+    header, a row every 10 steps for each of SSGD, SSGD* and DPSGD, finite
+    fields and a test accuracy in [0, 1].
 """
+import csv
+
 import numpy as np
 import pytest
 
@@ -18,7 +24,8 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 
 from repro import checkpoint as jax_ckpt  # noqa: E402
-from repro_torch import serve_batched, train_100m  # noqa: E402
+from repro_torch import paper_mnist_repro, serve_batched, \
+    train_100m  # noqa: E402
 
 
 def test_serve_batched_at_its_defaults(capsys):
@@ -90,3 +97,37 @@ def test_train_100m_checkpoints_resumes_and_evaluates(tmp_path, capsys):
     assert step == 4
     leaves = jax.tree_util.tree_leaves(tree)
     assert leaves and all(np.isfinite(np.asarray(x)).all() for x in leaves)
+
+
+def _reference_header():
+    """The header row the reference example writes (read from its
+    source: running it imports nothing needed here)."""
+    import ast
+    from pathlib import Path
+    src = (Path(__file__).resolve().parents[1] / "examples"
+           / "paper_mnist_repro.py").read_text()
+    for node in ast.walk(ast.parse(src)):
+        if (isinstance(node, ast.Call) and getattr(node.func, "attr", "")
+                == "writerow"):
+            return ast.literal_eval(node.args[0])
+    raise AssertionError("no header row in the reference example")
+
+
+def test_paper_mnist_repro_at_20_steps(tmp_path, capsys):
+    out_csv = tmp_path / "fig2.csv"
+    out = paper_mnist_repro.main(["--device", "cpu", "--steps", "20",
+                                  "--out", str(out_csv)])
+    assert "wrote" in capsys.readouterr().out
+    with open(out_csv, newline="") as f:
+        rows = list(csv.reader(f))
+    assert rows[0] == _reference_header() == paper_mnist_repro.HEADER
+    assert [r[:2] for r in rows[1:]] == [
+        [a, s] for a in ("ssgd", "ssgd_star", "dpsgd") for s in ("0", "10")]
+    for r in rows[1:]:
+        vals = [float(x) for x in r[2:]]
+        assert all(np.isfinite(vals)), r
+        assert 0.0 <= vals[-1] <= 1.0
+    assert set(out) == {"ssgd", "ssgd_star", "dpsgd"}
+    # SSGD has one model: no weight variance; DPSGD's learners spread
+    assert all(r[4] == 0.0 for r in out["ssgd"])
+    assert out["dpsgd"][0][4] > 0.0

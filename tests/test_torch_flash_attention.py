@@ -26,8 +26,11 @@ the same tiers (``cuda`` marker, skipped here): the float32 kernel (FMA
 scores, P.V in three TF32 terms on the tensor cores) for float32 inputs
 and hd 32, and the tensor-core kernel for bf16 at hd 64 and 128; both
 mask ragged tiles and so take every length the reference takes.  The
-wrapper's shape rule and its choice between the two kernels are checked
-on the CPU, and so are the float32 kernel's numerics: an emulation of
+wrapper's shape rule (every hd from 1 to 256: an hd between the
+instantiated 32 / 64 / 128 / 256 is zero-padded to the next one and run
+with its own scale) and its choice between the two kernels are checked
+on the CPU, the padding step against the plain version on the unpadded
+inputs, and so are the float32 kernel's numerics: an emulation of
 its tile order, its float32 FMA scores and its TF32 splits of P and V
 holds the float32 tiers at the float32 shapes of ``chip_smoke.py``,
 where scores in three TF32 terms, or P.V in one, would not.
@@ -46,7 +49,8 @@ from repro.kernels.flash_attention import \
     flash_attention_fwd as jax_kernel  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    check_shapes, flash_attention_fwd, kernel_for)
+    check_shapes, flash_attention_fwd, kernel_for, pad_head_dim,
+    padded_head_dim)
 
 SHAPES = [(128, 64, 4, 4), (256, 64, 4, 2), (256, 128, 2, 1)]
 DTYPES = ["float32", "bfloat16"]
@@ -311,7 +315,8 @@ def test_wrapper_takes_every_length_in_float32_and_bf16_at_hd_32(Sq, Sk,
 def test_wrapper_shape_rule_refuses_what_no_kernel_takes():
     bf = torch.bfloat16
     with pytest.raises(ValueError, match="head_dim"):
-        check_shapes((1, 4, 128, 48), (1, 2, 128, 48), (1, 2, 128, 48), bf)
+        check_shapes((1, 4, 128, 264), (1, 2, 128, 264), (1, 2, 128, 264),
+                     bf)
     with pytest.raises(ValueError, match="H % KV"):
         check_shapes((1, 3, 128, 128), (1, 2, 128, 128), (1, 2, 128, 128),
                      bf)
@@ -332,6 +337,63 @@ def test_wrapper_shape_rule_refuses_what_no_kernel_takes():
                         torch.float32) == "mma"
     assert check_shapes((1, 4, 100, 32), (1, 2, 100, 32), (1, 2, 100, 32),
                         bf) == "mma"
+
+
+@pytest.mark.parametrize("hd", [0, 257, 264, 512])
+def test_wrapper_refuses_a_head_dim_outside_1_to_256(hd):
+    with pytest.raises(ValueError, match="1 <= hd <= 256"):
+        check_shapes((1, 4, 64, hd), (1, 2, 64, hd), (1, 2, 64, hd),
+                     torch.float32)
+
+
+def test_wrapper_takes_every_head_dim_from_1_to_256():
+    """Each hd runs the kernel instantiated at the next of 32 / 64 / 128
+    / 256: bf16 through the tensor-core kernel where that is 64 or 128."""
+    for hd in range(1, 257):
+        hp = padded_head_dim(hd)
+        assert hp == min(d for d in (32, 64, 128, 256) if d >= hd)
+        for dt in (torch.float32, torch.bfloat16):
+            want = ("tc" if dt == torch.bfloat16 and hp in (64, 128)
+                    else "mma")
+            assert kernel_for(dt, hd) == want
+            assert check_shapes((1, 4, 37, hd), (1, 2, 50, hd),
+                                (1, 2, 50, hd), dt) == want
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("hd,kw", [
+    (1, MASKS[0]), (20, MASKS[1]), (48, MASKS[3]), (80, MASKS[2]),
+    (96, dict(causal=True, window=32, attn_softcap=50.0)), (200, MASKS[0])])
+def test_padding_step_then_plain_version_equals_the_plain_version(
+        hd, kw, dtype):
+    """The wrapper's zero padding of the head dim, then the plain version
+    with the true hd's scale, keeping the first hd columns: the plain
+    version on the unpadded inputs, bitwise (the zero columns add exact
+    zeros; measured 0.0 at every case here)."""
+    arrs = _operands(100, hd, 4, 2, dtype, seed=hd, Sk=90)
+    q, k, v = _torch(arrs, dtype)
+    qp, kp, vp = pad_head_dim(q, k, v)
+    hp = padded_head_dim(hd)
+    assert qp.shape[-1] == kp.shape[-1] == vp.shape[-1] == hp > hd
+    assert all(t.is_contiguous() and t.dtype == q.dtype
+               for t in (qp, kp, vp))
+    assert not qp[..., hd:].any() and torch.equal(qp[..., :hd], q)
+    got = ref.flash_attention_ref(qp, kp, vp, scale=hd ** -0.5, **kw)
+    assert not got[..., hd:].float().any()
+    want = ref.flash_attention_ref(q, k, v, **kw)
+    assert torch.equal(got[..., :hd], want)
+    if hd <= 128:
+        # and the reference's oracle at the true hd, at its sweep's tier
+        # (set for its head dims, 64 and 128; at hd 200 the longer q.k
+        # sums, taken in another order, reach 3.0e-6)
+        _assert_within_tier(got[..., :hd],
+                            jax_ref.flash_attention_ref(*_jax(arrs, dtype),
+                                                        **kw), dtype)
+
+
+def test_padding_step_keeps_an_instantiated_head_dim_as_given():
+    q, k, v = _torch(_operands(64, 64, 2, 2, "float32"), "float32")
+    assert all(a is b for a, b in zip(pad_head_dim(q, k, v), (q, k, v)))
 
 
 # ---------------------------------------------------------------------------
@@ -371,6 +433,18 @@ CUDA_CASES = [
     (37, 64, 4, 2, "float32", dict(causal=True), 200, 1.0),     # Sq < Sk
     (100, 32, 4, 2, "bfloat16", RAGGED_MASKS[0], None, 1.0),
     (1, 128, 4, 1, "float32", dict(causal=True), 1, 1.0),
+    # hd 256 (the float32 kernel's widest instance, float32 and bf16) and
+    # head dims zero-padded to the next instance (96 -> 128, 20 -> 32,
+    # 80 -> 128 on the tensor cores, 200 -> 256)
+    (100, 256, 4, 2, "float32", RAGGED_MASKS[0], None, 1.0),
+    (512, 256, 8, 2, "float32",                         # the cap binds
+     dict(causal=True, window=64, attn_softcap=50.0), None, 8.0),
+    (100, 256, 4, 2, "bfloat16", RAGGED_MASKS[1], 37, 1.0),
+    (256, 256, 4, 4, "bfloat16", MASKS[3], None, 1.0),
+    (256, 96, 8, 2, "float32", MASKS[0], None, 1.0),
+    (100, 20, 4, 2, "bfloat16", RAGGED_MASKS[0], None, 1.0),
+    (256, 80, 4, 2, "bfloat16", MASKS[1], None, 1.0),
+    (100, 200, 4, 1, "float32", RAGGED_MASKS[1], 37, 1.0),
 ]
 
 
@@ -433,7 +507,10 @@ def test_cuda_tensor_core_kernel_matches_plain_version(cuda_device, S, hd, H,
     ("float32", 32, "flash_attention_mma_kernel"),
     ("bfloat16", 32, "flash_attention_mma_kernel"),
     ("bfloat16", 128, "flash_attention_tc_kernel"),
-    ("bfloat16", 64, "flash_attention_tc_kernel")])
+    ("bfloat16", 64, "flash_attention_tc_kernel"),
+    ("float32", 256, "flash_attention_mma_kernel"),
+    ("bfloat16", 256, "flash_attention_mma_kernel"),
+    ("bfloat16", 80, "flash_attention_tc_kernel")])
 def test_cuda_inputs_reach_the_kernel_their_dtype_and_width_name(
         cuda_device, dtype, hd, name):
     from torch.profiler import ProfilerActivity, profile
@@ -479,9 +556,8 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
     with pytest.raises(ValueError, match="at least one row"):
         flash_attention_fwd(q[:, :, :0], k, v)
     with pytest.raises(ValueError, match="head_dim"):
-        flash_attention_fwd(q[..., :48].contiguous(),
-                            k[..., :48].contiguous(),
-                            v[..., :48].contiguous())
+        flash_attention_fwd(*(torch.cat([t] * 5, dim=-1)[..., :264]
+                              for t in (q, k, v)))
     with pytest.raises(ValueError, match="one dtype"):
         flash_attention_fwd(q, k.bfloat16(), v)
     with pytest.raises(ValueError, match="float32 or bfloat16"):

@@ -6,7 +6,10 @@ so the port's (n, T, 128) store equals the reference's bitwise for the
 same parameters.  Its views must alias the store, and the trainer's
 binding must put every gradient into one grad buffer without a
 parameter-sized concatenate (or a buffer-sized zero from a slice
-backward).
+backward).  ``FlatMeta.scatter``, the transpose of ``unflatten``, must
+give the reference's buffer for the same tree (a learner axis, a ``None``
+leaf) without a concatenate, and ``FlatMeta.for_tree`` the cached
+metadata.
 """
 import pytest
 
@@ -19,10 +22,11 @@ from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
 from repro.configs import get_config as jax_get_config  # noqa: E402
 from repro.core.flatstate import flat_meta as jax_flat_meta  # noqa: E402
+from repro_torch.analysis import trace_audit  # noqa: E402
 from repro.models import fcnet as jax_fcnet  # noqa: E402
 from repro.models.model import build_model as jax_build_model  # noqa: E402
 from repro_torch.core import AlgoConfig, MultiLearnerTrainer  # noqa: E402
-from repro_torch.core.flatstate import LANE, flat_meta  # noqa: E402
+from repro_torch.core.flatstate import LANE, FlatMeta, flat_meta  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 from repro_torch.models import fcnet  # noqa: E402
 from repro_torch.models.convert import tree_from_jax  # noqa: E402
@@ -97,6 +101,51 @@ def test_store_equals_reference_bitwise(name):
     jback = jax.tree_util.tree_leaves(jmeta.unflatten(jnp.asarray(want)))
     for a, b in zip(tree_leaves(meta.unflatten(got)), jback):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+@pytest.mark.parametrize("name", sorted(JAX_TREES))
+def test_scatter_of_unflatten_is_the_store_bitwise(name):
+    """The twin of the reference's
+    ``test_flat_meta_scatter_is_unflatten_transpose``; and the metadata is
+    cached per structure, ``for_tree`` included."""
+    tree = tree_from_jax(_np_tree(JAX_TREES[name]))
+    meta = flat_meta(tree)
+    assert FlatMeta.for_tree(tree) is meta is flat_meta(tree)
+    flat = meta.flatten(tree)
+    back = meta.scatter(meta.unflatten(flat))
+    assert back.dtype == torch.float32 and back.shape == flat.shape
+    assert torch.equal(back, flat)
+
+
+def test_scatter_equals_reference_with_a_learner_axis_and_a_none_leaf():
+    jtree = JAX_TREES["fcnet"]
+    rng = np.random.default_rng(3)
+    stacked = {k: rng.standard_normal((N,) + tuple(v.shape),
+                                      dtype=np.float32)
+               for k, v in jtree.items()}
+    stacked["b2"] = None            # a leaf with no cotangent
+    want = np.asarray(jax_flat_meta(jtree).scatter(
+        {k: None if v is None else jnp.asarray(v)
+         for k, v in stacked.items()}))
+    meta = flat_meta(tree_from_jax(_np_tree(jtree)))
+    got = meta.scatter({k: None if v is None else torch.tensor(v)
+                        for k, v in stacked.items()})
+    assert got.shape == (N, meta.rows, LANE)
+    np.testing.assert_array_equal(got.numpy(), want)
+    # the None leaf's slot and the pad region stay zero
+    i = sorted(jtree).index("b2")
+    off, sz = meta.offsets[i], meta.sizes[i]
+    v = got.reshape(N, -1)
+    assert not v[:, off:off + sz].any() and not v[:, meta.n_elem:].any()
+
+
+def test_scatter_makes_no_concatenate():
+    tree = tree_from_jax(_np_tree(JAX_TREES["transformer-100m-smoke"]))
+    meta = flat_meta(tree)
+    stacked = tree_map(lambda p: torch.stack([p] * N), tree)
+    with trace_audit.StepTrace("cpu") as t:
+        meta.scatter(stacked)
+    assert t.ops and trace_audit.max_concat_elems(t) == 0
 
 
 class _Recorder(TorchDispatchMode):

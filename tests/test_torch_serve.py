@@ -5,8 +5,10 @@ weights: the reference's ``init_params`` draws them and
 ``repro_torch.models.convert.params_from_jax`` carries them across.  The
 port must match the reference's ``paged_decode_step`` logits (float32,
 atol/rtol 1e-5: the two frameworks sum matrix products in different
-orders) and its ``ServeEngine`` must generate the same tokens; the
-engine's scheduling behaviour mirrors tests/test_serve.py.
+orders) and its ``ServeEngine`` must generate the same tokens, closed
+loop and under the open-loop serving loop of ``benchmarks/serving.py``
+(``idle_tick``, ``active_slots``); the engine's scheduling behaviour
+mirrors tests/test_serve.py.
 
 gemma2-27b's smoke config in bf16 (parameters, compute and the paged K/V
 pools; local/global layers with a window of 3 so the local mask bites,
@@ -199,6 +201,65 @@ def test_engine_generates_the_reference_tokens(models):
     for (prompt, _), gen in zip(jobs, want):
         gaps = _jax_top_gaps(models, prompt, gen)
         assert len(gaps) == len(gen) and min(gaps) > 1e-3, gaps
+
+
+# arrival step of each of _jobs' requests: two at once, one mid-flight,
+# then gaps the engine idles through before the rest arrive
+OPEN_LOOP_ARRIVALS = (0, 0, 3, 30, 31, 60)
+
+
+def _open_loop(eng, jobs, arrivals):
+    """The open-loop serving loop of benchmarks/serving.py (measure_cell):
+    each request submitted once the engine clock reaches its arrival step;
+    ``step`` while there is work, ``idle_tick`` otherwise.  Returns the
+    requests and (call, step_count, real_steps, active_slots) after each
+    call."""
+    pending = list(zip(arrivals, jobs))
+    reqs, trace = [], []
+    while pending or eng.has_work:
+        while pending and pending[0][0] <= eng.step_count:
+            _, (prompt, max_new) = pending.pop(0)
+            reqs.append(eng.submit(prompt, max_new))
+        if eng.has_work:
+            eng.step()
+            call = "step"
+        else:
+            eng.idle_tick()
+            call = "idle"
+        trace.append((call, eng.step_count, eng.real_steps,
+                      eng.active_slots))
+    return reqs, trace
+
+
+def test_open_loop_drive_matches_reference(models):
+    """The reference's and the port's engines under the same open-loop
+    schedule agree on every request's clock stamps and tokens, and on the
+    engine clock, the model steps and the occupied slots after every
+    call; an idle tick advances only the clock."""
+    japi, jparams, api, params = models
+    jobs = _jobs(api.cfg.vocab, ENGINE_SEED)
+    jeng = JaxServeEngine(japi, jparams, n_slots=2, page_size=PAGE,
+                          max_len=BUF)
+    jreqs, jtrace = _open_loop(jeng, jobs, OPEN_LOOP_ARRIVALS)
+    eng = ServeEngine(api, params, n_slots=2, page_size=PAGE, max_len=BUF)
+    eng.warmup()
+    reqs, trace = _open_loop(eng, jobs, OPEN_LOOP_ARRIVALS)
+    assert trace == jtrace
+    assert sum(c == "idle" for c, *_ in trace) >= 20
+    for r, j in zip(reqs, jreqs):
+        assert (r.arrival_step, r.first_token_step, r.finish_step) == (
+            j.arrival_step, j.first_token_step, j.finish_step)
+        assert list(r.generated) == list(j.generated)
+    assert [r.arrival_step for r in reqs] == list(OPEN_LOOP_ARRIVALS)
+    # an idle tick: the clock only, no model step (the decode step is not
+    # called), no slot taken
+    before = (eng.real_steps, eng.generated_total, eng.step_count)
+    calls = []
+    eng.api = eng.api._replace(paged_decode_step=lambda *a: calls.append(a))
+    eng.idle_tick()
+    assert not calls and eng.active_slots == 0
+    assert (eng.real_steps, eng.generated_total, eng.step_count) == (
+        before[0], before[1], before[2] + 1)
 
 
 # -- (d) engine behaviour ------------------------------------------------------
