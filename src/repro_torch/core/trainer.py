@@ -76,6 +76,7 @@ from typing import Any, Callable, List, NamedTuple, Optional
 
 import torch
 
+from .. import obs
 from ..device import resolve_device
 from ..kernels import ops as kops
 from ..optim import Optimizer, apply_updates
@@ -201,7 +202,8 @@ def backward_into(loss_fn, bound: _Bound, batch) -> torch.Tensor:
             cg.zero_()
     with torch.enable_grad():
         loss = loss_fn(bound.params, batch)
-        loss.backward()
+        with obs.span("train.backward"):
+            loss.backward()
     with torch.no_grad():
         for _, _, cg, dst in bound.casts:
             dst.copy_(cg)
@@ -689,11 +691,12 @@ class MultiLearnerTrainer:
         """Forward + backward per learner, one at a time; gradients land in
         the grad store through the bound views (``backward_into``).
         Returns the (n,) losses."""
-        for g in tree_leaves(self._g):
-            g.zero_()
-        return torch.stack([backward_into(self.loss_fn, b,
-                                          tree_map(lambda x: x[i], batch))
-                            for i, b in enumerate(bound)])
+        with obs.span("train.grads"):
+            for g in tree_leaves(self._g):
+                g.zero_()
+            return torch.stack([backward_into(self.loss_fn, b,
+                                              tree_map(lambda x: x[i], batch))
+                                for i, b in enumerate(bound)])
 
     # -- one training step ----------------------------------------------------
     def train_step(self, state: TrainState, stacked_batch, rounds=None,
@@ -706,14 +709,15 @@ class MultiLearnerTrainer:
         Returns (new state, StepMetrics).  A state with ``members`` trains
         the elastic fleet; injected ``rounds`` then replace its draw (or
         its tables) too."""
-        self._bound(state.params)       # raises on a state not its own
-        if rounds is None and state.members is not None:
-            rounds = self._member_rounds(state.members, state)
-        else:
-            rounds = self._rounds(state, rounds)
-        if self._flat:
-            return self._train_step_flat(state, stacked_batch, rounds)
-        return self._train_step_tree(state, stacked_batch, rounds, noise)
+        with obs.span("train.step"):
+            self._bound(state.params)       # raises on a state not its own
+            if rounds is None and state.members is not None:
+                rounds = self._member_rounds(state.members, state)
+            else:
+                rounds = self._rounds(state, rounds)
+            if self._flat:
+                return self._train_step_flat(state, stacked_batch, rounds)
+            return self._train_step_tree(state, stacked_batch, rounds, noise)
 
     def _train_step_tree(self, state: TrainState, stacked_batch, rounds,
                          noise):
@@ -746,28 +750,31 @@ class MultiLearnerTrainer:
             else:
                 _copy_tree(w, stack(w_a))
             losses = self._grads(bound, stacked_batch)
-            w_b = stack(w_a)
-            updates, opt_state = self._opt_update(
-                stack(learner_mean(g)), state.opt_state, w_b, w_b)
-            new_params = mean_broadcast(apply_updates(w_b, updates))
+            with obs.span("train.update"):
+                w_b = stack(w_a)
+                updates, opt_state = self._opt_update(
+                    stack(learner_mean(g)), state.opt_state, w_b, w_b)
+                new_params = mean_broadcast(apply_updates(w_b, updates))
 
         elif algo.algo == "dpsgd" and mem is not None:  # elastic fleet
             losses = self._grads(bound, stacked_batch)
-            new_params, opt_state = self._member_update(
-                w, g, state.opt_state, rounds, mem.active)
+            with obs.span("train.update"):
+                new_params, opt_state = self._member_update(
+                    w, g, state.opt_state, rounds, mem.active)
 
         elif algo.algo == "dpsgd":
             losses = self._grads(bound, stacked_batch)
-            if algo.gossip_order == "mix_then_descend":
-                mixed = self._mix_sched(w, rounds, state.step)
-                updates, opt_state = self._opt_update(g, state.opt_state, w,
-                                                      mixed)
-                new_params = apply_updates(mixed, updates)
-            else:                                       # descend_then_mix
-                updates, opt_state = self._opt_update(g, state.opt_state, w,
-                                                      w)
-                new_params = self._mix_sched(apply_updates(w, updates),
-                                             rounds, state.step)
+            with obs.span("train.update"):
+                if algo.gossip_order == "mix_then_descend":
+                    mixed = self._mix_sched(w, rounds, state.step)
+                    updates, opt_state = self._opt_update(
+                        g, state.opt_state, w, mixed)
+                    new_params = apply_updates(mixed, updates)
+                else:                                       # descend_then_mix
+                    updates, opt_state = self._opt_update(
+                        g, state.opt_state, w, w)
+                    new_params = self._mix_sched(apply_updates(w, updates),
+                                                 rounds, state.step)
 
         else:                                           # adpsgd
             active, fresh, stale_seen = self._async_masks(state)
@@ -775,38 +782,40 @@ class MultiLearnerTrainer:
             stale_max = torch.max(stale_seen).to(torch.float32)
             (partners, _), = rounds
             losses = self._grads(bound, stacked_batch)
-            mixed = mix_pair_gather(w, partners[0], _select(fresh, w,
-                                                            buffer))
-            updates, opt_state_new = self._opt_update(g, state.opt_state, w,
-                                                      mixed)
-            new_params = _select(active, apply_updates(mixed, updates), w)
-            opt_state = _select(active, opt_state_new, state.opt_state)
-            buffer = _select(active | fresh, new_params, buffer)
-            age = torch.where(active | fresh, 0, age + 1).to(torch.int32)
-            clock = clock + active.to(torch.int32)
+            with obs.span("train.update"):
+                mixed = mix_pair_gather(w, partners[0],
+                                        _select(fresh, w, buffer))
+                updates, opt_state_new = self._opt_update(
+                    g, state.opt_state, w, mixed)
+                new_params = _select(active, apply_updates(mixed, updates), w)
+                opt_state = _select(active, opt_state_new, state.opt_state)
+                buffer = _select(active | fresh, new_params, buffer)
+                age = torch.where(active | fresh, 0, age + 1).to(torch.int32)
+                clock = clock + active.to(torch.int32)
 
         new_params = _copy_tree(w, new_params)
-        gsq = _per_learner_grad_sq(g)
-        if mem is None:
-            nact = torch.full((), float(n), device=dev)
-            loss, gsq_mean = torch.mean(losses), torch.mean(gsq)
-            g_mean, sigma = learner_mean(g), learner_var(new_params)
-        else:       # live-only statistics: quarantined rows are excluded
-            act = mem.active
-            nact = torch.clamp(torch.sum(act), min=1).to(torch.float32)
-            loss = torch.sum(torch.where(act, losses, 0.0)) / nact
-            gsq_mean = torch.sum(torch.where(act, gsq, 0.0)) / nact
-            g_mean = masked_learner_mean(g, act)
-            sigma = masked_learner_var(new_params, act)
-        metrics = StepMetrics(
-            loss=loss,
-            grad_norm=torch.sqrt(tree_norm_sq(g_mean)),
-            sigma_w_sq=sigma,
-            staleness_mean=stale_mean,
-            staleness_max=stale_max,
-            n_active=nact,
-            grad_sq_mean=gsq_mean,
-        )
+        with obs.span("train.stats"):
+            gsq = _per_learner_grad_sq(g)
+            if mem is None:
+                nact = torch.full((), float(n), device=dev)
+                loss, gsq_mean = torch.mean(losses), torch.mean(gsq)
+                g_mean, sigma = learner_mean(g), learner_var(new_params)
+            else:       # live-only statistics: quarantined rows are excluded
+                act = mem.active
+                nact = torch.clamp(torch.sum(act), min=1).to(torch.float32)
+                loss = torch.sum(torch.where(act, losses, 0.0)) / nact
+                gsq_mean = torch.sum(torch.where(act, gsq, 0.0)) / nact
+                g_mean = masked_learner_mean(g, act)
+                sigma = masked_learner_var(new_params, act)
+            metrics = StepMetrics(
+                loss=loss,
+                grad_norm=torch.sqrt(tree_norm_sq(g_mean)),
+                sigma_w_sq=sigma,
+                staleness_mean=stale_mean,
+                staleness_max=stale_max,
+                n_active=nact,
+                grad_sq_mean=gsq_mean,
+            )
         return TrainState(new_params, opt_state, state.step + 1, state.seed,
                           buffer=buffer, age=age, clock=clock,
                           members=mem), metrics
@@ -829,111 +838,116 @@ class MultiLearnerTrainer:
         if algo.algo == "ssgd":
             torch.mean(w, dim=0, out=self._wa)
             losses = self._grads(self._views_wa, stacked_batch)
-            g_stacked = torch.mean(g, dim=0)[None].expand(w.shape)
-            updates, opt_state = self._opt_update(g_stacked, state.opt_state,
-                                                  w, w)
-            new_params = w_next.copy_(mean_broadcast(apply_updates(w,
-                                                                   updates)))
+            with obs.span("train.update"):
+                g_stacked = torch.mean(g, dim=0)[None].expand(w.shape)
+                updates, opt_state = self._opt_update(
+                    g_stacked, state.opt_state, w, w)
+                new_params = w_next.copy_(mean_broadcast(
+                    apply_updates(w, updates)))
 
         elif algo.algo == "dpsgd":
             losses = self._grads(self._bound(w), stacked_batch)
-            if self._fused is not None:
-                # leading rounds mix only; the last fuses the update.  An
-                # elastic fleet's dead rows get the kernel's active column
-                # 0: copied into each output, so whichever store the next
-                # step reads holds them unchanged
-                act = None if mem is None else mem.active
-                g_upd, wd = g, None
-                if len(rounds) > 1 and self._fused.weight_decay:
-                    # decay the PRE-mix local weights, as the reference does
-                    g_upd = g + self._fused.weight_decay * w
-                    wd = 0.0
-                cur = w
-                for partners, coefs in rounds[:-1]:
-                    cur = kops.flat_gossip_mix(
-                        cur, partners, coefs, active=act,
-                        out=self._other(cur, self._w),
-                        backend=self.kernel_backend)
-                partners, coefs = rounds[-1]
-                new_params, opt_state = self._fused_step(
-                    cur, cur, g_upd, state.opt_state, partners, coefs,
-                    out=self._other(cur, self._w), active=act,
-                    weight_decay=wd)
-                if mem is not None:
-                    opt_state = self._select_nonflat(act, opt_state,
-                                                     state.opt_state)
-            elif mem is not None:                       # elastic, unfused
-                stepped, opt_state = self._member_update(
-                    w, g, state.opt_state, rounds, mem.active)
-                new_params = w_next.copy_(stepped)
-            elif algo.gossip_order == "mix_then_descend":
-                mixed = self._mix_sched(w, rounds, state.step)
-                updates, opt_state = self._opt_update(g, state.opt_state, w,
-                                                      mixed)
-                new_params = w_next.copy_(apply_updates(mixed, updates))
-            else:                                       # descend_then_mix
-                updates, opt_state = self._opt_update(g, state.opt_state, w,
-                                                      w)
-                new_params = w_next.copy_(self._mix_sched(
-                    apply_updates(w, updates), rounds, state.step))
+            with obs.span("train.update"):
+                if self._fused is not None:
+                    # leading rounds mix only; the last fuses the update.  An
+                    # elastic fleet's dead rows get the kernel's active column
+                    # 0: copied into each output, so whichever store the next
+                    # step reads holds them unchanged
+                    act = None if mem is None else mem.active
+                    g_upd, wd = g, None
+                    if len(rounds) > 1 and self._fused.weight_decay:
+                        # decay the PRE-mix local weights, as the reference
+                        # does
+                        g_upd = g + self._fused.weight_decay * w
+                        wd = 0.0
+                    cur = w
+                    for partners, coefs in rounds[:-1]:
+                        cur = kops.flat_gossip_mix(
+                            cur, partners, coefs, active=act,
+                            out=self._other(cur, self._w),
+                            backend=self.kernel_backend)
+                    partners, coefs = rounds[-1]
+                    new_params, opt_state = self._fused_step(
+                        cur, cur, g_upd, state.opt_state, partners, coefs,
+                        out=self._other(cur, self._w), active=act,
+                        weight_decay=wd)
+                    if mem is not None:
+                        opt_state = self._select_nonflat(act, opt_state,
+                                                         state.opt_state)
+                elif mem is not None:                       # elastic, unfused
+                    stepped, opt_state = self._member_update(
+                        w, g, state.opt_state, rounds, mem.active)
+                    new_params = w_next.copy_(stepped)
+                elif algo.gossip_order == "mix_then_descend":
+                    mixed = self._mix_sched(w, rounds, state.step)
+                    updates, opt_state = self._opt_update(
+                        g, state.opt_state, w, mixed)
+                    new_params = w_next.copy_(apply_updates(mixed, updates))
+                else:                                       # descend_then_mix
+                    updates, opt_state = self._opt_update(
+                        g, state.opt_state, w, w)
+                    new_params = w_next.copy_(self._mix_sched(
+                        apply_updates(w, updates), rounds, state.step))
 
         else:                                           # adpsgd
             active, fresh, stale_seen = self._async_masks(state)
             stale_mean = torch.mean(stale_seen.to(torch.float32))
             stale_max = torch.max(stale_seen).to(torch.float32)
             losses = self._grads(self._bound(w), stacked_batch)
-            (partners, coefs), = rounds
-            partner = partners[0].long()
-            buf_next = self._other(buffer, self._buf)
-            if self._fused is not None:
-                new_params, opt_state_new, buffer = self._fused_step(
-                    w, w, g, state.opt_state, partners, coefs, out=w_next,
-                    active=active, buffer=buffer, buffer_out=buf_next,
-                    nbr_fresh=fresh[partner], publish=active | fresh)
-                opt_state = self._select_nonflat(active, opt_state_new,
-                                                 state.opt_state)
-            else:
-                remote = torch.where(fresh[:, None, None], w, buffer)
-                mixed = mix_pair_gather(w, partner, remote)
-                updates, opt_state_new = self._opt_update(
-                    g, state.opt_state, w, mixed)
-                stepped = apply_updates(mixed, updates)
-                new_params = w_next.copy_(
-                    torch.where(active[:, None, None], stepped, w))
-                opt_state = _select(active, opt_state_new, state.opt_state)
-                buffer = buf_next.copy_(torch.where(
-                    (active | fresh)[:, None, None], new_params, buffer))
-            age = torch.where(active | fresh, 0, age + 1).to(torch.int32)
-            clock = clock + active.to(torch.int32)
+            with obs.span("train.update"):
+                (partners, coefs), = rounds
+                partner = partners[0].long()
+                buf_next = self._other(buffer, self._buf)
+                if self._fused is not None:
+                    new_params, opt_state_new, buffer = self._fused_step(
+                        w, w, g, state.opt_state, partners, coefs, out=w_next,
+                        active=active, buffer=buffer, buffer_out=buf_next,
+                        nbr_fresh=fresh[partner], publish=active | fresh)
+                    opt_state = self._select_nonflat(active, opt_state_new,
+                                                     state.opt_state)
+                else:
+                    remote = torch.where(fresh[:, None, None], w, buffer)
+                    mixed = mix_pair_gather(w, partner, remote)
+                    updates, opt_state_new = self._opt_update(
+                        g, state.opt_state, w, mixed)
+                    stepped = apply_updates(mixed, updates)
+                    new_params = w_next.copy_(
+                        torch.where(active[:, None, None], stepped, w))
+                    opt_state = _select(active, opt_state_new, state.opt_state)
+                    buffer = buf_next.copy_(torch.where(
+                        (active | fresh)[:, None, None], new_params, buffer))
+                age = torch.where(active | fresh, 0, age + 1).to(torch.int32)
+                clock = clock + active.to(torch.int32)
 
         # centered two-pass variance on the flat buffer (pads contribute 0)
-        gsq = torch.sum(torch.square(g), dim=(1, 2))
-        if mem is None:
-            nact = torch.full((), float(n), device=dev)
-            loss, gsq_mean = torch.mean(losses), torch.mean(gsq)
-            g_mean = torch.mean(g, dim=0)
-            dev_w = new_params - torch.mean(new_params, dim=0)
-            sigma = torch.sum(torch.square(dev_w)) / n
-        else:       # live-only statistics: quarantined rows are excluded
-            act = mem.active
-            m3 = act[:, None, None]
-            nact = torch.clamp(torch.sum(act), min=1).to(torch.float32)
-            loss = torch.sum(torch.where(act, losses, 0.0)) / nact
-            gsq_mean = torch.sum(torch.where(act, gsq, 0.0)) / nact
-            g_mean = torch.sum(torch.where(m3, g, 0.0), dim=0) / nact
-            w_mean = torch.sum(torch.where(m3, new_params, 0.0),
-                               dim=0) / nact
-            dev_w = torch.where(m3, new_params - w_mean[None], 0.0)
-            sigma = torch.sum(torch.square(dev_w)) / nact
-        metrics = StepMetrics(
-            loss=loss,
-            grad_norm=torch.sqrt(torch.sum(torch.square(g_mean))),
-            sigma_w_sq=sigma,
-            staleness_mean=stale_mean,
-            staleness_max=stale_max,
-            n_active=nact,
-            grad_sq_mean=gsq_mean,
-        )
+        with obs.span("train.stats"):
+            gsq = torch.sum(torch.square(g), dim=(1, 2))
+            if mem is None:
+                nact = torch.full((), float(n), device=dev)
+                loss, gsq_mean = torch.mean(losses), torch.mean(gsq)
+                g_mean = torch.mean(g, dim=0)
+                dev_w = new_params - torch.mean(new_params, dim=0)
+                sigma = torch.sum(torch.square(dev_w)) / n
+            else:       # live-only statistics: quarantined rows are excluded
+                act = mem.active
+                m3 = act[:, None, None]
+                nact = torch.clamp(torch.sum(act), min=1).to(torch.float32)
+                loss = torch.sum(torch.where(act, losses, 0.0)) / nact
+                gsq_mean = torch.sum(torch.where(act, gsq, 0.0)) / nact
+                g_mean = torch.sum(torch.where(m3, g, 0.0), dim=0) / nact
+                w_mean = torch.sum(torch.where(m3, new_params, 0.0),
+                                   dim=0) / nact
+                dev_w = torch.where(m3, new_params - w_mean[None], 0.0)
+                sigma = torch.sum(torch.square(dev_w)) / nact
+            metrics = StepMetrics(
+                loss=loss,
+                grad_norm=torch.sqrt(torch.sum(torch.square(g_mean))),
+                sigma_w_sq=sigma,
+                staleness_mean=stale_mean,
+                staleness_max=stale_max,
+                n_active=nact,
+                grad_sq_mean=gsq_mean,
+            )
         return TrainState(new_params, opt_state, state.step + 1, state.seed,
                           buffer=buffer, age=age, clock=clock,
                           members=mem), metrics

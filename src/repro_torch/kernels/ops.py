@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import obs
 from ..core.flatstate import flatten_for_kernel
 from . import ref
 from .decode_attention import paged_decode_attention_fwd
@@ -38,9 +39,10 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
         return ref.paged_decode_attention_ref(
             q, k_pages, v_pages, page_table, lengths, window=window,
             attn_softcap=attn_softcap)
-    return paged_decode_attention_fwd(
-        q, k_pages, v_pages, page_table, lengths, window=window,
-        attn_softcap=attn_softcap)
+    with obs.span("kernel.paged_decode"):
+        return paged_decode_attention_fwd(
+            q, k_pages, v_pages, page_table, lengths, window=window,
+            attn_softcap=attn_softcap)
 
 
 def _use_plain(t: torch.Tensor, backend: str) -> bool:
@@ -75,9 +77,10 @@ class FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, causal, window, attn_softcap):
         ctx.save_for_backward(q, k, v)
         ctx.mask = (causal, window, attn_softcap)
-        o = flash_attention_fwd(q.transpose(1, 2), k.transpose(1, 2),
-                                v.transpose(1, 2), causal=causal,
-                                window=window, attn_softcap=attn_softcap)
+        with obs.span("kernel.flash_fwd"):
+            o = flash_attention_fwd(q.transpose(1, 2), k.transpose(1, 2),
+                                    v.transpose(1, 2), causal=causal,
+                                    window=window, attn_softcap=attn_softcap)
         return o.transpose(1, 2)
 
     @staticmethod
@@ -135,10 +138,11 @@ def flat_gossip_update(w, remote, grads, momentum, partners, coefs, *,
     has_momentum = momentum is not None
     mu = momentum if has_momentum else w      # not read without momentum
     if not _use_plain(w, backend):
-        res = gossip_mix_update_flat(
-            w, remote, grads, mu, partners, coefs, lr=lr, beta=beta,
-            weight_decay=weight_decay, has_momentum=has_momentum,
-            buffer=buffer, out=out, buffer_out=buffer_out)
+        with obs.span("kernel.gossip_update"):
+            res = gossip_mix_update_flat(
+                w, remote, grads, mu, partners, coefs, lr=lr, beta=beta,
+                weight_decay=weight_decay, has_momentum=has_momentum,
+                buffer=buffer, out=out, buffer_out=buffer_out)
         return (res[0], momentum) + tuple(res[2:])
     check_outputs({"w": w, "remote": remote, "grads": grads,
                    "momentum": momentum, "buffer": buffer},

@@ -44,6 +44,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from .. import obs
 from ..configs.base import ModelConfig
 from ..device import resolve_device
 from . import convert, encdec, transformer
@@ -117,9 +118,10 @@ def _text_loss(params, cfg: ModelConfig, x, batch):
     """The masked cross-entropy over the text of the final hidden states
     ``x``.  ``params``: anything with ``embed``, ``final_norm``,
     ``lm_head``."""
-    logits = transformer.logits_from_hidden(params, cfg, x)
-    return cross_entropy(logits[:, _n_patches(cfg):], batch["labels"],
-                         batch.get("mask"), logical_vocab=cfg.vocab)
+    with obs.span("model.head"):
+        logits = transformer.logits_from_hidden(params, cfg, x)
+        return cross_entropy(logits[:, _n_patches(cfg):], batch["labels"],
+                             batch.get("mask"), logical_vocab=cfg.vocab)
 
 
 def build_model(cfg: ModelConfig, device=None) -> ModelAPI:

@@ -43,6 +43,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from .. import obs
 from ..configs.base import ModelConfig
 from .attention import (attn_decode, attn_decode_paged,
                         attn_decode_sharded, attn_forward, init_attn_cache,
@@ -206,8 +207,9 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> TransformerParams:
 # ---------------------------------------------------------------------------
 
 def embed_tokens(params: TransformerParams, cfg: ModelConfig, tokens):
-    scale = weak_scalar(math.sqrt(cfg.d_model), params.embed.dtype)
-    return params.embed[tokens.long()] * scale
+    with obs.span("model.embed"):
+        scale = weak_scalar(math.sqrt(cfg.d_model), params.embed.dtype)
+        return params.embed[tokens.long()] * scale
 
 
 def logits_from_hidden(params: TransformerParams, cfg: ModelConfig, x):
@@ -228,19 +230,20 @@ def _mlp(lp: LayerParams, x, cfg: ModelConfig, mlp: str):
     no model axis), as the reference does."""
     if mlp == "none":
         return x
-    h = rms_norm(x, lp.norm2, cfg.norm_eps)
-    if mlp == "moe":
-        if cfg.moe_backend == "shard_map" and shardmap_applicable(
-                cfg.n_experts, h.shape[1]):
-            return x + moe_forward_shardmap(
-                lp.mlp, h, n_experts=cfg.n_experts,
-                top_k=cfg.experts_per_tok,
-                capacity_factor=cfg.capacity_factor)
-        return x + moe_forward(lp.mlp, h, n_experts=cfg.n_experts,
-                               top_k=cfg.experts_per_tok,
-                               capacity_factor=cfg.capacity_factor)
-    f = lp.mlp
-    return x + swiglu(h, f.w1, f.w3, f.w2)
+    with obs.span("model.moe" if mlp == "moe" else "model.mlp"):
+        h = rms_norm(x, lp.norm2, cfg.norm_eps)
+        if mlp == "moe":
+            if cfg.moe_backend == "shard_map" and shardmap_applicable(
+                    cfg.n_experts, h.shape[1]):
+                return x + moe_forward_shardmap(
+                    lp.mlp, h, n_experts=cfg.n_experts,
+                    top_k=cfg.experts_per_tok,
+                    capacity_factor=cfg.capacity_factor)
+            return x + moe_forward(lp.mlp, h, n_experts=cfg.n_experts,
+                                   top_k=cfg.experts_per_tok,
+                                   capacity_factor=cfg.capacity_factor)
+        f = lp.mlp
+        return x + swiglu(h, f.w1, f.w3, f.w2)
 
 
 def _mamba_kw(cfg: ModelConfig):
@@ -255,26 +258,28 @@ _XLSTM_DECODE = {"mlstm": mlstm_block_decode, "slstm": slstm_block_decode}
 def _layer_forward(lp: LayerParams, x, cfg: ModelConfig, mixer: str,
                    mlp: str, rope_fn, positions):
     if mixer in XLSTM:
-        x = _XLSTM_FORWARD[mixer](lp.mixer, x, n_heads=cfg.n_heads,
-                                  chunk=cfg.scan_chunk,
-                                  norm_eps=cfg.norm_eps)
+        with obs.span("model.xlstm"):
+            x = _XLSTM_FORWARD[mixer](lp.mixer, x, n_heads=cfg.n_heads,
+                                      chunk=cfg.scan_chunk,
+                                      norm_eps=cfg.norm_eps)
         return _mlp(lp, x, cfg, mlp)
-    h = rms_norm(x, lp.norm1, cfg.norm_eps)
-    if mixer == "mamba":
-        x = x + mamba_forward(lp.mixer, h, scan_chunk=cfg.scan_chunk,
-                              **_mamba_kw(cfg))
-    else:
-        # M-RoPE: (3, S) ids rotate q and k, their t row masks
-        x = x + attn_forward(lp.mixer, h, n_heads=cfg.n_heads,
-                             n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim_,
-                             rope_fn=rope_fn, q_positions=positions,
-                             window=_window(cfg, mixer),
-                             attn_softcap=cfg.attn_softcap,
-                             chunk=cfg.attn_chunk,
-                             use_pallas=cfg.use_pallas,
-                             mask_positions=(positions[0]
-                                             if cfg.mrope_sections
-                                             else None))
+    with obs.span("model.mamba" if mixer == "mamba" else "model.attn"):
+        h = rms_norm(x, lp.norm1, cfg.norm_eps)
+        if mixer == "mamba":
+            x = x + mamba_forward(lp.mixer, h, scan_chunk=cfg.scan_chunk,
+                                  **_mamba_kw(cfg))
+        else:
+            # M-RoPE: (3, S) ids rotate q and k, their t row masks
+            x = x + attn_forward(lp.mixer, h, n_heads=cfg.n_heads,
+                                 n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim_,
+                                 rope_fn=rope_fn, q_positions=positions,
+                                 window=_window(cfg, mixer),
+                                 attn_softcap=cfg.attn_softcap,
+                                 chunk=cfg.attn_chunk,
+                                 use_pallas=cfg.use_pallas,
+                                 mask_positions=(positions[0]
+                                                 if cfg.mrope_sections
+                                                 else None))
     return _mlp(lp, x, cfg, mlp)
 
 
@@ -324,7 +329,9 @@ def apply(params: TransformerParams, cfg: ModelConfig, tokens,
         positions = torch.arange(x.shape[1], device=x.device)
         if cfg.mrope_sections:
             positions = positions.expand(3, -1)
-    return logits_from_hidden(params, cfg, forward(params, cfg, x, positions))
+    x = forward(params, cfg, x, positions)
+    with obs.span("model.head"):
+        return logits_from_hidden(params, cfg, x)
 
 
 # ---------------------------------------------------------------------------
@@ -376,16 +383,18 @@ def _recurrent_decode(lp: LayerParams, cc, x, cfg: ModelConfig, mixer: str,
     """A recurrent mixer's decode step: returns x after the mixer and its
     residual, and writes the new state into ``cc`` (slots with
     advance=False keep theirs bitwise)."""
-    if mixer == "mamba":
-        h, new = mamba_decode(lp.mixer, cc, rms_norm(x, lp.norm1,
-                                                     cfg.norm_eps),
-                              **_mamba_kw(cfg))
-        x = x + h
-    else:
-        x, new = _XLSTM_DECODE[mixer](lp.mixer, cc, x, n_heads=cfg.n_heads,
-                                      norm_eps=cfg.norm_eps)
-    _write_state(cc, new, advance)
-    return x
+    with obs.span("model.mamba" if mixer == "mamba" else "model.xlstm"):
+        if mixer == "mamba":
+            h, new = mamba_decode(lp.mixer, cc, rms_norm(x, lp.norm1,
+                                                         cfg.norm_eps),
+                                  **_mamba_kw(cfg))
+            x = x + h
+        else:
+            x, new = _XLSTM_DECODE[mixer](lp.mixer, cc, x,
+                                          n_heads=cfg.n_heads,
+                                          norm_eps=cfg.norm_eps)
+        _write_state(cc, new, advance)
+        return x
 
 
 # ---------------------------------------------------------------------------
@@ -444,14 +453,16 @@ def decode_step(params: TransformerParams, cfg: ModelConfig, cache, tokens,
                       head_dim=cfg.head_dim_, rope_fn=rope_fn,
                       attn_softcap=cfg.attn_softcap)
             if mixer in ("attn", "attn_local"):
-                h = rms_norm(x, lp.norm1, cfg.norm_eps)
-                if seq_shard is None:
-                    h, _ = attn_decode(lp.mixer, cc, h, pos, **kw)
-                else:
-                    h, _ = attn_decode_sharded(
-                        lp.mixer, cc, h, pos, rank=seq_shard.rank,
-                        size=seq_shard.size, merge=seq_shard.merge, **kw)
-                x = x + h
+                with obs.span("model.attn"):
+                    h = rms_norm(x, lp.norm1, cfg.norm_eps)
+                    if seq_shard is None:
+                        h, _ = attn_decode(lp.mixer, cc, h, pos, **kw)
+                    else:
+                        h, _ = attn_decode_sharded(
+                            lp.mixer, cc, h, pos, rank=seq_shard.rank,
+                            size=seq_shard.size, merge=seq_shard.merge,
+                            **kw)
+                    x = x + h
             elif seq_shard is not None:
                 full = seq_shard.state(f"l{i}", cc)
                 x = _recurrent_decode(lp, full, x, cfg, mixer)
@@ -459,7 +470,8 @@ def decode_step(params: TransformerParams, cfg: ModelConfig, cache, tokens,
             else:
                 x = _recurrent_decode(lp, cc, x, cfg, mixer)
             x = _mlp(lp, x, cfg, mlp)
-    return logits_from_hidden(params, cfg, x), cache
+    with obs.span("model.head"):
+        return logits_from_hidden(params, cfg, x), cache
 
 
 # ---------------------------------------------------------------------------
@@ -490,14 +502,16 @@ def _layer_decode_paged(lp: LayerParams, cc, x, positions, page_table,
                         cfg: ModelConfig, mixer: str, mlp: str, rope_fn,
                         advance):
     if mixer in ("attn", "attn_local"):
-        h, _ = attn_decode_paged(lp.mixer, cc,
-                                 rms_norm(x, lp.norm1, cfg.norm_eps),
-                                 positions, page_table,
-                                 n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
-                                 head_dim=cfg.head_dim_, rope_fn=rope_fn,
-                                 attn_softcap=cfg.attn_softcap,
-                                 window=_window(cfg, mixer))
-        x = x + h
+        with obs.span("model.attn"):
+            h, _ = attn_decode_paged(lp.mixer, cc,
+                                     rms_norm(x, lp.norm1, cfg.norm_eps),
+                                     positions, page_table,
+                                     n_heads=cfg.n_heads,
+                                     n_kv=cfg.n_kv_heads,
+                                     head_dim=cfg.head_dim_, rope_fn=rope_fn,
+                                     attn_softcap=cfg.attn_softcap,
+                                     window=_window(cfg, mixer))
+            x = x + h
     else:
         x = _recurrent_decode(lp, cc, x, cfg, mixer, advance)
     return _mlp(lp, x, cfg, mlp)
@@ -527,7 +541,8 @@ def paged_decode_step(params: TransformerParams, cfg: ModelConfig, cache,
             x = _layer_decode_paged(period[f"l{i}"], pc[f"l{i}"], x,
                                     positions, page_table, cfg, mixer, mlp,
                                     rope_fn, advance)
-    return logits_from_hidden(params, cfg, x), cache
+    with obs.span("model.head"):
+        return logits_from_hidden(params, cfg, x), cache
 
 
 def reset_slot(cache, slot: int):

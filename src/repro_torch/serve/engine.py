@@ -51,6 +51,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from .. import obs
 from .paging import OutOfPages, PageAllocator
 
 FREE, PREFILL, DECODE = "free", "prefill", "decode"
@@ -192,11 +193,13 @@ class ServeEngine:
             return torch.from_numpy(a).to(self.device)
 
         with torch.inference_mode():
-            logits, self.cache = self.api.paged_decode_step(
-                self.params, self.cache, dev(tokens), dev(positions),
-                dev(self.page_table), dev(adv_mask))
-            best = logits[:, 0, :self.api.cfg.vocab].argmax(-1)
-            return np.asarray(best.cpu())       # lint: allow-host-sync
+            with obs.span("serve.model"):
+                logits, self.cache = self.api.paged_decode_step(
+                    self.params, self.cache, dev(tokens), dev(positions),
+                    dev(self.page_table), dev(adv_mask))
+                best = logits[:, 0, :self.api.cfg.vocab].argmax(-1)
+            with obs.span("serve.readback"):
+                return np.asarray(best.cpu())   # lint: allow-host-sync
 
     def warmup(self) -> None:
         """Run one step before any request is admitted: every write lands
@@ -210,60 +213,67 @@ class ServeEngine:
         """One engine step: admit, run the fused decode, sample, evict.
         Returns the number of tokens generated this step (0 on an idle
         step, which still advances the clock)."""
-        self._admit()
-        active = [s for s in self.slots if s.state != FREE]
-        if not active:
-            self.step_count += 1
-            return 0
+        with obs.span("serve.step"):
+            with obs.span("serve.admit"):
+                self._admit()
+            active = [s for s in self.slots if s.state != FREE]
+            if not active:
+                self.step_count += 1
+                return 0
 
-        S = self.n_slots
-        tokens = np.zeros((S, 1), np.int32)
-        positions = np.zeros((S,), np.int32)
-        adv_mask = np.zeros((S,), bool)
-        advance = []
-        for slot in active:
-            if not self._ensure_page(slot):
-                positions[slot.index] = slot.pos   # stalled: re-fed later;
-                continue                           # write -> scratch page
-            req = slot.req
-            if slot.pos < len(req.prompt):
-                tokens[slot.index, 0] = req.prompt[slot.pos]
-            else:
-                tokens[slot.index, 0] = req.generated[-1]
-            positions[slot.index] = slot.pos
-            adv_mask[slot.index] = True
-            advance.append(slot)
+            with obs.span("serve.prepare"):
+                S = self.n_slots
+                tokens = np.zeros((S, 1), np.int32)
+                positions = np.zeros((S,), np.int32)
+                adv_mask = np.zeros((S,), bool)
+                advance = []
+                for slot in active:
+                    if not self._ensure_page(slot):
+                        # stalled: re-fed later; write -> scratch page
+                        positions[slot.index] = slot.pos
+                        continue
+                    req = slot.req
+                    if slot.pos < len(req.prompt):
+                        tokens[slot.index, 0] = req.prompt[slot.pos]
+                    else:
+                        tokens[slot.index, 0] = req.generated[-1]
+                    positions[slot.index] = slot.pos
+                    adv_mask[slot.index] = True
+                    advance.append(slot)
 
-        if not advance:
-            raise OutOfPages(
-                f"deadlock: all {len(active)} active slot(s) stalled on an "
-                f"exhausted pool of {self.n_pages - 1} page(s) and no "
-                "eviction can free any; size n_pages for the expected "
-                "concurrency")
+            if not advance:
+                raise OutOfPages(
+                    f"deadlock: all {len(active)} active slot(s) stalled on "
+                    f"an exhausted pool of {self.n_pages - 1} page(s) and "
+                    "no eviction can free any; size n_pages for the "
+                    "expected concurrency")
 
-        best = self._run(tokens, positions, adv_mask)
+            best = self._run(tokens, positions, adv_mask)
 
-        made = 0
-        for slot in advance:
-            req = slot.req
-            slot.pos += 1
-            if slot.pos < len(req.prompt):
-                continue                           # still prefilling
-            if slot.state == PREFILL:
-                slot.state = DECODE
-            tok = int(best[slot.index])
-            req.generated.append(tok)
-            made += 1
-            if req.first_token_step < 0:
-                req.first_token_step = self.step_count
-            if ((req.eos_id is not None and tok == req.eos_id)
-                    or len(req.generated) >= req.max_new_tokens):
-                req.finish_step = self.step_count
-                self._evict(slot)
-        self.generated_total += made
-        self.step_count += 1
-        self.real_steps += 1
-        return made
+            with obs.span("serve.finish"):
+                made = 0
+                for slot in advance:
+                    req = slot.req
+                    slot.pos += 1
+                    if slot.pos < len(req.prompt):
+                        continue                   # still prefilling
+                    if slot.state == PREFILL:
+                        slot.state = DECODE
+                    tok = int(best[slot.index])
+                    req.generated.append(tok)
+                    made += 1
+                    if req.first_token_step < 0:
+                        req.first_token_step = self.step_count
+                    if ((req.eos_id is not None and tok == req.eos_id)
+                            or len(req.generated) >= req.max_new_tokens):
+                        req.finish_step = self.step_count
+                        self._evict(slot)
+                self.generated_total += made
+                self.step_count += 1
+                self.real_steps += 1
+            obs.count("serve.slot_steps", len(advance))
+            obs.count("serve.tokens", made)
+            return made
 
     def run(self, max_steps: int = 100_000) -> None:
         """Drain the queue and all active slots (closed-loop drivers)."""
