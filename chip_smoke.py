@@ -110,6 +110,17 @@ Phases (any failure raises and the script exits non-zero):
      and the bound (the tensor-core kernel: q.k once and P.V twice at the
      bf16 rate; the float32 kernel: the slower of q.k in float32 FMAs and
      P.V three times at the TF32 rate, beside both at the float32 rate);
+     also at the benchmark's flash4k shape (transformer-100m, B 2, S
+     4,096, float32);
+  2f. the flash backward kernel at every shape 2d times (the hd-256 shape
+     keeps the plain version's recompute, statically): dq, dk, dv against
+     its plain version (``ref.flash_attention_bwd_ref``) and against
+     autograd through the dense recompute on the first kv heads, float32
+     within 1e-5 of each gradient's largest element, bf16 within one bf16
+     ulp of the plain version; then its time, the recompute's (where its
+     score tensors fit), SDPA's backward where one call computes the same
+     function, and the bound (q.k and dO.v in float32 FMAs, dV, dK, dQ in
+     three TF32 terms; bf16: all five products at the bf16 rate);
   2e. the single-learner gossip kernel through ``ops.dpsgd_fused_update``
      on transformer-100m's full parameter tree with 2 neighbour trees,
      bitwise equal to ``backend="ref"``, then its time;
@@ -118,10 +129,12 @@ Phases (any failure raises and the script exits non-zero):
      ``use_pallas``: ``api.apply`` prefill of 8,192 tokens (2 flash
      launches, finite logits, the last 64 positions equal to the chunked
      route's within a bf16 tier), then ``loss_fn`` + backward at 4,608
-     tokens (2 launches, finite gradients, both layers' ``wq`` gradients
-     equal to the chunked route's within the tier);
+     tokens (2 forward and 2 backward launches, finite gradients, both
+     layers' ``wq`` gradients equal to the chunked route's within the
+     tier);
   8. transformer-100m trained as in phase 4 with ``use_pallas``: 48 flash
-     launches per step, the first 2 losses equal to phase 4's within 1e-5
+     forward and 48 backward launches per step, the first 2 losses equal
+     to phase 4's within 1e-5
      relative, step time, idle share and kernels per step beside phase
      4's;
   9. the pytree engine at full width, transformer-100m with phase 4's
@@ -507,7 +520,24 @@ FLASH_TIMED = {   # (B, H, KV, hd, S, dtype, mask, library call or None)
     # the float32 kernel's hd-256 instance: 16 heads of 256,
     # as gemma-7b's, causal, float32
     "hd256_f32": (1, 16, 16, 256, 2048, _F32, dict(causal=True), "sdpa"),
+    # the benchmark's train.t100m.flash4k cell: one learner's call
+    "train_100m_flash4k": (2, 12, 12, 64, 4096, _F32, dict(causal=True),
+                           "sdpa"),
 }
+# the backward kernel against its plain version (the same formulas,
+# dense) and autograd through the dense recompute (the route's backward
+# before it), on the first FLASH_BWD_KV kv heads of each timed shape so
+# the plain versions' (S, S) tensors stay a few GB: float32 per gradient
+# within FLASH_GRAD_RTOL_F32 of its largest element, and at least 1e-5
+# (the tests' GRAD_RTOL_F32 and GRAD_ATOL); bf16 within one bf16 ulp of
+# the plain version (2d's rule) and FLASH_GRAD_RTOL_BF16 (norm) of the
+# recompute, which sums D as sum P dP in float32 where the kernel takes
+# the bf16-rounded output
+FLASH_GRAD_RTOL_F32, FLASH_GRAD_RTOL_BF16 = 1e-5, 1e-2
+FLASH_BWD_KV = 2
+# the recompute is timed whole where a score tensor holds at most this
+# many elements (2.1 GB in float32; its autograd keeps several)
+FLASH_BWD_PLAIN_MAX = 2 ** 29
 # transformer-100m with use_pallas against phase 4's chunked route
 FLASH_TRAIN_WARM, FLASH_TRAIN_TIMED, FLASH_TRAIN_PROF = 2, 4, 2
 FLASH_TRAIN_LOSS_RTOL = 1e-5
@@ -2587,6 +2617,192 @@ def flash_phase():
 
 
 # ---------------------------------------------------------------------------
+# phase 2f: the flash backward against its plain version and the recompute
+# ---------------------------------------------------------------------------
+
+def flash_recompute_grads(q, k, v, do, kw):
+    """Autograd through the dense plain version: the route's backward
+    before the kernel."""
+    from repro_torch.kernels import ref
+    qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+    return torch.autograd.grad(ref.flash_attention_ref(*qkv, **kw), qkv, do)
+
+
+def flash_grad_error(got, want, dtype, norm=False):
+    """(max |got - want|, that over its tolerance) for one gradient:
+    float32 FLASH_GRAD_RTOL_F32 of want's largest element; bf16 one bf16
+    ulp plus 1e-3 rms (``flash_error``'s rule), or with ``norm``,
+    ||got - want|| / ||want|| over FLASH_GRAD_RTOL_BF16."""
+    g, w = got.float(), want.float()
+    err = float((g - w).abs().max())
+    if dtype == _F32:
+        tol = max(1e-5, FLASH_GRAD_RTOL_F32 * float(w.abs().max()))
+        return err, err / tol
+    if norm:
+        return err, float((g - w).norm() / w.norm()) / FLASH_GRAD_RTOL_BF16
+    return flash_error(got, want, 0)
+
+
+def flash_bwd_phase():
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (
+        backward_kernel_takes, flash_attention_bwd, flash_attention_fwd)
+    kernel = flash_attention_bwd
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    # the first backward on the card gives autograd's worker thread a
+    # cuBLAS workspace that lives as long as the process: make it here, on
+    # an empty cache, so it takes a segment of its own and does not pin
+    # one of the large ones below (one did: 8.3 GB held to phase 13, which
+    # then ran out of memory)
+    torch.cuda.empty_cache()
+    tiny = torch.ones((1, 1, 8, 32), device="cuda")
+    flash_recompute_grads(tiny, tiny, tiny, tiny, dict(causal=True))
+    del tiny
+    timed, errs = {}, {}
+    for j, (label, (B, H, KV, hd, S, dt, kw, lib)) in enumerate(
+            FLASH_TIMED.items()):
+        if not backward_kernel_takes(hd):
+            timed[label] = {"route": "recompute", "why": (
+                f"hd {hd}: no backward instance holds dK and dV in "
+                "registers; FlashAttention keeps the plain version's "
+                "recompute, statically by shape")}
+            continue
+        q, k, v = flash_operands(B, H, KV, hd, S, dt, SEED + 20 + j)
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 40 + j)
+        do = torch.randn((B, S, H, hd), generator=gen, device="cuda").to(
+            dt).transpose(1, 2)
+        o, lse = flash_attention_fwd(q, k, v, return_lse=True, **kw)
+        before = kernel.launches
+        got = kernel(q, k, v, o, lse, do, **kw)
+        torch.cuda.synchronize()
+        check(kernel.launches == before + 1, f"{label}: no backward launch")
+        check(all(bool(torch.isfinite(g).all()) for g in got),
+              f"{label}: non-finite gradients")
+        # the first kv heads and their query heads
+        nk = min(KV, FLASH_BWD_KV)
+        nq = nk * (H // KV)
+        cut = (q[:, :nq], k[:, :nk], v[:, :nk])
+        plain = ref.flash_attention_bwd_ref(
+            *cut, o[:, :nq], lse[:, :nq].contiguous(), do[:, :nq], **kw)
+        recompute = flash_recompute_grads(*cut, do[:, :nq], kw)
+        errs[label] = {}
+        for name, g, p, r in zip(("dq", "dk", "dv"),
+                                 (got[0][:, :nq], got[1][:, :nk],
+                                  got[2][:, :nk]), plain, recompute):
+            e_p, ratio_p = flash_grad_error(g, p, dt)
+            e_r, ratio_r = flash_grad_error(g, r, dt, norm=True)
+            errs[label][name] = {
+                "max_abs_err_vs_plain": e_p, "max_err_over_tol_vs_plain":
+                ratio_p, "max_abs_err_vs_recompute": e_r,
+                "err_over_tol_vs_recompute": ratio_r}
+            check(max(ratio_p, ratio_r) <= 1.0,
+                  f"{label} {name}: {ratio_p} x its tolerance against the "
+                  f"plain backward, {ratio_r} x against the recompute")
+        del got, plain, recompute, cut
+        per_set = sum(t.element_size() * t.numel() for t in (q, k, v, o, do))
+        sets = [(q, k, v, o, lse, do)] + [
+            tuple(t.clone() for t in (q, k, v, o, lse, do))
+            for _ in range(L2_BYTES // per_set)]
+        big = S > 1024
+        kernel_ms = time_ms(lambda *a: kernel(*a, **kw), sets,
+                            iters=10 if big else 50)
+        plain_ms = None
+        if B * H * S * S <= FLASH_BWD_PLAIN_MAX:
+            plain_ms = time_ms(lambda a, b, c, _o, _l, g: (
+                flash_recompute_grads(a, b, c, g, kw)), sets[:1],
+                iters=2 if big else 10)
+        library_ms = None
+        if lib:
+            mask = None
+            if lib == "sdpa_window":
+                pos = torch.arange(S, device="cuda")
+                d = pos[:, None] - pos[None, :]
+                mask = (d >= 0) & (d < kw["window"])
+
+            def sdpa_call(a, b, c, g=None):
+                if g is None:
+                    return sdpa(a, b, c, attn_mask=mask,
+                                is_causal=mask is None, enable_gqa=H != KV)
+                qkv = [t.detach().requires_grad_() for t in (a, b, c)]
+                return torch.autograd.grad(sdpa_call(*qkv), qkv, g)
+            iters = 10 if big else 50
+            library_ms = (
+                time_ms(lambda a, b, c, _o, _l, g: sdpa_call(a, b, c, g),
+                        sets, iters=iters)
+                - time_ms(lambda a, b, c, *_: sdpa_call(a, b, c), sets,
+                          iters=iters))
+            del mask
+        times, _, _, _ = device_times(
+            lambda: [kernel(*sets[i % len(sets)], **kw) for i in range(10)])
+        device_ms, n_ev = per_event_ms(times, "flash_bwd")
+        check(not any("flash_attention" in name for name in times
+                      if "flash_bwd" in name),
+              f"{label}: a backward kernel's name holds flash_attention")
+        pairs = live_pairs(S, S, kw.get("causal", True), kw.get("window", 0))
+        # five products of 2 hd flops a live pair and head: q.k and dO.v
+        # in float32 FMAs; dV, dK, dQ on the tensor cores in three TF32
+        # terms (bf16 B operands in two).  bf16 inputs: the function at the
+        # bf16 tensor-core rate; what the kernel does is kept apart
+        prod = 2 * hd * pairs * B * H
+        flops = 5 * prod
+        nbytes = q.element_size() * (4 * q.numel() + 4 * k.numel())
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        fma, tc = 2 * prod / F32_FLOPS, 3 * 3 * prod / TF32_FLOPS
+        if dt == _BF16:
+            t_ops = flops / BF16_FLOPS
+            parts = {"all_bf16_tensor_cores": t_ops, "kernel_fma": fma,
+                     "kernel_tf32_tensor_cores": 3 * 2 * prod / TF32_FLOPS}
+        else:
+            parts = {"qk_dov_f32_fma": fma, "dv_dk_dq_tf32x3": tc}
+            t_ops = max(parts.values())
+        timed[label] = {
+            "shape": {"B": B, "H": H, "KV": KV, "hd": hd, "S": S,
+                      "dtype": str(dt).replace("torch.", ""), **kw},
+            "route": "kernel", "ms": kernel_ms, "kernel_ms": kernel_ms,
+            "device_ms": device_ms, "device_events": n_ev,
+            "plain_ms": plain_ms,
+            "plain": "autograd through the dense plain version (the "
+                     "recompute)" if plain_ms is not None else
+                     "not timed: its score tensors would not fit beside "
+                     "the rest",
+            "bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "flops": flops, "live_pairs_per_head": pairs,
+            "bound_parts_ms": {"bytes": 1e3 * t_bytes,
+                               **{n: 1e3 * t for n, t in parts.items()}},
+            "kernel": "flash_bwd_kernel + flash_bwd_prep_kernel",
+            "share_of_bound": 1e3 * max(t_bytes, t_ops) / kernel_ms,
+            "library_ms": library_ms,
+            "library": None if lib is None else
+            "the backward of torch.nn.functional.scaled_dot_product_"
+            "attention: its forward and backward, less its forward",
+        }
+        del q, k, v, o, lse, do, sets
+        torch.cuda.empty_cache()
+    print(f"flash_attention_bwd error per timed shape {json.dumps(errs)}",
+          flush=True)
+    main = timed["train_100m_flash4k"]
+    return {
+        "name": "flash_attention_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_bwd.cu",
+        "replaces": None,
+        "why": "the TPU flash kernel has no backward (the reference "
+               "differentiates its oracle, repro/kernels/ops.py::"
+               "_flash_bwd); the route's training recomputed the dense "
+               "scores and differentiated them",
+        "launches": None,
+        "max_abs_err": max(e["max_abs_err_vs_plain"] for g in errs.values()
+                           for e in g.values()),
+        "error_per_timed_shape": errs,
+        **{key: main[key] for key in (
+            "ms", "kernel_ms", "device_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "library", "shape")},
+        "per_shape": timed,
+    }
+
+
+# ---------------------------------------------------------------------------
 # phase 2e: the single-learner gossip kernel through dpsgd_fused_update
 # ---------------------------------------------------------------------------
 
@@ -2757,7 +2973,8 @@ def gemma2_phase(kernels):
     loss, train_ms, launches_t, train_gb = counted(
         lambda: loss_and_grad(api))
     check(launches_t["flash_attention_fwd"] == GEMMA_LAYERS
-          and sum(launches_t.values()) == GEMMA_LAYERS,
+          and launches_t["flash_attention_bwd"] == GEMMA_LAYERS
+          and sum(launches_t.values()) == 2 * GEMMA_LAYERS,
           f"gemma2 loss/backward launches {launches_t}")
     check(all(bool(torch.isfinite(p.grad).all())
                for p in params.parameters()),
@@ -2806,9 +3023,12 @@ def gemma2_phase(kernels):
                           "chunked_peak_gb": train_c_gb,
                           "chunked_block": GEMMA_CHUNK,
                           "flash_launches": launches_t["flash_attention_fwd"],
+                          "flash_bwd_launches":
+                              launches_t["flash_attention_bwd"],
                           "wq_grad_rel_diff_vs_chunked": wq_rel,
                           "tier_rel": GEMMA_BF16_RTOL},
-    }, launches["flash_attention_fwd"] + launches_t["flash_attention_fwd"]
+    }, (launches["flash_attention_fwd"] + launches_t["flash_attention_fwd"],
+        launches_t["flash_attention_bwd"])
 
 
 # ---------------------------------------------------------------------------
@@ -2820,11 +3040,13 @@ def flash_train_phase(kernels, chunked_train):
                      FLASH_TRAIN_PROF, use_pallas=True)
     launches, losses = run.launches, run.losses
     per_step = TRAIN_LEARNERS * run.cfg.n_layers
-    check(launches["flash_attention_fwd"] == run.steps * per_step,
-          f"flash launches {launches['flash_attention_fwd']} != "
-          f"{run.steps} steps x {per_step}")
+    for name in ("flash_attention_fwd", "flash_attention_bwd"):
+        check(launches[name] == run.steps * per_step,
+              f"{name} launches {launches[name]} != {run.steps} steps x "
+              f"{per_step}")
     others = {k: v for k, v in launches.items() if k not in (
-        "flash_attention_fwd", "gossip_mix_update_flat")}
+        "flash_attention_fwd", "flash_attention_bwd",
+        "gossip_mix_update_flat")}
     check(sum(others.values()) == 0, f"other kernels launched: {others}")
     ref = chunked_train["losses"][:2]
     rel = [abs(a - b) / abs(b) for a, b in zip(losses[:2], ref)]
@@ -2848,7 +3070,7 @@ def flash_train_phase(kernels, chunked_train):
         "losses": losses, "chunked_losses_first_2": ref,
         "loss_rel_diff_first_2": rel,
         "kernel_launches": launches,
-    }, launches["flash_attention_fwd"]
+    }, (launches["flash_attention_fwd"], launches["flash_attention_bwd"])
 
 
 # ---------------------------------------------------------------------------
@@ -5790,7 +6012,7 @@ def audit_phase(kernels, launch_audit=None):
 ONLY = {
     "2": lambda k: {"decode": decode_attention_phase(),
                     "gossip": gossip_phase(), "reorth": reorth_phase(),
-                    "flash": flash_phase(),
+                    "flash": flash_phase(), "flash_bwd": flash_bwd_phase(),
                     "gossip_single": gossip_single_phase(k)},
     "3": lambda k: serve_phase(k)[0],
     "4": lambda k: train_phase(k)[0],
@@ -5832,7 +6054,7 @@ def main(argv=None) -> int:
     card = card_line()
     print(f"card: {card}", flush=True)
     sources = [decode_attention.SOURCE, gossip_mix.SOURCE, reorth.SOURCE,
-               flash_attention.SOURCE]
+               flash_attention.SOURCE, flash_attention.BWD_SOURCE]
     t0 = time.perf_counter()
     cuda_build.build_all(sources)
     print(f"build: {len(sources)} kernel source(s) in "
@@ -5841,7 +6063,8 @@ def main(argv=None) -> int:
                gossip_mix.gossip_mix_update_flat,
                reorth.reorth_dots, reorth.reorth_axpy,
                gossip_mix.gossip_mix_update,
-               flash_attention.flash_attention_fwd]
+               flash_attention.flash_attention_fwd,
+               flash_attention.flash_attention_bwd]
     if args.only is not None:
         print(json.dumps({f"phase_{args.only}": ONLY[args.only](kernels)}),
               flush=True)
@@ -5869,6 +6092,9 @@ def main(argv=None) -> int:
     mark("2c_reorth")
     flash_record = flash_phase()
     mark("2d_flash")
+    flash_bwd_record = flash_bwd_phase()
+    torch.cuda.empty_cache()
+    mark("2f_flash_bwd")
     single_record = gossip_single_phase(kernels)
     torch.cuda.empty_cache()
     mark("2e_gossip_single")
@@ -5907,16 +6133,21 @@ def main(argv=None) -> int:
     table1 = table1_phase(kernels)
     print(json.dumps({"table1": table1}), flush=True)
     mark("6_table1")
-    gemma, gemma_launches = gemma2_phase(kernels)
+    gemma, (gemma_launches, gemma_bwd) = gemma2_phase(kernels)
     print(json.dumps({"gemma2": gemma}), flush=True)
     mark("7_gemma2")
-    flash_train, train_launches = flash_train_phase(kernels, train)
+    flash_train, (train_launches, train_bwd) = flash_train_phase(kernels,
+                                                                 train)
     print(json.dumps({"flash_train": flash_train}), flush=True)
     mark("8_flash_train")
     flash_record["launches"] = gemma_launches + train_launches
     flash_record["launches_by_path"] = {
         "gemma2_prefill_and_loss_backward": gemma_launches,
         "transformer_100m_use_pallas_training": train_launches}
+    flash_bwd_record["launches_by_path"] = {
+        "gemma2_loss_backward": gemma_bwd,
+        "transformer_100m_use_pallas_training": train_bwd}
+    flash_bwd_record["launches"] = gemma_bwd + train_bwd
     pytree, pytree_gossip = pytree_phase(kernels, train)
     print(json.dumps({"pytree_engine": pytree}), flush=True)
     mark("9_pytree_engine")
@@ -5988,7 +6219,8 @@ def main(argv=None) -> int:
     print(card, flush=True)
     print(json.dumps({"kernels": [decode_record, gossip_record, dots_record,
                                   axpy_record, single_record,
-                                  flash_record]}), flush=True)
+                                  flash_record, flash_bwd_record]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

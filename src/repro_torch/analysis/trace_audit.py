@@ -84,7 +84,8 @@ def kernel_wrappers() -> dict:
     fns = (decode_attention.paged_decode_attention_fwd,
            gossip_mix.gossip_mix_update_flat, gossip_mix.gossip_mix_update,
            reorth.reorth_dots, reorth.reorth_axpy,
-           flash_attention.flash_attention_fwd)
+           flash_attention.flash_attention_fwd,
+           flash_attention.flash_attention_bwd)
     return {f.__name__: f for f in fns}
 
 

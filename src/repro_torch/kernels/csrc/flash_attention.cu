@@ -12,10 +12,13 @@
 //   m'   = max(m, max_j s);  p = exp(s - m');  corr = exp(m - m')
 //   l'   = l * corr + sum_j p;  acc' = acc * corr + p V
 //   out  = acc / max(l, 1e-30), written in q's dtype
+//   lse  = m + log(max(l, 1e-30)) in float32, (B, H, Sq), where asked
 //
 // with positions contiguous from 0 and NEG_INF = -1e30 (not -inf), so a
 // row that a tile masks entirely takes p = 1 there until a live tile
-// wipes it with corr = 0, as in the TPU kernel.
+// wipes it with corr = 0, as in the TPU kernel.  The row statistic lse is
+// what the backward (flash_bwd.cu) rebuilds P from, tile by tile; a null
+// pointer (inference, prefill) stores nothing and changes nothing else.
 //
 // Two kernels, chosen by the wrapper from (dtype, hd) alone:
 // flash_attention_tc_kernel for bf16 q, k, v at hd 64 or 128 (every
@@ -268,7 +271,8 @@ flash_attention_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            long long ks, long long vb, long long vh,
                            long long vs, long long ob, long long oh,
                            long long os, int causal, int window,
-                           float softcap, float scale) {
+                           float softcap, float scale,
+                           float* __restrict__ lse) {
   using L = Layout<T, HD, KG, KK>;
   using W = Warps<MT, KG>;
   constexpr int kLd = L::kLd;
@@ -534,13 +538,16 @@ flash_attention_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   // out = O / max(l, 1e-30) (one reciprocal a row), rows past Sq not
-  // written
+  // written; lse = m + log(max(l, 1e-30)) where asked, by the quad's
+  // first thread
   T* op = out + b * ob + h * oh + 2 * t4;
+  float* lrow = lse ? lse + ((long long)b * gridDim.x + h) * Sq : nullptr;
 #pragma unroll
   for (int r2 = 0; r2 < NR; ++r2) {
     const int qpos = wq0 + 8 * r2 + g;
     if (qpos < Sq) {
       T* orow = op + (long long)qpos * os;
+      if (lrow && t4 == 0) lrow[qpos] = m[r2] + logf(fmaxf(l[r2], 1e-30f));
       const float inv = 1.f / fmaxf(l[r2], 1e-30f);
 #pragma unroll
       for (int n = 0; n < NT; ++n) {
@@ -567,7 +574,8 @@ flash_attention_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
            int H, int KV, int Sq, int Sk, const long long* st, int causal,
-           int window, float softcap, float scale, cudaStream_t stream) {
+           int window, float softcap, float scale, float* lse,
+           cudaStream_t stream) {
   constexpr int MT = HD >= 128 ? 1 : 2;
   constexpr int KG = HD >= 128 ? 1 : 4;
   constexpr int KK = HD == 128 ? 64 : 32;
@@ -582,7 +590,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   kern<<<grid, Warps<MT, KG>::kThreads, bytes, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)out, H / KV, Sq, Sk, st[0],
       st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10],
-      st[11], causal, window, softcap, scale);
+      st[11], causal, window, softcap, scale, lse);
   return (int)cudaGetLastError();
 }
 
@@ -811,7 +819,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
                           __nv_bfloat16* __restrict__ out, int G, int Sq,
                           int Sk, long long ob, long long oh, long long os,
                           int causal, int window, float softcap,
-                          float scale) {
+                          float scale, float* __restrict__ lse) {
   using L = Layout<HD>;
   constexpr int NO = HD / 2;                  // O accumulator per thread
   extern __shared__ __align__(128) unsigned char smem_tc[];
@@ -1024,7 +1032,8 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
   wgmma_wait_all();
   fence_regs(o);
 
-  // out = O / max(l, 1e-30) in bf16, rows past Sq not written
+  // out = O / max(l, 1e-30) in bf16, rows past Sq not written; lse =
+  // m + log(max(l, 1e-30)) where asked, by the quad's first thread
   const float inv0 = 1.f / fmaxf(l0, 1e-30f);
   const float inv1 = 1.f / fmaxf(l1, 1e-30f);
   __nv_bfloat16* op = out + b * ob + h * oh;
@@ -1032,6 +1041,10 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
   for (int half = 0; half < 2; ++half) {
     const int qpos = q0 + r0 + 8 * half;
     if (qpos < Sq) {
+      if (lse && t4 == 0) {
+        lse[((long long)b * gridDim.x + h) * Sq + qpos] =
+            half ? m1 + logf(fmaxf(l1, 1e-30f)) : m0 + logf(fmaxf(l0, 1e-30f));
+      }
       __nv_bfloat16* orow = op + (long long)qpos * os + 2 * t4;
       const float inv = half ? inv1 : inv0;
 #pragma unroll
@@ -1086,7 +1099,8 @@ int make_map(CUtensorMap* map, const void* base, int hd, int rows,
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
            int H, int KV, int Sq, int Sk, const long long* st, int causal,
-           int window, float softcap, float scale, cudaStream_t stream) {
+           int window, float softcap, float scale, float* lse,
+           cudaStream_t stream) {
   CUtensorMap qm, km, vm;
   int e = make_map(&qm, q, HD, Sq, H, B, st[0], st[1], st[2], kRows);
   if (!e) e = make_map(&km, k, HD, Sk, KV, B, st[3], st[4], st[5], kKeys);
@@ -1100,7 +1114,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   const dim3 grid(H, (Sq + kRows - 1) / kRows, B);
   flash_attention_tc_kernel<HD><<<grid, kThreads, bytes, stream>>>(
       qm, km, vm, (__nv_bfloat16*)out, H / KV, Sq, Sk, st[9], st[10],
-      st[11], causal, window, softcap, scale);
+      st[11], causal, window, softcap, scale, lse);
   return (int)cudaGetLastError();
 }
 
@@ -1116,13 +1130,15 @@ extern "C" {
 // bf16 at 64 and 128); q, k, v and out alike.  The wrapper zero-pads any
 // other head dim to the next of these and passes the true one's scale.
 // strides: 12 element strides, (batch, head, row) for q, k, v and out in
-// that order; the head dim is contiguous.  Any Sq, Sk >= 1.  The caller
-// has checked devices, dtypes, shapes (H % KV == 0) and 16-byte alignment
-// of the pointers and of every stride.
+// that order; the head dim is contiguous.  Any Sq, Sk >= 1.  lse: null,
+// or a float32 (B, H, Sq) contiguous tensor that gets each row's
+// log-sum-exp (the backward's row statistic).  The caller has checked
+// devices, dtypes, shapes (H % KV == 0) and 16-byte alignment of the
+// pointers and of every stride.
 int flash_attention_fwd(const void* q, const void* k, const void* v,
                         void* out, int dtype, int B, int H, int KV, int Sq,
                         int Sk, int hd, const long long* strides, int causal,
-                        int window, float softcap, float scale,
+                        int window, float softcap, float scale, float* lse,
                         void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 1) {
@@ -1130,11 +1146,11 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
       case 32:
         return mma::launch<__nv_bfloat16, 32>(q, k, v, out, B, H, KV, Sq, Sk,
                                               strides, causal, window,
-                                              softcap, scale, s);
+                                              softcap, scale, lse, s);
       case 256:
         return mma::launch<__nv_bfloat16, 256>(q, k, v, out, B, H, KV, Sq,
                                                Sk, strides, causal, window,
-                                               softcap, scale, s);
+                                               softcap, scale, lse, s);
       default:
         return (int)cudaErrorInvalidValue;
     }
@@ -1142,18 +1158,18 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
   switch (hd) {
     case 32:
       return mma::launch<float, 32>(q, k, v, out, B, H, KV, Sq, Sk, strides,
-                                    causal, window, softcap, scale, s);
+                                    causal, window, softcap, scale, lse, s);
     case 64:
       return mma::launch<float, 64>(q, k, v, out, B, H, KV, Sq, Sk, strides,
-                                    causal, window, softcap, scale, s);
+                                    causal, window, softcap, scale, lse, s);
     case 128:
       return mma::launch<float, 128>(q, k, v, out, B, H, KV, Sq, Sk,
                                      strides, causal, window, softcap, scale,
-                                     s);
+                                     lse, s);
     case 256:
       return mma::launch<float, 256>(q, k, v, out, B, H, KV, Sq, Sk,
                                      strides, causal, window, softcap, scale,
-                                     s);
+                                     lse, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -1165,16 +1181,16 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
 int flash_attention_fwd_tc(const void* q, const void* k, const void* v,
                            void* out, int B, int H, int KV, int Sq, int Sk,
                            int hd, const long long* strides, int causal,
-                           int window, float softcap, float scale,
+                           int window, float softcap, float scale, float* lse,
                            void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   switch (hd) {
     case 64:
       return tc::launch<64>(q, k, v, out, B, H, KV, Sq, Sk, strides, causal,
-                            window, softcap, scale, s);
+                            window, softcap, scale, lse, s);
     case 128:
       return tc::launch<128>(q, k, v, out, B, H, KV, Sq, Sk, strides, causal,
-                             window, softcap, scale, s);
+                             window, softcap, scale, lse, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -16,7 +16,8 @@ from .. import obs
 from ..core.flatstate import flatten_for_kernel
 from . import ref
 from .decode_attention import paged_decode_attention_fwd
-from .flash_attention import flash_attention_fwd
+from .flash_attention import (backward_kernel_takes, flash_attention_bwd,
+                              flash_attention_fwd)
 from .gossip_mix import (check_outputs, gossip_mix_update,
                          gossip_mix_update_flat)
 from .reorth import reorth_axpy, reorth_dots
@@ -60,10 +61,15 @@ def _flash_ref_bsh(q, k, v, causal, window, attn_softcap):
 
 
 class FlashAttention(torch.autograd.Function):
-    """The kernel forward with the reference's recompute backward
-    (``repro/kernels/ops.py::_flash_bwd``): the TPU kernel has no backward
-    kernel, so the gradient is that of the plain version, recomputed from
-    the saved q, k, v.
+    """The kernel forward and the backward kernel (``flash_attention_bwd``,
+    ``csrc/flash_bwd.cu``): the forward saves q, k, v, its output and each
+    row's log-sum-exp, from which the backward rebuilds P tile by tile.
+    The TPU kernel has no backward kernel (the reference differentiates
+    its oracle, ``repro/kernels/ops.py::_flash_bwd``); the tests hold this
+    one to that gradient.  At a padded head dim of 256 no backward
+    instance holds dK and dV in registers (``backward_kernel_takes``), so
+    there, statically by shape, the gradient is the plain version's,
+    recomputed from the saved q, k, v.
 
     Once differentiable: a backward that builds a graph (``create_graph``,
     as the landscape probe's HVP does) raises instead of differentiating
@@ -75,29 +81,40 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, attn_softcap):
-        ctx.save_for_backward(q, k, v)
         ctx.mask = (causal, window, attn_softcap)
         with obs.span("kernel.flash_fwd"):
-            o = flash_attention_fwd(q.transpose(1, 2), k.transpose(1, 2),
-                                    v.transpose(1, 2), causal=causal,
-                                    window=window, attn_softcap=attn_softcap)
-        return o.transpose(1, 2)
+            o, lse = flash_attention_fwd(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                causal=causal, window=window, attn_softcap=attn_softcap,
+                return_lse=True)
+        o = o.transpose(1, 2)
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
 
     @staticmethod
     def backward(ctx, g):
         if torch.is_grad_enabled():
             raise RuntimeError(
-                "FlashAttention is once differentiable: its backward "
-                "recomputes the plain version, and a double backward "
-                "(create_graph=True) through the kernel is not supported; "
-                "run the model with use_pallas=False for second-order "
-                "derivatives")
-        q, k, v = ctx.saved_tensors
-        with torch.enable_grad():
-            qkv = [t.detach().requires_grad_() for t in (q, k, v)]
-            o = _flash_ref_bsh(*qkv, *ctx.mask)
-            dq, dk, dv = torch.autograd.grad(o, qkv, g)
-        return dq, dk, dv, None, None, None
+                "FlashAttention is once differentiable: its backward runs "
+                "a kernel (or the plain version's recompute), and a double "
+                "backward (create_graph=True) through the kernel is not "
+                "supported; run the model with use_pallas=False for "
+                "second-order derivatives")
+        q, k, v, o, lse = ctx.saved_tensors
+        causal, window, attn_softcap = ctx.mask
+        if not backward_kernel_takes(q.shape[-1]):
+            with torch.enable_grad():
+                qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+                o = _flash_ref_bsh(*qkv, *ctx.mask)
+                dq, dk, dv = torch.autograd.grad(o, qkv, g)
+            return dq, dk, dv, None, None, None
+        with obs.span("kernel.flash_bwd"):
+            qt, kt, vt, ot, gt = (t.transpose(1, 2) for t in (q, k, v, o, g))
+            dq, dk, dv = flash_attention_bwd(
+                qt, kt, vt, ot, lse, gt, causal=causal, window=window,
+                attn_softcap=attn_softcap)
+        return (dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2),
+                None, None, None)
 
 
 def flash_attention(q, k, v, *, q_positions=None, k_positions=None,
@@ -109,13 +126,20 @@ def flash_attention(q, k, v, *, q_positions=None, k_positions=None,
     Positions are contiguous from 0; ``q_positions`` / ``k_positions`` are
     accepted for the signature of ``chunked_attention`` and not read (as
     in the reference), so the call makes no host sync.  A CUDA tensor goes
-    through ``FlashAttention`` (the kernel forward, the plain version's
-    gradient); a CPU tensor, or ``backend="ref"``, through the plain
-    version with its own autograd.
+    through ``FlashAttention`` (the kernel forward and backward) where a
+    gradient is wanted, else straight to the kernel forward, which then
+    stores no row statistic; a CPU tensor, or ``backend="ref"``, through
+    the plain version with its own autograd.
     """
     if _use_plain(q, backend):
         return _flash_ref_bsh(q, k, v, causal, window, attn_softcap)
-    return FlashAttention.apply(q, k, v, causal, window, attn_softcap)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttention.apply(q, k, v, causal, window, attn_softcap)
+    with obs.span("kernel.flash_fwd"):
+        o = flash_attention_fwd(q.transpose(1, 2), k.transpose(1, 2),
+                                v.transpose(1, 2), causal=causal,
+                                window=window, attn_softcap=attn_softcap)
+    return o.transpose(1, 2)
 
 
 def flat_gossip_update(w, remote, grads, momentum, partners, coefs, *,

@@ -137,8 +137,31 @@ def reorth_ref(basis, w, mask):
     return reorth_axpy_ref(w, basis, dots), dots
 
 
+def _flash_scores(q, k, causal, window, attn_softcap, scale):
+    """(s, t, mask): the (B, KV, G, Sq, Sk) float32 scores of the flash
+    chain, capped and masked; t the softcap's tanh (None without a cap);
+    mask the (Sq, Sk) live pairs."""
+    B, H, Sq, hd = q.shape
+    _, KV, Sk, _ = k.shape
+    qf = q.float().reshape(B, KV, H // KV, Sq, hd)
+    s = torch.einsum("bkgqd,bksd->bkgqs", qf, k.float()) * scale
+    t = None
+    if attn_softcap:
+        t = torch.tanh(s / attn_softcap)
+        s = attn_softcap * t
+    qpos = torch.arange(Sq, device=q.device)[:, None]
+    kpos = torch.arange(Sk, device=q.device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qpos >= kpos
+    if window:
+        mask &= qpos - kpos < window
+    return torch.where(mask, s, NEG_INF), t, mask
+
+
 def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
-                        attn_softcap: float = 0.0, scale=None):
+                        attn_softcap: float = 0.0, scale=None,
+                        return_lse: bool = False):
     """Same contract as ``kernels.flash_attention.flash_attention_fwd``.
 
     q: (B, H, Sq, hd); k, v: (B, KV, Sk, hd) -> (B, H, Sq, hd) in q's
@@ -149,24 +172,50 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
     out as the uniform average of V) — the chain of
     ``repro.kernels.ref.flash_attention_ref``.  ``scale`` replaces
     ``hd**-0.5`` (the kernel wrapper's head-dim padding keeps the true
-    hd's).  Differentiable: the flash dispatcher's backward recomputes
-    through it."""
+    hd's).  ``return_lse``: also each row's log-sum-exp of the masked
+    scores, float32 (B, H, Sq), as the kernel stores it.  Differentiable:
+    at a head dim the backward kernel does not take, the flash
+    dispatcher's backward recomputes through it."""
+    B, H, Sq, hd = q.shape
+    scale = hd ** -0.5 if scale is None else scale
+    s, _, _ = _flash_scores(q, k, causal, window, attn_softcap, scale)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqs,bksd->bkgqd", p, v.float())
+    o = o.reshape(B, H, Sq, hd).to(q.dtype)
+    if return_lse:
+        return o, torch.logsumexp(s, dim=-1).reshape(B, H, Sq)
+    return o
+
+
+def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
+                            window: int = 0, attn_softcap: float = 0.0,
+                            scale=None):
+    """Same contract as ``kernels.flash_attention.flash_attention_bwd``:
+    (dq, dk, dv) in q's, k's and v's dtype from q, k, v, the forward's
+    output o and row statistic lse, and dO, by the kernel's formulas taken
+    densely in float32: P = exp(x - lse) of the capped, masked scores x;
+    D = rowsum(dO * o); dS = P (dP - D), times the softcap's 1 - tanh^2
+    and the scale, 0 where masked; dV = P^T dO, dK = dS^T q, dQ = dS k,
+    summed over a kv head's query heads.  A row with no live key (the
+    forward's uniform average of V) takes P = 1 / Sk and dS = 0."""
     B, H, Sq, hd = q.shape
     _, KV, Sk, _ = k.shape
     G = H // KV
-    qf = q.float().reshape(B, KV, G, Sq, hd)
     scale = hd ** -0.5 if scale is None else scale
-    s = torch.einsum("bkgqd,bksd->bkgqs", qf, k.float()) * scale
-    if attn_softcap:
-        s = attn_softcap * torch.tanh(s / attn_softcap)
-    qpos = torch.arange(Sq, device=q.device)[:, None]
-    kpos = torch.arange(Sk, device=q.device)[None, :]
-    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= qpos >= kpos
-    if window:
-        mask &= qpos - kpos < window
-    s = torch.where(mask, s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgqs,bksd->bkgqd", p, v.float())
-    return o.reshape(B, H, Sq, hd).to(q.dtype)
+    s, t, mask = _flash_scores(q, k, causal, window, attn_softcap, scale)
+    qf, dof, of = (x.float().reshape(B, KV, G, Sq, hd) for x in (q, do, o))
+    kf, vf = k.float(), v.float()
+    lse = lse.reshape(B, KV, G, Sq, 1)
+    dead = ~mask.any(dim=-1, keepdim=True)
+    p = torch.where(dead, 1.0 / Sk, torch.exp(s - lse))
+    dp = torch.einsum("bkgqd,bksd->bkgqs", dof, vf)
+    dd = (dof * of).sum(-1, keepdim=True)
+    ds = p * (dp - dd)
+    if t is not None:
+        ds = ds * (1 - t * t)
+    ds = torch.where(mask, ds * scale, 0.0)
+    dv = torch.einsum("bkgqs,bkgqd->bksd", p, dof)
+    dk = torch.einsum("bkgqs,bkgqd->bksd", ds, qf)
+    dq = torch.einsum("bkgqs,bksd->bkgqd", ds, kf)
+    return (dq.reshape(B, H, Sq, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))

@@ -31,6 +31,7 @@ SPANS = (
     "model.embed", "model.attn", "model.mamba", "model.xlstm", "model.mlp",
     "model.moe", "model.head",
     "kernel.paged_decode", "kernel.gossip_update", "kernel.flash_fwd",
+    "kernel.flash_bwd",
     "serve.step", "serve.admit", "serve.prepare", "serve.model",
     "serve.readback", "serve.finish",
 )

@@ -174,13 +174,14 @@ def test_cuda_float32_flash_training_step_at_a_ragged_length():
     """S 100 (no multiple of the float32 kernel's 64-row tile), float32,
     ``use_pallas``: one DPSGD step through the flash and gossip kernels on
     the card equals the step through the plain versions (the chunked
-    route, ``kernel_backend="ref"``) within 1e-5, with one flash launch
-    per layer and learner."""
+    route, ``kernel_backend="ref"``) within 1e-5, with one flash forward
+    and one backward launch per layer and learner."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (CUDA kernel has no CPU mode)")
     from repro_torch.core import AlgoConfig, MultiLearnerTrainer
     from repro_torch.data import ShardedLoader, SyntheticTokenStream
-    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd,
+                                                     flash_attention_fwd)
     from repro_torch.optim import sgd
     # the chunked route's block must divide the length: 2 x 50
     base = dataclasses.replace(
@@ -199,12 +200,14 @@ def test_cuda_float32_flash_training_step_at_a_ragged_length():
                                             n_learners=4),
                                  params_from_tree=api.params_from_tree,
                                  kernel_backend=backend)
-        before = flash_attention_fwd.launches
+        before = (flash_attention_fwd.launches,
+                  flash_attention_bwd.launches)
         state, m = tr.train_step(tr.init(0, tree), batch)
         torch.cuda.synchronize()
         out[use_pallas] = (state.params.clone(), float(m.loss),
-                           flash_attention_fwd.launches - before)
+                           (flash_attention_fwd.launches - before[0],
+                            flash_attention_bwd.launches - before[1]))
     (p0, l0, n0), (p1, l1, n1) = out[False], out[True]
-    assert (n0, n1) == (0, 4 * base.n_layers)
+    assert (n0, n1) == ((0, 0), (4 * base.n_layers, 4 * base.n_layers))
     assert np.isfinite(l1) and abs(l1 - l0) <= 1e-5 * abs(l0)
     torch.testing.assert_close(p1, p0, atol=1e-5, rtol=0)

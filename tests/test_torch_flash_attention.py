@@ -17,9 +17,12 @@ held to 1e-5, the reference's tier above S = 256.
 ``ops.flash_attention``'s q, k, v gradients (the reference's custom VJP:
 kernel forward, oracle backward) are held against ``jax.grad`` at 1e-5
 absolute on the reference's model-layout shapes (measured: 4.8e-6 on
-gradients of O(10)), both
-through the CPU dispatch (the plain version with autograd) and through
-``FlashAttention`` itself with a CPU stand-in for the kernel forward.
+gradients of O(10)), through the CPU dispatch (the plain version with
+autograd), through the plain backward (``ref.flash_attention_bwd_ref``:
+the backward kernel's formulas, densely, from the forward's output and
+row log-sum-exp) at the sweep's mask settings, GQA and ragged lengths,
+and through ``FlashAttention`` itself with CPU stand-ins for both
+kernels.
 
 The CUDA kernels must agree with their plain version on the card within
 the same tiers (``cuda`` marker, skipped here): the float32 kernel (FMA
@@ -33,7 +36,15 @@ on the CPU, the padding step against the plain version on the unpadded
 inputs, and so are the float32 kernel's numerics: an emulation of
 its tile order, its float32 FMA scores and its TF32 splits of P and V
 holds the float32 tiers at the float32 shapes of ``chip_smoke.py``,
-where scores in three TF32 terms, or P.V in one, would not.
+where scores in three TF32 terms, or P.V in one, would not.  The same
+holds for the backward kernel: an emulation of its tile order, its FMA
+scores and dP, P rebuilt from the emulated forward's lse, and dV, dK and
+dQ in three TF32 terms stays within the float32 gradient tier of the
+dense recompute (``GRAD_RTOL_F32`` of each gradient's largest element,
+``GRAD_ATOL`` at least) at those shapes, where dV, dK or dQ in one TF32
+term misses it.  On the card
+(``cuda``) the backward kernel is held to the plain backward and to
+autograd through the dense recompute at the same tier.
 """
 import pytest
 
@@ -49,8 +60,8 @@ from repro.kernels.flash_attention import \
     flash_attention_fwd as jax_kernel  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    check_shapes, flash_attention_fwd, kernel_for, pad_head_dim,
-    padded_head_dim)
+    backward_kernel_takes, check_shapes, flash_attention_bwd,
+    flash_attention_fwd, kernel_for, pad_head_dim, padded_head_dim)
 
 SHAPES = [(128, 64, 4, 4), (256, 64, 4, 2), (256, 128, 2, 1)]
 DTYPES = ["float32", "bfloat16"]
@@ -59,6 +70,22 @@ MASKS = [dict(causal=True), dict(causal=True, window=64),
 ATOL_F32 = 2e-6
 BF16_ULP, BF16_RMS = 2.0 ** -7, 1e-3
 GRAD_ATOL = 1e-5
+# the backward kernel against the dense recompute in float32, per gradient:
+# |got - want| <= max(GRAD_ATOL, GRAD_RTOL_F32 max |want|) (the absolute
+# tier for gradients up to O(1), as the reference's custom VJP is held;
+# the relative one above).  The kernel's formulas (P from
+# the forward's lse, D = rowsum(dO o)) and its sums' order leave 2.1e-7 to
+# 1.4e-6 of max |want| in the CPU emulation; any one tensor-core product in
+# one TF32 term 3.0e-4 to 4.7e-4
+GRAD_RTOL_F32 = 1e-5
+# bf16 gradients against the dense recompute, as ||got - want|| / ||want||:
+# the kernel takes D = rowsum(dO o) from the forward's bf16-rounded output,
+# where the recompute sums P dP in float32, so dS carries 2^-9 of D where
+# dP and D cancel
+GRAD_RTOL_BF16 = 1e-2
+# the 100m flash4k shape, float32, as ||got - want|| / ||want|| per
+# gradient: under the benchmark's grad_gap limit of 5e-6 for that cell
+GRAD_NORM_RTOL_4K = 2e-6
 RAGGED_MASKS = [dict(causal=True, window=32, attn_softcap=50.0),
                 dict(causal=False)]
 INTERPRET_CASES = [((128, 64, 4, 4), "float32", MASKS[0]),
@@ -200,29 +227,153 @@ def test_dispatcher_gradients_match_reference_custom_vjp(kw):
 
 @pytest.fixture
 def cpu_kernel(monkeypatch):
-    """``FlashAttention`` with its kernel forward replaced by the plain
-    version on the CPU (counting calls): the Function's own backward and
+    """``FlashAttention`` with its kernel forward and backward replaced by
+    their plain versions on the CPU (counting calls, ``"fwd"`` and
+    ``"bwd"`` with their keywords): the Function's own plumbing and
     once-differentiable guard run as they do on the card."""
     calls = []
 
-    def fake(q, k, v, **kw):
-        calls.append(kw)
+    def fwd(q, k, v, **kw):
+        calls.append(("fwd", kw))
         return ref.flash_attention_ref(q, k, v, **kw)
 
-    monkeypatch.setattr(ops, "flash_attention_fwd", fake)
+    def bwd(q, k, v, o, lse, do, **kw):
+        calls.append(("bwd", kw))
+        return ref.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+
+    monkeypatch.setattr(ops, "flash_attention_fwd", fwd)
+    monkeypatch.setattr(ops, "flash_attention_bwd", bwd)
     return calls
 
 
 def test_function_backward_is_the_reference_recompute(cpu_kernel):
+    """The Function's gradient, from the forward's saved output and lse
+    through the backward (here its plain version), is the reference's
+    custom VJP, which recomputes its oracle."""
     kw = dict(causal=True, window=16, attn_softcap=30.0)
     arrs = _model_layout_operands()
     want = _jax_grads(arrs, **kw)
     got = _port_grads(lambda q, k, v: ops.FlashAttention.apply(
         q, k, v, kw["causal"], kw["window"], kw["attn_softcap"]), arrs)
-    assert cpu_kernel == [kw]                 # forward only, once
+    # the forward once, asked for its row statistic, then the backward once
+    assert cpu_kernel == [("fwd", {**kw, "return_lse": True}), ("bwd", kw)]
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w),
                                    atol=GRAD_ATOL, rtol=0)
+
+
+def test_function_keeps_the_recompute_where_the_backward_kernel_does_not_go(
+        cpu_kernel):
+    """hd 200 pads to 256, where no backward instance holds dK and dV:
+    the Function differentiates the plain version instead, statically by
+    shape: the plain route's gradient, bitwise."""
+    assert not backward_kernel_takes(200)
+    assert backward_kernel_takes(128) and backward_kernel_takes(1)
+    rng = np.random.default_rng(4)
+    arrs = [rng.standard_normal(s, dtype=np.float32)
+            for s in ((1, 32, 4, 200), (1, 32, 2, 200), (1, 32, 2, 200))]
+    want = _port_grads(lambda q, k, v: ops.flash_attention(q, k, v), arrs)
+    got = _port_grads(lambda q, k, v: ops.FlashAttention.apply(
+        q, k, v, True, 0, 0.0), arrs)
+    assert [c[0] for c in cpu_kernel] == ["fwd"]
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_function_opens_its_kernel_spans_under_the_profiler(cpu_kernel):
+    """Traced (the benchmark's profiled stretch), the forward runs inside
+    ``kernel.flash_fwd`` and the backward inside ``kernel.flash_bwd``,
+    each once."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import obs
+    q, k, v = [torch.tensor(a, requires_grad=True)
+               for a in _model_layout_operands()]
+    obs.reset()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = ops.FlashAttention.apply(q, k, v, True, 0, 0.0)
+        torch.sum(out ** 2).backward()
+    names = [e.name for e in prof.events() if e.name.startswith("kernel.")]
+    assert sorted(names) == ["kernel.flash_bwd", "kernel.flash_fwd"]
+    assert {k: t["calls"] for k, t in obs.span_times().items()} == {
+        "kernel.flash_bwd": 1, "kernel.flash_fwd": 1}
+    obs.reset()
+
+
+def test_dispatcher_runs_the_forward_alone_where_no_gradient_is_wanted(
+        cpu_kernel):
+    """No grad mode, or no input that needs a gradient: the kernel forward
+    straight, asked for no row statistic (inference and prefill)."""
+    q, k, v = [torch.tensor(a) for a in _model_layout_operands()]
+    want = ops.flash_attention(q, k, v, backend="ref")
+    # ``_use_plain`` sends CPU tensors to the plain version; the kernel
+    # branch, which a CUDA tensor takes, is forced here
+    with torch.no_grad():
+        got = ops.flash_attention(q, k, v, backend="cuda")
+    assert cpu_kernel == [("fwd", dict(causal=True, window=0,
+                                       attn_softcap=0.0))]
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    got = ops.flash_attention(q, k, v, backend="cuda")
+    assert len(cpu_kernel) == 2 and not got.requires_grad
+    q.requires_grad_()
+    got = ops.flash_attention(q, k, v, backend="cuda")
+    assert cpu_kernel[-1][1].get("return_lse") and got.requires_grad
+
+
+def _bwd_operands(S, hd, H, KV, seed, Sk=None):
+    """(q, k, v, dO) float32 in the kernel layout: q (1, H, S, hd), k, v
+    (1, KV, Sk, hd), dO like q."""
+    rng = np.random.default_rng(seed)
+    Sk = S if Sk is None else Sk
+    return [torch.from_numpy(rng.standard_normal(s, dtype=np.float32))
+            for s in ((1, H, S, hd), (1, KV, Sk, hd), (1, KV, Sk, hd),
+                      (1, H, S, hd))]
+
+
+@pytest.mark.parametrize("kw", MASKS, ids=["causal", "window64", "full",
+                                           "softcap50"])
+@pytest.mark.parametrize("S,hd,H,KV,Sk", [(128, 64, 4, 2, None),
+                                          (100, 32, 4, 1, None),
+                                          (100, 64, 2, 2, 37)],
+                         ids=["gqa", "ragged_mqa", "ragged_sk37"])
+def test_plain_backward_matches_reference_custom_vjp(S, hd, H, KV, Sk, kw):
+    """The plain backward (the kernel's formulas, densely, from the
+    forward's output and lse) against ``jax.grad`` through the reference's
+    custom VJP, which differentiates its oracle: the sweep's four mask
+    settings, GQA and MQA, ragged lengths, and Sq above Sk (where the
+    window leaves the last rows no live key)."""
+    q, k, v, do = _bwd_operands(S, hd, H, KV, seed=S + hd + H, Sk=Sk)
+    o, lse = ref.flash_attention_ref(q, k, v, return_lse=True, **kw)
+    got = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+
+    def f(qj, kj, vj):
+        out = jax_ops.flash_attention(qj, kj, vj, **kw)
+        return jnp.sum(out * jnp.asarray(do.transpose(1, 2).numpy()))
+    want = jax.grad(f, argnums=(0, 1, 2))(
+        *[jnp.asarray(t.transpose(1, 2).numpy()) for t in (q, k, v)])
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        np.testing.assert_allclose(g.transpose(1, 2).numpy(), np.asarray(w),
+                                   atol=GRAD_ATOL, rtol=0)
+
+
+def test_plain_forward_returns_the_rows_log_sum_exp():
+    """lse is the log of each row's softmax denominator: exp(x - lse)
+    sums to 1 over the live keys; a row with no live key gives NEG_INF
+    (the backward's cue for P = 1 / Sk)."""
+    q, k, v, _ = _bwd_operands(256, 32, 4, 2, seed=3, Sk=128)
+    kw = dict(causal=False, window=64)
+    o, lse = ref.flash_attention_ref(q, k, v, return_lse=True, **kw)
+    assert lse.shape == (1, 4, 256) and lse.dtype == torch.float32
+    assert torch.equal(o, ref.flash_attention_ref(q, k, v, **kw))
+    s, _, mask = ref._flash_scores(q, k, kw["causal"], kw["window"], 0.0,
+                                   32 ** -0.5)
+    live_rows = mask.any(-1)
+    p = torch.exp(s - lse.reshape(1, 2, 2, 256, 1))
+    torch.testing.assert_close(p.sum(-1)[..., live_rows],
+                               torch.ones_like(p.sum(-1)[..., live_rows]),
+                               rtol=0, atol=1e-6)
+    assert bool((lse[..., ~live_rows] == ref.NEG_INF).all())
+    assert bool((~live_rows).any())
 
 
 def test_double_backward_through_the_function_raises(cpu_kernel):
@@ -535,10 +686,14 @@ def test_cuda_function_reads_the_model_layout_and_matches_gradients(
     qkv = [torch.tensor(a, device=cuda_device, requires_grad=True)
            for a in arrs]
     before = flash_attention_fwd.launches
+    before_bwd = flash_attention_bwd.launches
     out = ops.flash_attention(*qkv, **kw)
+    assert flash_attention_bwd.launches == before_bwd
     torch.sum(out ** 2).backward()
     assert flash_attention_fwd.launches == before + 1
+    assert flash_attention_bwd.launches == before_bwd + 1
     assert out.is_contiguous()
+    assert all(t.grad.is_contiguous() for t in qkv)    # the model layout
     # against the plain route on the CPU, which the CPU tests hold to the
     # reference (whose Pallas kernel lowers for a TPU or in interpret mode,
     # not for a JAX GPU backend)
@@ -630,6 +785,19 @@ def _kernel_tiles(hd):
     return (64, 1) if hd == 128 else (32, 4)
 
 
+_EMU = {}
+
+
+def _emu_scores(case):
+    """(q, k, v, their FMA scores) of an ``EMU_CASES`` case, made once a
+    process: the forward's and the backward's emulations share them."""
+    if case[0] not in _EMU:
+        q, k, v = _emu_operands(case)
+        G = q.shape[1] // k.shape[1]
+        _EMU[case[0]] = (q, k, v, _fma_scores(q, k.repeat_interleave(G, 1)))
+    return _EMU[case[0]]
+
+
 def _emu_operands(case):
     _, B, H, KV, hd, Sq, _, Sk, q_scale = case
     rng = np.random.default_rng(hd + Sq + H)
@@ -656,20 +824,24 @@ def _fma_scores(q, k):
 
 
 def _emulate_f32_kernel(q, k, v, *, causal=True, window=0,
-                        attn_softcap=0.0, scores="fma", pv="3xtf32"):
+                        attn_softcap=0.0, scores="fma", pv="3xtf32",
+                        s_all=None, return_lse=False):
     """The float32 kernel's arithmetic on float32 CPU tensors: scores
-    ``"fma"`` (the kernel), ``"3xtf32"`` (lo.hi + hi.lo + hi.hi) or
-    ``"tf32"`` (one TF32 pass); per 64-row block, the key tiles it visits
-    (the fully masked ones skipped unless a row has no live key), dealt in
-    turn to its key groups (four of 32-key tiles at hd 32 and 64, one of
-    64-key tiles at 128), each group's online softmax over its tiles in
-    order, P.V with P and V as hi + lo TF32 terms (``pv="3xtf32"``, the
-    kernel) or in one TF32 pass, and the groups' states merged in group
-    order."""
+    ``"fma"`` (the kernel; ``s_all`` passes them in where made already),
+    ``"3xtf32"`` (lo.hi + hi.lo + hi.hi) or ``"tf32"`` (one TF32 pass);
+    per 64-row block, the key tiles it visits (the fully masked ones
+    skipped unless a row has no live key), dealt in turn to its key
+    groups (four of 32-key tiles at hd 32 and 64, one of 64-key tiles at
+    128), each group's online softmax over its tiles in order, P.V with P
+    and V as hi + lo TF32 terms (``pv="3xtf32"``, the kernel) or in one
+    TF32 pass, and the groups' states merged in group order.
+    ``return_lse``: also the row statistic m + log(max(l, 1e-30))."""
     B, H, Sq, hd = q.shape
     KV, Sk = k.shape[1], k.shape[2]
     k, v = (t.repeat_interleave(H // KV, 1) for t in (k, v))
-    if scores == "fma":
+    if s_all is not None:
+        pass
+    elif scores == "fma":
         s_all = _fma_scores(q, k)
     elif scores == "3xtf32":
         (qh, ql), (kh, kl) = _split_tf32(q), _split_tf32(k)
@@ -678,6 +850,7 @@ def _emulate_f32_kernel(q, k, v, *, causal=True, window=0,
         s_all = _round_tf32(q) @ _round_tf32(k).mT
     vh, vl = _split_tf32(v)
     out = torch.empty_like(q)
+    lse = torch.empty(q.shape[:-1])
     keys_per_tile, groups = _kernel_tiles(hd)
     nk = -(-Sk // keys_per_tile)
     for q0 in range(0, Sq, KERNEL_ROWS):
@@ -702,7 +875,8 @@ def _emulate_f32_kernel(q, k, v, *, causal=True, window=0,
             ca, cb = torch.exp(m - m_new), torch.exp(mb - m_new)
             m, l, acc = m_new, l * ca + lb * cb, acc * ca + accb * cb
         out[:, :, rows] = acc / torch.clamp(l, min=1e-30)
-    return out
+        lse[:, :, rows] = (m + torch.log(torch.clamp(l, min=1e-30)))[..., 0]
+    return (out, lse) if return_lse else out
 
 
 def _emulate_group(s_all, v, vh, vl, rows, tiles, hd, causal, window,
@@ -747,14 +921,14 @@ def test_float32_kernel_numerics_hold_the_float32_tiers(case):
     """FMA scores and P.V in three TF32 terms stay within the tier of the
     plain version (measured 0.07-0.48 x); P.V in one TF32 pass, with the
     same scores, misses it (95-471 x)."""
-    q, k, v = _emu_operands(case)
+    q, k, v, s_all = _emu_scores(case)
     kw = case[6]
     want = ref.flash_attention_ref(q, k, v, **kw)
     tol = _f32_tier(q.shape[2])
-    got = _emulate_f32_kernel(q, k, v, **kw)
+    got = _emulate_f32_kernel(q, k, v, s_all=s_all, **kw)
     err = float((got - want).abs().max())
     assert err <= tol, f"{err} = {err / tol} x the tier"
-    one_pass = _emulate_f32_kernel(q, k, v, pv="tf32", **kw)
+    one_pass = _emulate_f32_kernel(q, k, v, pv="tf32", s_all=s_all, **kw)
     assert float((one_pass - want).abs().max()) > tol
 
 
@@ -781,3 +955,353 @@ def test_scores_in_three_tf32_terms_miss_the_tier_where_the_cap_binds(case):
         assert ratio("3xtf32") > 1.5
     else:
         assert ratio("3xtf32") < 0.5
+
+
+# ---------------------------------------------------------------------------
+# the backward kernel's numerics, emulated on the CPU
+# ---------------------------------------------------------------------------
+
+BWD_KEYS = 128                      # the backward kernel's key block
+
+
+def _tf32_product(a, b, terms):
+    """a @ b as the kernel's tensor cores take it: ``3`` TF32 terms (lo.hi
+    + hi.lo + hi.hi) or ``1`` (each operand rounded to TF32 once)."""
+    if terms == 1:
+        return _round_tf32(a) @ _round_tf32(b)
+    (ah, al), (bh, bl) = _split_tf32(a), _split_tf32(b)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def _fma_rowdot(a, b):
+    """sum_d a b over the last dim as float32 FMAs, d in order."""
+    s = torch.zeros(a.shape[:-1], dtype=torch.float32)
+    for d in range(a.shape[-1]):
+        s = (s.double() + a[..., d].double() * b[..., d].double()).float()
+    return s
+
+
+def _emulate_bwd_p_ds(q, k, o, lse, do, s_all, dp_all, *, causal=True,
+                      window=0, attn_softcap=0.0):
+    """P and dS as the backward kernel forms them on float32 CPU tensors:
+    from the FMA scores ``s_all`` (the forward's) and ``dp_all`` (dO V^T,
+    d in order), the scale, softcap and masks, P = exp(x - lse) (1 / Sk on
+    a row with no live key), D = rowsum(dO o) in FMAs, d in order."""
+    Sq, hd = q.shape[2:]
+    Sk = k.shape[2]
+    x = s_all * hd ** -0.5
+    t = None
+    if attn_softcap:
+        t = torch.tanh(x / attn_softcap)
+        x = attn_softcap * t
+    qpos = torch.arange(Sq)[:, None]
+    kpos = torch.arange(Sk)[None]
+    live = torch.ones((Sq, Sk), dtype=torch.bool)
+    if causal:
+        live &= qpos >= kpos
+    if window:
+        live &= qpos - kpos < window
+    x = torch.where(live, x, ref.NEG_INF)
+    dead = ~live.any(-1, keepdim=True)
+    p = torch.where(dead, torch.tensor(1.0 / Sk),
+                    torch.exp(x - lse[..., None]))
+    ds = p * (dp_all - _fma_rowdot(do, o)[..., None])
+    if t is not None:
+        ds = ds * (1 - t * t)
+    return p, torch.where(live & ~dead, ds * hd ** -0.5, 0.0)
+
+
+def _emulate_bwd_kv(a, b, KV, terms):
+    """dV (a = P, b = dO) or dK (a = dS, b = q) as the kernel sums them: a
+    kv head's query heads in turn, each one's rows 16 at a time, every
+    product (in ``terms`` TF32 terms) added in float32.  The tiles a block
+    skips hold P = dS = 0 and add exact zeros, so every tile is taken."""
+    B, H, Sq = a.shape[:3]
+    G = H // KV
+    out = torch.zeros((B, KV, a.shape[-1], b.shape[-1]))
+    for gi in range(G):
+        heads = torch.arange(KV) * G + gi
+        for r0 in range(0, Sq, 16):
+            rows = slice(r0, r0 + 16)
+            out = out + _tf32_product(a[:, heads, rows].mT, b[:, heads, rows],
+                                      terms)
+    return out
+
+
+def _emulate_bwd_q(ds, k, terms):
+    """dQ as the kernel sums it: 128-key blocks in order, each block's
+    16-key products (in ``terms`` TF32 terms) added in float32."""
+    kr = k.repeat_interleave(ds.shape[1] // k.shape[1], 1)
+    Sk = k.shape[2]
+    dq = 0.0
+    for k0 in range(0, Sk, BWD_KEYS):
+        part = 0.0
+        for c in range(k0, min(k0 + BWD_KEYS, Sk), 16):
+            part = part + _tf32_product(ds[..., c:c + 16], kr[:, :, c:c + 16],
+                                        terms)
+        dq = dq + part
+    return dq
+
+
+_EMU_BWD = {}
+
+
+def _emu_bwd_inputs(case):
+    """(q, k, do, the backward kernel's emulated P and dS, the dense
+    recompute's gradients) of an ``EMU_CASES`` case, made once a process;
+    P from the forward kernel's emulated lse."""
+    if case[0] not in _EMU_BWD:
+        q, k, v, s_all = _emu_scores(case)
+        kw = case[6]
+        do = torch.from_numpy(np.random.default_rng(7).standard_normal(
+            q.shape, dtype=np.float32))
+        dp_all = _fma_scores(do, v.repeat_interleave(q.shape[1] // k.shape[1],
+                                                    1))
+        o, lse = _emulate_f32_kernel(q, k, v, s_all=s_all, return_lse=True,
+                                     **kw)
+        p, ds = _emulate_bwd_p_ds(q, k, o, lse, do, s_all, dp_all, **kw)
+        qkv = [t.clone().requires_grad_() for t in (q, k, v)]
+        want = torch.autograd.grad(ref.flash_attention_ref(*qkv, **kw), qkv,
+                                   do)
+        _EMU_BWD[case[0]] = (q, k, do, p, ds, want)
+    return _EMU_BWD[case[0]]
+
+
+def _grad_tol(want):
+    """The float32 gradient tier of one gradient (``GRAD_RTOL_F32``)."""
+    return max(GRAD_ATOL, GRAD_RTOL_F32 * float(want.abs().max()))
+
+
+def _grad_ratios(got, want):
+    """max |got - want| over its float32 gradient tier, per gradient."""
+    return [float((g - w).abs().max()) / _grad_tol(w)
+            for g, w in zip(got, want)]
+
+
+@pytest.mark.parametrize("case", EMU_CASES, ids=[c[0] for c in EMU_CASES])
+def test_float32_backward_numerics_hold_the_gradient_tier(case):
+    """FMA scores and dP, P from the forward's lse and three products in
+    three TF32 terms stay within the gradient tier of the dense recompute
+    (measured 0.02-0.14 x)."""
+    q, k, do, p, ds, want = _emu_bwd_inputs(case)
+    KV = k.shape[1]
+    got = (_emulate_bwd_q(ds, k, 3), _emulate_bwd_kv(ds, q, KV, 3),
+           _emulate_bwd_kv(p, do, KV, 3))
+    ratios = _grad_ratios(got, want)
+    assert max(ratios) <= 1.0, f"dq, dk, dv at {ratios} x the tier"
+
+
+@pytest.mark.parametrize("product", ["dv", "dk", "dq"])
+@pytest.mark.parametrize("case", [EMU_CASES[0], EMU_CASES[3]],
+                         ids=["train_100m", "softcap_binds"])
+def test_backward_products_in_one_tf32_term_miss_the_gradient_tier(
+        case, product):
+    """Why every tensor-core product of the backward kernel takes three
+    TF32 terms: any one of dV, dK or dQ in one term lands its gradients
+    30-47 x outside the tier (TF32 keeps 2^-11 of each operand)."""
+    q, k, do, p, ds, want = _emu_bwd_inputs(case)
+    KV = k.shape[1]
+    got, i = {"dq": (lambda: _emulate_bwd_q(ds, k, 1), 0),
+              "dk": (lambda: _emulate_bwd_kv(ds, q, KV, 1), 1),
+              "dv": (lambda: _emulate_bwd_kv(p, do, KV, 1), 2)}[product]
+    assert _grad_ratios([got()], [want[i]])[0] > 10
+
+
+# ---------------------------------------------------------------------------
+# the backward kernel on the card
+# ---------------------------------------------------------------------------
+
+def _cuda_bwd_operands(S, hd, H, KV, dtype, seed, Sk=None, q_scale=1.0,
+                       B=2):
+    """q, k, v and dO on the card as the model passes them:
+    ``transpose(1, 2)`` views of (B, S, heads, hd) tensors, q times
+    ``q_scale``."""
+    rng = np.random.default_rng(seed)
+    Sk = S if Sk is None else Sk
+    out = []
+    for n, L, c in ((H, S, q_scale), (KV, Sk, 1.0), (KV, Sk, 1.0),
+                    (H, S, 1.0)):
+        a = c * rng.standard_normal((B, L, n, hd), dtype=np.float32)
+        out.append(torch.from_numpy(a).cuda().to(getattr(torch, dtype))
+                   .transpose(1, 2))
+    return out
+
+
+def _recompute_grads(q, k, v, do, kw):
+    """Autograd through the dense plain version: the route's old
+    backward."""
+    qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+    return torch.autograd.grad(ref.flash_attention_ref(*qkv, **kw), qkv, do)
+
+
+def _norm_gap(got, want):
+    g, w = got.double(), want.double()
+    return float((g - w).norm() / w.norm())
+
+
+CUDA_BWD_CASES = [
+    # (S, hd, H, KV, dtype, mask, Sk, q scale)
+    (128, 64, 4, 4, "float32", MASKS[0], None, 1.0),
+    (256, 64, 4, 2, "float32", MASKS[1], None, 1.0),          # GQA
+    (256, 32, 4, 4, "float32", MASKS[2], None, 1.0),
+    (256, 128, 4, 2, "float32", MASKS[3], None, 1.0),
+    (512, 128, 8, 4, "float32",                               # the cap binds
+     dict(causal=True, window=128, attn_softcap=50.0), None, 8.0),
+    (300, 64, 12, 12, "float32", MASKS[0], None, 1.0),        # 100m heads
+    (128, 64, 12, 1, "float32", MASKS[0], None, 1.0),         # G = 12
+    # ragged lengths; Sq above Sk (the window leaves rows no live key);
+    # Sq below Sk; one row
+    (100, 32, 4, 2, "float32", RAGGED_MASKS[0], None, 1.0),
+    (100, 64, 4, 2, "float32", RAGGED_MASKS[0], None, 1.0),
+    (100, 128, 4, 2, "float32", RAGGED_MASKS[1], 37, 1.0),
+    (256, 32, 2, 2, "float32", dict(causal=False, window=64), 128, 1.0),
+    (37, 64, 4, 2, "float32", MASKS[0], 200, 1.0),
+    (1, 64, 4, 1, "float32", MASKS[0], 1, 1.0),
+    # head dims zero-padded to the next instance (96 -> 128, 20 -> 32)
+    (256, 96, 8, 2, "float32", MASKS[0], None, 1.0),
+    (100, 20, 4, 2, "float32", RAGGED_MASKS[0], None, 1.0),
+    # bf16
+    (256, 64, 4, 2, "bfloat16", MASKS[0], None, 1.0),
+    (256, 128, 4, 2, "bfloat16", MASKS[3], None, 1.0),
+    (512, 128, 32, 16, "bfloat16",
+     dict(causal=True, window=128, attn_softcap=50.0), None, 1.0),
+    (192, 128, 14, 2, "bfloat16", MASKS[0], None, 1.0),       # G = 7
+    (100, 64, 4, 1, "bfloat16", RAGGED_MASKS[0], None, 1.0),
+    (100, 128, 4, 2, "bfloat16", RAGGED_MASKS[1], 37, 1.0),
+    (256, 32, 4, 2, "bfloat16", MASKS[1], None, 1.0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,hd,H,KV,dtype,kw,Sk,q_scale", CUDA_BWD_CASES)
+def test_cuda_backward_matches_plain_backward_and_the_recompute(
+        cuda_device, S, hd, H, KV, dtype, kw, Sk, q_scale):
+    q, k, v, do = _cuda_bwd_operands(S, hd, H, KV, dtype, seed=S + hd + H,
+                                     Sk=Sk, q_scale=q_scale)
+    o, lse = flash_attention_fwd(q, k, v, return_lse=True, **kw)
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == before + 1
+    plain = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    recompute = _recompute_grads(q, k, v, do, kw)
+    for g, p, r, t in zip(got, plain, recompute, (q, k, v)):
+        assert g.dtype == t.dtype and g.shape == t.shape
+        assert g.stride() == t.stride()              # the model layout
+        assert torch.isfinite(g).all()
+        if dtype == "float32":
+            for want in (p, r):
+                err = float((g - want).abs().max())
+                assert err <= _grad_tol(want), err
+        else:
+            assert _tier_ratio(g, p) <= 1.0
+            assert _norm_gap(g, r) <= GRAD_RTOL_BF16
+
+
+@pytest.mark.cuda
+def test_cuda_backward_at_the_flash4k_shape(cuda_device):
+    """transformer-100m's training shape in the benchmark's flash4k cell
+    (B 2, H 12, S 4,096, hd 64, causal, float32): each gradient within
+    GRAD_NORM_RTOL_4K of the recompute, under the cell's grad_gap limit."""
+    kw = dict(causal=True)
+    q, k, v, do = _cuda_bwd_operands(4096, 64, 12, 12, "float32", seed=11)
+    o, lse = flash_attention_fwd(q, k, v, return_lse=True, **kw)
+    got = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    want = _recompute_grads(q, k, v, do, kw)
+    gaps = [_norm_gap(g, w) for g, w in zip(got, want)]
+    assert max(gaps) <= GRAD_NORM_RTOL_4K, gaps
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,hd,H,KV,dtype,kw,Sk", [
+    (256, 64, 4, 2, "float32", MASKS[0], None),
+    (100, 128, 4, 2, "float32", RAGGED_MASKS[0], None),
+    (256, 32, 2, 2, "float32", dict(causal=False, window=64), 128),
+    (256, 256, 4, 2, "float32", MASKS[3], None),
+    (256, 128, 4, 2, "bfloat16", MASKS[3], None),             # tensor cores
+    (100, 64, 4, 2, "bfloat16", RAGGED_MASKS[0], None),
+    (256, 32, 4, 2, "bfloat16", MASKS[0], None)])
+def test_cuda_forward_row_statistic_is_the_log_sum_exp(
+        cuda_device, S, hd, H, KV, dtype, kw, Sk):
+    """Both forward kernels store lse = m + log(l): torch.logsumexp of the
+    plain version's masked scores (NEG_INF where a row has no live key),
+    and the output is the one they give without it."""
+    q, k, v, _ = _cuda_bwd_operands(S, hd, H, KV, dtype, seed=S + hd,
+                                    Sk=Sk)
+    out, lse = flash_attention_fwd(q, k, v, return_lse=True, **kw)
+    assert lse.shape == (2, H, S) and lse.dtype == torch.float32
+    assert torch.equal(out, flash_attention_fwd(q, k, v, **kw))
+    _, want = ref.flash_attention_ref(q, k, v, return_lse=True, **kw)
+    torch.testing.assert_close(lse, want, rtol=1e-6, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_no_grad_forward_asks_for_no_row_statistic(cuda_device,
+                                                        monkeypatch):
+    calls = []
+    real = ops.flash_attention_fwd
+
+    def spy(*a, **kw):
+        calls.append(kw.get("return_lse", False))
+        return real(*a, **kw)
+
+    monkeypatch.setattr(ops, "flash_attention_fwd", spy)
+    qkv = [torch.tensor(a, device=cuda_device, requires_grad=True)
+           for a in _model_layout_operands()]
+    with torch.no_grad():
+        ops.flash_attention(*qkv)
+    ops.flash_attention(*(t.detach() for t in qkv))
+    assert calls == [False, False]
+    ops.flash_attention(*qkv)
+    assert calls[-1] is True
+
+
+@pytest.mark.cuda
+def test_cuda_backward_kernels_keep_flash_attention_out_of_their_names(
+        cuda_device):
+    """The benchmark's flash roofline sums the kernels whose names hold
+    "flash_attention": the backward's two must not, so it reads the
+    forward alone."""
+    from torch.profiler import ProfilerActivity, profile
+    q, k, v, do = _cuda_bwd_operands(256, 64, 4, 2, "float32", seed=1)
+    o, lse = flash_attention_fwd(q, k, v, return_lse=True)
+    flash_attention_bwd(q, k, v, o, lse, do)      # loaded before the window
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            flash_attention_bwd(q, k, v, o, lse, do)
+        torch.cuda.synchronize()
+    names = {e.name for e in prof.events() if "flash" in e.name}
+    assert any("flash_bwd_kernel" in n for n in names), names
+    assert any("flash_bwd_prep_kernel" in n for n in names), names
+    assert not any("flash_attention" in n for n in names), names
+
+
+@pytest.mark.cuda
+def test_cuda_function_keeps_the_recompute_at_hd_256(cuda_device):
+    arrs = [np.random.default_rng(2).standard_normal(s, dtype=np.float32)
+            for s in ((1, 128, 4, 256), (1, 128, 2, 256), (1, 128, 2, 256))]
+    qkv = [torch.tensor(a, device=cuda_device, requires_grad=True)
+           for a in arrs]
+    before = flash_attention_bwd.launches
+    torch.sum(ops.flash_attention(*qkv) ** 2).backward()
+    assert flash_attention_bwd.launches == before
+    want = _port_grads(lambda q, k, v: ops.flash_attention(q, k, v), arrs)
+    for t, w in zip(qkv, want):
+        np.testing.assert_allclose(_f32(t.grad), w.numpy(), atol=GRAD_ATOL,
+                                   rtol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_backward_wrapper_refuses_what_the_kernel_does_not_take(
+        cuda_device):
+    q, k, v, do = _cuda_bwd_operands(64, 256, 4, 2, "float32", seed=0)
+    o, lse = flash_attention_fwd(q, k, v, return_lse=True)
+    with pytest.raises(ValueError, match="hd <= 128"):
+        flash_attention_bwd(q, k, v, o, lse, do)
+    q, k, v, do = _cuda_bwd_operands(64, 64, 4, 2, "float32", seed=0)
+    o, lse = flash_attention_fwd(q, k, v, return_lse=True)
+    with pytest.raises(ValueError, match="lse"):
+        flash_attention_bwd(q, k, v, o, lse[:, :2], do)
+    with pytest.raises(ValueError, match="dO"):
+        flash_attention_bwd(q, k, v, o, lse, do.bfloat16())
